@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from .norm import safe_norm
 from .quats import quaternion_to_rotation_matrix
 
 
@@ -27,3 +28,11 @@ def convert_ray_dirs_depth_along_ray_pose_trans_quats_to_pointmap(
     local = depth_along_ray * ray_directions  # (..., H, W, 3)
     world = (rot[..., None, None, :, :] * local[..., None, :]).sum(-1)
     return world + pose_trans[..., None, None, :]
+
+
+def angle_diff_vec3(v1: torch.Tensor, v2: torch.Tensor,
+                    eps: float = 1e-12) -> torch.Tensor:
+    """Angle in radians between 3D vectors (..., 3). The cross product's
+    norm has a zero subgradient where the vectors are parallel."""
+    cross_norm = safe_norm(torch.linalg.cross(v1, v2, dim=-1)) + eps
+    return torch.atan2(cross_norm, (v1 * v2).sum(-1))

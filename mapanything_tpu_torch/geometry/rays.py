@@ -1,10 +1,64 @@
-"""Intrinsics recovery from ray directions; counterpart of
-mapanything_tpu/geometry/rays.py::recover_pinhole_intrinsics_from_ray_directions.
+"""Pixel-grid, ray and intrinsics math; counterpart of
+mapanything_tpu/geometry/rays.py (depthmap_to_camera_frame,
+depthmap_to_world_frame, get_rays_in_camera_frame,
+recover_pinhole_intrinsics_from_ray_directions).
 """
 
 from __future__ import annotations
 
 import torch
+
+from .quats import rotate
+
+
+def xy_grid(width: int, height: int, dtype=torch.float32, device=None):
+    """Pixel coordinate grids (H, W) each: x[j, i] = i, y[j, i] = j."""
+    x = torch.arange(width, dtype=dtype, device=device)[None, :]
+    y = torch.arange(height, dtype=dtype, device=device)[:, None]
+    return x.expand(height, width), y.expand(height, width)
+
+
+def _k_params(intrinsics: torch.Tensor):
+    """fx, fy, cx, cy of (..., 3, 3) intrinsics, each (..., 1, 1)."""
+    return tuple(intrinsics[..., i, j][..., None, None]
+                 for i, j in ((0, 0), (1, 1), (0, 2), (1, 2)))
+
+
+def depthmap_to_camera_frame(depthmap: torch.Tensor, intrinsics: torch.Tensor):
+    """Depth (..., H, W) and K (..., 3, 3) -> camera-frame pointmap
+    (..., H, W, 3) and the valid mask depth > 0."""
+    height, width = depthmap.shape[-2:]
+    x, y = xy_grid(width, height, depthmap.dtype, depthmap.device)
+    fx, fy, cx, cy = _k_params(intrinsics)
+    pts = torch.stack([(x - cx) * depthmap / fx, (y - cy) * depthmap / fy,
+                       depthmap], dim=-1)
+    return pts, depthmap > 0.0
+
+
+def depthmap_to_world_frame(depthmap: torch.Tensor, intrinsics: torch.Tensor,
+                            camera_pose: torch.Tensor | None = None):
+    """Depth, K and an optional cam2world (..., 4, 4) -> world-frame
+    pointmap (..., H, W, 3) and the valid mask."""
+    pts, valid = depthmap_to_camera_frame(depthmap, intrinsics)
+    if camera_pose is None:
+        return pts, valid
+    rot = camera_pose[..., None, None, :3, :3]
+    return rotate(rot, pts) + camera_pose[..., None, None, :3, 3], valid
+
+
+def get_rays_in_camera_frame(intrinsics: torch.Tensor, height: int,
+                             width: int, normalize_to_unit_sphere: bool):
+    """K (..., 3, 3) -> ray origins (zeros) and directions (..., H, W, 3)."""
+    x, y = xy_grid(width, height, intrinsics.dtype, intrinsics.device)
+    fx, fy, cx, cy = _k_params(intrinsics)
+    xx = (x - cx) / fx
+    yy = (y - cy) / fy
+    dirs = torch.stack([xx, yy, torch.ones_like(xx)], dim=-1)
+    if normalize_to_unit_sphere:
+        dirs = dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
+    origins = torch.zeros(intrinsics.shape[:-2] + (height, width, 3),
+                          dtype=intrinsics.dtype, device=intrinsics.device)
+    return origins, dirs
 
 
 def recover_pinhole_intrinsics_from_ray_directions(

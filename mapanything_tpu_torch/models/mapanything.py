@@ -135,8 +135,10 @@ class MapAnythingConfig:
             "scene_rep_type": "ROADMAP queue A item 4 (other scene reps)",
             "trunk_seq_axis": "ROADMAP queue A item 11 (multi-GPU)",
             "fold_layerscale": "ROADMAP queue A item 2 (fold_layerscale)",
-            "encoder_gradient_checkpointing": "ROADMAP queue A item 9",
-            "trunk_gradient_checkpointing": "ROADMAP queue A item 9",
+            "encoder_gradient_checkpointing": (
+                "ROADMAP queue A item 9 (gradient checkpointing)"),
+            "trunk_gradient_checkpointing": (
+                "ROADMAP queue A item 9 (gradient checkpointing)"),
         }
         for field, item in unsupported.items():
             if getattr(self, field) != getattr(default, field):

@@ -3,9 +3,9 @@
 Each library is compiled by ``nvcc`` from the sources under
 ``mapanything_tpu_torch/csrc/`` into a shared object with a plain C
 interface, then loaded with ``ctypes``. The object's file name carries a hash
-of its sources and flags, so an edited source rebuilds and an unchanged one
-is reused. The build directory is ``build/kernels`` at the repository root
-(listed in ``.gitignore``).
+of its sources, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source rebuilds and an unchanged one is reused. The build directory
+is ``build/kernels`` at the repository root (listed in ``.gitignore``).
 
 Nothing here runs at import: the first call of :func:`load_library` builds.
 """
@@ -19,6 +19,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -31,6 +33,7 @@ NVCC_FLAGS = (
 # library name -> sources under csrc/
 LIBRARIES = {
     "flash_attn_fwd": ("flash_attn_fwd.cu",),
+    "flash_attn_bwd": ("flash_attn_bwd.cu",),
 }
 
 
@@ -56,7 +59,7 @@ def build_library(name: str) -> tuple[Path, str]:
     """
     sources = [CSRC / s for s in LIBRARIES[name]]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out_dir = BUILD_DIR
@@ -78,6 +81,22 @@ def build_library(name: str) -> tuple[Path, str]:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out, proc.stdout + proc.stderr
+
+
+def build_all() -> dict[str, tuple[Path, str, float]]:
+    """Build every library at once, one nvcc process each, in parallel.
+
+    Returns {name: (path, compiler log, seconds)}; raises the first build's
+    error after all have finished.
+    """
+    def timed(name):
+        t0 = time.perf_counter()
+        path, log = build_library(name)
+        return path, log, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        futures = {name: pool.submit(timed, name) for name in LIBRARIES}
+    return {name: fut.result() for name, fut in futures.items()}
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,11 +1,13 @@
 """Scaled dot-product attention behind one functional interface.
 
-  * "flash" - the hand-written flash-attention forward
-              (ops/flash_attention.py): the CUDA kernel for CUDA tensors, its
-              plain fp32 twin for CPU tensors;
+  * "flash" - the hand-written flash attention (ops/flash_attention.py), a
+              torch.autograd.Function: the CUDA forward and backward kernels
+              for CUDA tensors, their plain fp32 twins for CPU tensors. The
+              counterpart of the JAX package's flash_attention_trainable;
   * "math"  - scores in fp32, fp32 softmax, probabilities cast back to the
               input dtype for the PV product; materialises the (N, N) score
-              matrix. Counterpart of the JAX package's "xla" path
+              matrix and is differentiated by torch autograd. Counterpart of
+              the JAX package's "xla" path
               (mapanything_tpu/ops/attention.py::_sdpa_xla);
   * "auto"  - "flash".
 """
