@@ -6,7 +6,14 @@
 //   mapanything_tpu/ops/flash_attention_bwd.py::_dq_kernel   (flash_attn_bwd_dq)
 // with the same split: a key-major pass accumulates dK and dV, a q-major
 // pass accumulates dQ, so no two blocks write one output row and no atomics
-// are needed (the gradients are deterministic).
+// are needed (the gradients are deterministic). Each comes in two output
+// types: bf16 (the single-device backward) and fp32 (the ring backward's
+// per-pair partials, flash_attn_bwd_dkv_f32 / _dq_f32, which the ring adds
+// in fp32 and rounds once, as ring_attention.py::_pair_bwd asks with
+// out_dtype=float32). A third kernel is the dV arm of the dK/dV pass alone,
+//   mapanything_tpu/ops/ring_attention.py::_pt_do_kernel (flash_attn_bwd_pt_do)
+// out_j = sum_i exp2(s'_ij - lse_i) dO_i in fp32, for the ring's
+// lse-cotangent backward, without the dP, dS and dK products.
 //
 // The formulas, with s' = q.k * d^-1/2 * log2(e) and the forward's base-2
 // lse, delta = rowsum(dO * O) (computed by the caller):
@@ -33,8 +40,8 @@
 // written as 0), and give q rows past nq zero weight through lse = +inf.
 // A row that saw no key carries lse = +inf from the forward, so its P is 0.
 //
-// Layout: q, dO, dQ (B, Nq, H, 64); k, v, dK, dV (B, Nk, H, 64), bf16;
-// lse and delta contiguous (B, H, Nq) fp32.
+// Layout: q, dO, dQ (B, Nq, H, 64); k, v, dK, dV (B, Nk, H, 64); inputs
+// bf16, outputs bf16 or fp32; lse and delta contiguous (B, H, Nq) fp32.
 
 #include <math.h>
 
@@ -46,6 +53,7 @@ using namespace flash;
 
 // One block per (64-key tile, batch * head). Each warp owns 16 key rows;
 // the loop streams 64-row tiles of Q and dO.
+template <typename OutT>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
@@ -53,8 +61,7 @@ __global__ void __launch_bounds__(kThreads)
                          const __nv_bfloat16* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv,
+                         OutT* __restrict__ dk, OutT* __restrict__ dv,
                          int64_t q_sb, int64_t q_sn, int64_t q_sh,
                          int64_t k_sb, int64_t k_sn, int64_t k_sh,
                          int64_t v_sb, int64_t v_sn, int64_t v_sh,
@@ -135,20 +142,21 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  __nv_bfloat16* dkb = dk + b * dk_sb + h * dk_sh;
-  __nv_bfloat16* dvb = dv + b * dv_sb + h * dv_sh;
+  OutT* dkb = dk + b * dk_sb + h * dk_sh;
+  OutT* dvb = dv + b * dv_sb + h * dv_sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = n0 + warp * 16 + lane / 4 + r * 8;
     if (row < nk) {
-      store_row_bf16(dkb, dk_sn, row, dk_acc, r, scale, lane);
-      store_row_bf16(dvb, dv_sn, row, dv_acc, r, 1.f, lane);
+      store_row(dkb, dk_sn, row, dk_acc, r, scale, lane);
+      store_row(dvb, dv_sn, row, dv_acc, r, 1.f, lane);
     }
   }
 }
 
 // One block per (64-row q tile, batch * head). Each warp owns 16 q rows;
 // the loop streams 64-key tiles of K and V.
+template <typename OutT>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
@@ -156,7 +164,7 @@ __global__ void __launch_bounds__(kThreads)
                         const __nv_bfloat16* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        __nv_bfloat16* __restrict__ dq,
+                        OutT* __restrict__ dq,
                         int64_t q_sb, int64_t q_sn, int64_t q_sh,
                         int64_t k_sb, int64_t k_sn, int64_t k_sh,
                         int64_t v_sb, int64_t v_sn, int64_t v_sh,
@@ -226,21 +234,141 @@ __global__ void __launch_bounds__(kThreads)
     mma_acc_times_tile(dq_acc, ds, ks, lane);  // dQ += dS K
   }
 
-  __nv_bfloat16* dqb = dq + b * dq_sb + h * dq_sh;
+  OutT* dqb = dq + b * dq_sb + h * dq_sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = m0 + warp * 16 + lane / 4 + r * 8;
-    if (row < nq) store_row_bf16(dqb, dq_sn, row, dq_acc, r, scale, lane);
+    if (row < nq) store_row(dqb, dq_sn, row, dq_acc, r, scale, lane);
   }
+}
+
+// out = P^T dO, fp32: the dV arm of flash_bwd_dkv_kernel alone. One block
+// per (64-key tile, batch * head); each warp owns 16 key rows, the loop
+// streams 64-row tiles of Q and dO. Two 64-deep products per tile pair
+// (S^T, then P^T dO), so it is compute bound like the others. Every key row
+// below nk is real (a ring shard has no padding); the ragged last tile's
+// rows past nk are zeros and are not written.
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_pt_do_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           float* __restrict__ out,
+                           int64_t q_sb, int64_t q_sn, int64_t q_sh,
+                           int64_t k_sb, int64_t k_sn, int64_t k_sh,
+                           int64_t do_sb, int64_t do_sn, int64_t do_sh,
+                           int64_t o_sb, int64_t o_sn, int64_t o_sh,
+                           int heads, int nq, int nk, float qscale) {
+  __shared__ __align__(16) __nv_bfloat16 qs[kTile * kHPitch];
+  __shared__ __align__(16) __nv_bfloat16 dos[kTile * kHPitch];
+  __shared__ float lse_s[kTile];
+
+  const int b = blockIdx.y / heads;
+  const int h = blockIdx.y % heads;
+  const int n0 = blockIdx.x * kTile;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
+  const __nv_bfloat16* dob = dout + b * do_sb + h * do_sh;
+  const float* lse_bh = lse + static_cast<int64_t>(blockIdx.y) * nq;
+
+  // this block's K rows as A fragments (rows past nk are zeros)
+  load_tile_bf16(qs, k + b * k_sb + h * k_sh, k_sn, n0, nk);
+  __syncthreads();
+  uint32_t kf[4][4];
+  load_a_frags(kf, qs, warp, lane);
+  const int key0 = n0 + warp * 16 + lane / 4;
+  const bool live[2] = {key0 < nk, key0 + 8 < nk};
+
+  float acc[8][4];  // this warp's 16 keys x 64 dims
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+
+  for (int m0 = 0; m0 < nq; m0 += kTile) {
+    __syncthreads();  // the previous tile's readers (or the fragments) are done
+    load_tile_bf16(qs, qb, q_sn, m0, nq);
+    load_tile_bf16(dos, dob, do_sn, m0, nq);
+    if (threadIdx.x < kTile) {
+      const int row = m0 + threadIdx.x;
+      lse_s[threadIdx.x] = row < nq ? lse_bh[row] : INFINITY;
+    }
+    __syncthreads();
+
+    float pt[8][4];  // S^T = K Q^T, then P^T: keys x 64 q columns
+    mma_a_times_tile_t(pt, kf, qs, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = j * 8 + (lane % 4) * 2 + (c & 1);
+        pt[j][c] = live[c / 2] ? exp2f(pt[j][c] * qscale - lse_s[col]) : 0.f;
+      }
+    mma_acc_times_tile(acc, pt, dos, lane);  // out += P^T dO
+  }
+
+  float* ob = out + b * o_sb + h * o_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = n0 + warp * 16 + lane / 4 + r * 8;
+    if (row < nk) store_row(ob, o_sn, row, acc, r, 1.f, lane);
+  }
+}
+
+template <typename OutT>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv,
+               int64_t batch, int64_t heads, int64_t nq, int64_t nk,
+               int64_t kv_eff, const int64_t* st, float qscale, float scale,
+               void* stream) {
+  const dim3 grid(static_cast<unsigned>((nk + kTile - 1) / kTile),
+                  static_cast<unsigned>(batch * heads));
+  flash_bwd_dkv_kernel<OutT><<<grid, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<OutT*>(dk), static_cast<OutT*>(dv), st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12],
+      st[13], st[14], st[15], st[16], st[17], static_cast<int>(heads),
+      static_cast<int>(nq), static_cast<int>(nk), static_cast<int>(kv_eff),
+      qscale, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename OutT>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, int64_t batch,
+              int64_t heads, int64_t nq, int64_t kv_eff, const int64_t* st,
+              float qscale, float scale, void* stream) {
+  const dim3 grid(static_cast<unsigned>((nq + kTile - 1) / kTile),
+                  static_cast<unsigned>(batch * heads));
+  flash_bwd_dq_kernel<OutT><<<grid, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<OutT*>(dq), st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8], st[9], st[10], st[11], st[12], st[13], st[14],
+      static_cast<int>(heads), static_cast<int>(nq),
+      static_cast<int>(kv_eff), qscale, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry points, bound with ctypes.
-//   q, k, v, dout and the outputs: bfloat16, unit stride along D = 64
+//   q, k, v, dout: bfloat16, unit stride along D = 64; the outputs bfloat16
+//            (flash_attn_bwd_dkv, _dq) or float32 (the _f32 forms, _pt_do)
 //   lse, delta: (batch, heads, nq) float32, contiguous
 //   strides: element strides (batch, token, head) of q, k, v, dout, then
-//            the outputs (dk, dv for dkv; dq for dq)
+//            the outputs (dk, dv for dkv; dq for dq); for pt_do those of
+//            q, k, dout and out
 //   qscale: softmax scale times log2(e); scale: the softmax scale
 // Each returns the cudaError_t of the launch (0 on success).
 extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
@@ -250,21 +378,21 @@ extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                   int64_t nk, int64_t kv_eff,
                                   const int64_t* st, float qscale, float scale,
                                   void* stream) {
-  const dim3 grid(static_cast<unsigned>((nk + kTile - 1) / kTile),
-                  static_cast<unsigned>(batch * heads));
-  flash_bwd_dkv_kernel<<<grid, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-      st[10], st[11], st[12], st[13], st[14], st[15], st[16], st[17],
-      static_cast<int>(heads), static_cast<int>(nq), static_cast<int>(nk),
-      static_cast<int>(kv_eff), qscale, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, batch,
+                                   heads, nq, nk, kv_eff, st, qscale, scale,
+                                   stream);
+}
+
+extern "C" int flash_attn_bwd_dkv_f32(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* delta,
+                                      void* dk, void* dv, int64_t batch,
+                                      int64_t heads, int64_t nq, int64_t nk,
+                                      int64_t kv_eff, const int64_t* st,
+                                      float qscale, float scale,
+                                      void* stream) {
+  return launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, batch, heads,
+                           nq, nk, kv_eff, st, qscale, scale, stream);
 }
 
 extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
@@ -273,18 +401,36 @@ extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                                  int64_t heads, int64_t nq, int64_t kv_eff,
                                  const int64_t* st, float qscale, float scale,
                                  void* stream) {
-  const dim3 grid(static_cast<unsigned>((nq + kTile - 1) / kTile),
+  return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, batch, heads,
+                                  nq, kv_eff, st, qscale, scale, stream);
+}
+
+extern "C" int flash_attn_bwd_dq_f32(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* lse, const void* delta,
+                                     void* dq, int64_t batch, int64_t heads,
+                                     int64_t nq, int64_t kv_eff,
+                                     const int64_t* st, float qscale,
+                                     float scale, void* stream) {
+  return launch_dq<float>(q, k, v, dout, lse, delta, dq, batch, heads, nq,
+                          kv_eff, st, qscale, scale, stream);
+}
+
+extern "C" int flash_attn_bwd_pt_do(const void* q, const void* k,
+                                    const void* dout, const void* lse,
+                                    void* out, int64_t batch, int64_t heads,
+                                    int64_t nq, int64_t nk, const int64_t* st,
+                                    float qscale, void* stream) {
+  const dim3 grid(static_cast<unsigned>((nk + kTile - 1) / kTile),
                   static_cast<unsigned>(batch * heads));
-  flash_bwd_dq_kernel<<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  flash_bwd_pt_do_kernel<<<grid, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
       static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12], st[13],
-      st[14], static_cast<int>(heads), static_cast<int>(nq),
-      static_cast<int>(kv_eff), qscale, scale);
+      static_cast<const float*>(lse), static_cast<float*>(out), st[0], st[1],
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+      static_cast<int>(heads), static_cast<int>(nq), static_cast<int>(nk),
+      qscale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -138,18 +138,28 @@ __device__ __forceinline__ void mma_acc_times_tile(float (*out)[4],
 }
 
 // Row r (0: lane/4, 1: lane/4 + 8) of this warp's 16 x 64 accumulator,
-// times `mul`, stored as bf16 into row `row` of a strided (tokens, 64)
-// matrix.
-__device__ __forceinline__ void store_row_bf16(__nv_bfloat16* base,
-                                               int64_t row_stride, int row,
-                                               float (*acc)[4], int r,
-                                               float mul, int lane) {
+// times `mul`, stored into row `row` of a strided (tokens, 64) matrix:
+// rounded to bf16, or as fp32 (the ring's per-pair partials and stats).
+__device__ __forceinline__ void store_row(__nv_bfloat16* base,
+                                          int64_t row_stride, int row,
+                                          float (*acc)[4], int r, float mul,
+                                          int lane) {
   __nv_bfloat16* dst = base + static_cast<int64_t>(row) * row_stride +
                        (lane % 4) * 2;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
     *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) = __floats2bfloat162_rn(
         acc[j][2 * r] * mul, acc[j][2 * r + 1] * mul);
+}
+
+__device__ __forceinline__ void store_row(float* base, int64_t row_stride,
+                                          int row, float (*acc)[4], int r,
+                                          float mul, int lane) {
+  float* dst = base + static_cast<int64_t>(row) * row_stride + (lane % 4) * 2;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    *reinterpret_cast<float2*>(dst + j * 8) =
+        make_float2(acc[j][2 * r] * mul, acc[j][2 * r + 1] * mul);
 }
 
 }  // namespace flash

@@ -1,13 +1,17 @@
 // Flash-attention forward for Hopper (sm_90a): softmax(Q K^T * d^-1/2) V,
-// optionally with the per-row log-sum-exp that the backward needs.
+// optionally with the per-row log-sum-exp that the backward needs, or as the
+// unnormalised partial state that the ring merges.
 //
 // Replaces the two serving-path Pallas kernels of the JAX package:
 //   mapanything_tpu/ops/flash_attention.py::_flash_kernel_1pass_T (kv <= 2816)
 //   mapanything_tpu/ops/flash_attention.py::_flash_kernel_T       (online, kv > 2816)
-// and, with the lse output (entry point flash_attn_fwd_lse), the two
-// training forwards:
+// with the lse output (entry point flash_attn_fwd_lse), the two training
+// forwards:
 //   mapanything_tpu/ops/flash_attention_bwd.py::_fwd_with_lse_kernel_1pass_T
 //   mapanything_tpu/ops/flash_attention_bwd.py::_fwd_with_lse_kernel_T
+// and with the stats epilogue (entry point flash_attn_fwd_stats), the ring
+// attention's per-shard kernel:
+//   mapanything_tpu/ops/ring_attention.py::_flash_stats_kernel
 // Each block owns a 64-row q tile and loops over 64-key K/V tiles with an
 // online softmax (fp32 running max and sum, base 2); a sequence that fits
 // one pass is simply the short loop.
@@ -31,14 +35,23 @@
 // so the backward recovers P = exp2(s' - lse). A row that sees no key
 // (l == 0) writes lse = +inf, which makes that P exactly 0.
 //
+// The stats epilogue writes the fp32 accumulator without dividing by l,
+// and m and l themselves, in the JAX package's conventions: acc / l is the
+// attention output, and a row that sees no key keeps m = -inf and l = 0
+// (the ring's merge guards exactly that pair; it is not the lse's +inf).
+// V may be the same tensor as K (the ring's lse backward sums P K): K and V
+// are read through their own strides.
+//
 // wgmma, TMA, cp.async pipelining and warp specialisation are the work of
 // the PRs that make this kernel fast.
 //
 // Layout: q (B, Nq, H, 64), k and v (B, Nk, H, 64), read through their
 // (batch, token, head) strides with unit stride along D; o is written the
-// same way, lse as a contiguous (B, H, Nq) fp32 tensor. Keys at index >=
-// kv_eff are excluded (the aligned-token n_valid mask): they are loaded as
-// zeros and their scores set to -inf. A row that sees no key is written as 0.
+// same way (bf16, or fp32 for the stats), lse as a contiguous (B, H, Nq)
+// fp32 tensor, the stats m and l as contiguous (B, Nq, H) fp32 tensors.
+// Keys at index >= kv_eff are excluded (the aligned-token n_valid mask, and
+// the ragged tail of a ring shard): they are loaded as zeros and their
+// scores set to -inf. A row that sees no key is written as 0.
 
 #include <math.h>
 
@@ -48,13 +61,17 @@ namespace {
 
 using namespace flash;
 
-template <bool kLse>
+// What the epilogue writes.
+enum Epilogue { kOut = 0, kOutLse = 1, kStats = 2 };
+
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         __nv_bfloat16* __restrict__ o,
-                         float* __restrict__ lse,
+                         const __nv_bfloat16* v,  // may alias k
+                         void* __restrict__ o,
+                         float* __restrict__ lse,  // or the stats' m
+                         float* __restrict__ l_out,
                          int64_t q_sb, int64_t q_sn, int64_t q_sh,
                          int64_t k_sb, int64_t k_sn, int64_t k_sh,
                          int64_t v_sb, int64_t v_sn, int64_t v_sh,
@@ -70,7 +87,6 @@ __global__ void __launch_bounds__(kThreads)
   const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
   const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
   const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-  __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -143,30 +159,40 @@ __global__ void __launch_bounds__(kThreads)
     float li = l[r];
     li += __shfl_xor_sync(0xffffffffu, li, 1);
     li += __shfl_xor_sync(0xffffffffu, li, 2);
-    const float inv = (li == 0.f) ? 0.f : 1.f / li;
     const int row = m0 + warp * 16 + lane / 4 + r * 8;
-    if (row < nq) {
-      store_row_bf16(ob, o_sn, row, acc, r, inv, lane);
-      if (kLse && lane % 4 == 0)
+    if (row >= nq) continue;
+    if (kMode == kStats) {
+      store_row(static_cast<float*>(o) + b * o_sb + h * o_sh, o_sn, row, acc,
+                r, 1.f, lane);
+      if (lane % 4 == 0) {
+        const int64_t idx = (static_cast<int64_t>(b) * nq + row) * heads + h;
+        lse[idx] = m[r];
+        l_out[idx] = li;
+      }
+    } else {
+      const float inv = (li == 0.f) ? 0.f : 1.f / li;
+      store_row(static_cast<__nv_bfloat16*>(o) + b * o_sb + h * o_sh, o_sn,
+                row, acc, r, inv, lane);
+      if (kMode == kOutLse && lane % 4 == 0)
         lse[static_cast<int64_t>(blockIdx.y) * nq + row] =
             (li == 0.f) ? INFINITY : m[r] + log2f(li);
     }
   }
 }
 
-template <bool kLse>
+template <int kMode>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int64_t batch, int64_t heads, int64_t nq, int64_t kv_eff,
-           const int64_t* st, float qscale, void* stream) {
+           float* l_out, int64_t batch, int64_t heads, int64_t nq,
+           int64_t kv_eff, const int64_t* st, float qscale, void* stream) {
   const dim3 grid(static_cast<unsigned>((nq + kTile - 1) / kTile),
                   static_cast<unsigned>(batch * heads));
-  flash_fwd_mma_kernel<kLse><<<grid, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_mma_kernel<kMode><<<grid, kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      lse, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], static_cast<int>(heads), static_cast<int>(nq),
+      static_cast<const __nv_bfloat16*>(v), o, lse, l_out, st[0], st[1],
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
+      static_cast<int>(heads), static_cast<int>(nq),
       static_cast<int>(kv_eff), qscale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -174,8 +200,10 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }  // namespace
 
 // Plain C entry points, bound with ctypes.
-//   q, k, v, o: bfloat16
+//   q, k, v: bfloat16; o: bfloat16 (flash_attn_fwd, flash_attn_fwd_lse) or
+//     the fp32 unnormalised accumulator (flash_attn_fwd_stats)
 //   lse: (batch, heads, nq) float32, contiguous (flash_attn_fwd_lse only)
+//   m, l: (batch, nq, heads) float32, contiguous (flash_attn_fwd_stats only)
 //   strides: 12 element strides, (batch, token, head) for q, k, v, o
 //   qscale: softmax scale times log2(e)
 // Each returns the cudaError_t of the launch (0 on success).
@@ -183,8 +211,8 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, int64_t batch, int64_t heads,
                               int64_t nq, int64_t kv_eff, const int64_t* st,
                               float qscale, void* stream) {
-  return launch<false>(q, k, v, o, nullptr, batch, heads, nq, kv_eff, st,
-                       qscale, stream);
+  return launch<kOut>(q, k, v, o, nullptr, nullptr, batch, heads, nq, kv_eff,
+                      st, qscale, stream);
 }
 
 extern "C" int flash_attn_fwd_lse(const void* q, const void* k, const void* v,
@@ -192,6 +220,17 @@ extern "C" int flash_attn_fwd_lse(const void* q, const void* k, const void* v,
                                   int64_t heads, int64_t nq, int64_t kv_eff,
                                   const int64_t* st, float qscale,
                                   void* stream) {
-  return launch<true>(q, k, v, o, static_cast<float*>(lse), batch, heads, nq,
-                      kv_eff, st, qscale, stream);
+  return launch<kOutLse>(q, k, v, o, static_cast<float*>(lse), nullptr, batch,
+                         heads, nq, kv_eff, st, qscale, stream);
+}
+
+extern "C" int flash_attn_fwd_stats(const void* q, const void* k,
+                                    const void* v, void* acc, void* m,
+                                    void* l, int64_t batch, int64_t heads,
+                                    int64_t nq, int64_t kv_eff,
+                                    const int64_t* st, float qscale,
+                                    void* stream) {
+  return launch<kStats>(q, k, v, acc, static_cast<float*>(m),
+                        static_cast<float*>(l), batch, heads, nq, kv_eff, st,
+                        qscale, stream);
 }

@@ -15,13 +15,15 @@ import numpy as np
 import torch
 
 from .. import geometry as G
+from ..utils.device import resolve_device
 
 
 def make_synthetic_batch(batch_size: int = 1, num_views: int = 2,
                          height: int = 28, width: int = 42, seed: int = 0,
                          device=None) -> Dict[str, Dict[str, torch.Tensor]]:
     """{"views": model inputs, "gt": supervision}, all (B, V, ...) fp32 on
-    `device` but the per-sample flags."""
+    `device` (the card when None) but the per-sample flags."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     b, v, h, w = batch_size, num_views, height, width
 

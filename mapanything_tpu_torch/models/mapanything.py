@@ -14,6 +14,10 @@ NHWC images:
 
 `MapAnythingConfig` has the JAX package's fields and defaults. Values the
 slice does not run raise NotImplementedError naming their ROADMAP item.
+
+With a process group, `forward(views, seq_group=group)` runs the rank's
+share of the views sequence-parallel (the trunk's global layers as ring
+attention); parallel/inference.py::view_sharded_forward drives it.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from ..nn.dpt import DPTFeature, DPTRegressionProcessor
 from ..nn.heads import MLPHead, PoseHead
 from ..nn.layers import Attention, FusedLayerNorm, init_weights_
 from ..nn.trunk import AlternatingAttentionTrunk
+from ..utils.device import resolve_device
 
 RELEASED_SCENE_REP = "raydirs+depth+pose+confidence+mask"
 
@@ -133,7 +138,6 @@ class MapAnythingConfig:
             "trunk_rope_freq": "ROADMAP queue A item 10 (RoPE2D)",
             "use_scale_token": "ROADMAP queue A item 10 (ablations)",
             "scene_rep_type": "ROADMAP queue A item 4 (other scene reps)",
-            "trunk_seq_axis": "ROADMAP queue A item 11 (multi-GPU)",
             "fold_layerscale": "ROADMAP queue A item 2 (fold_layerscale)",
             "encoder_gradient_checkpointing": (
                 "ROADMAP queue A item 9 (gradient checkpointing)"),
@@ -145,6 +149,13 @@ class MapAnythingConfig:
                 raise NotImplementedError(
                     f"MapAnythingConfig.{field}={getattr(self, field)!r} is "
                     f"not ported yet: {item}")
+        if self.trunk_seq_axis is not None:
+            raise ValueError(
+                "trunk_seq_axis names a JAX mesh axis; the port takes the "
+                "torch.distributed process group at run time instead: "
+                "MapAnything.forward(views, seq_group=...), "
+                "view_sharded_forward(model, views, group) or "
+                "InferencePipeline(model, view_shard_group=...)")
         if self.scan_layers:
             raise NotImplementedError(
                 "scan_layers is an XLA compile-time tool; the port runs the "
@@ -177,7 +188,8 @@ class MapAnything(nn.Module):
 
     Args:
         cfg: the architecture.
-        device: where the parameters live; "meta" builds shapes only.
+        device: where the parameters live: the card when None (raises
+            without one), "cpu" when asked; "meta" builds shapes only.
         generator: random init of the parameters (N(0, 0.02^2) weights, see
             nn/layers.py::init_weights_). None leaves them uninitialised,
             for a caller that loads weights next (utils/weights.py).
@@ -187,6 +199,7 @@ class MapAnything(nn.Module):
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         cfg.check_supported()
+        device = resolve_device(device)
         self.cfg = cfg
         dt = cfg.dtype
         self.encoder = DinoViT(
@@ -221,9 +234,14 @@ class MapAnything(nn.Module):
             if isinstance(mod, Attention):
                 mod.attn_impl = impl
 
-    def forward(self, views: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def forward(self, views: Dict[str, torch.Tensor],
+                seq_group=None) -> Dict[str, torch.Tensor]:
         """views["img"]: (B, V, H, W, 3) normalised images. Returns the
-        released outputs, all (B, V, ...) but metric_scaling_factor (B,)."""
+        released outputs, all (B, V, ...) but metric_scaling_factor (B,).
+
+        With `seq_group`, views hold this rank's V/p views in global order
+        and the outputs are this rank's; metric_scaling_factor is the same
+        on every rank."""
         present = [k for k in PRIOR_VIEW_KEYS if k in views]
         if present:
             raise NotImplementedError(
@@ -239,7 +257,7 @@ class MapAnything(nn.Module):
         fused = self.fusion_norm(enc.reshape(b, v, gh, gw, enc_dim).float())
         tok = self.scale_token[None, None, :].expand(b, 1, enc_dim)
         final, intermediates, tok_out = self.info_sharing(
-            fused.to(cfg.dtype), tok)
+            fused.to(cfg.dtype), tok, seq_group)
 
         # hook 0 is the fused, normed encoder features
         hooks = [fused.to(cfg.dtype)] + intermediates + [final]

@@ -2,7 +2,8 @@
 
 Counterparts of mapanything_tpu/nn/layers.py: the DINOv2/timm pre-norm block
 (LN -> MHA -> LayerScale -> residual; LN -> MLP(GELU) -> LayerScale ->
-residual) that the encoder and the trunk share.
+residual) that the encoder and the trunk share, and its sequence-parallel
+form over view-sharded patches (`RingGlobalBlock`).
 
 Dtype policy, as in the JAX package: parameters live in fp32, each layer
 computes in its `dtype` (bf16 on the serving path), LayerNorm takes fp32
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import ring_attention as ring
 from ..ops.attention import sdpa
 
 
@@ -179,6 +181,95 @@ class Block(nn.Module):
         if self.ls2 is not None:
             h = self.ls2(h)
         return x + h
+
+
+class _RingAttention(nn.Module):
+    """`Attention`'s parameters over [view-sharded patch tokens | replicated
+    extra tokens] (JAX `_RingAttention`). Wraps an `Attention`, so the
+    parameters and the state dict stay the block's own.
+
+      * patch rows attend to every rank's patches through the ring
+        (ops/ring_attention.py) and to the extra tokens by their exact
+        stats, merged through the ring's lse;
+      * extra-token rows attend to each rank's patches by partial stats,
+        all-gathered and merged in rank order, plus their own
+        self-attention: every rank computes the same token rows.
+    """
+
+    def __init__(self, attn: Attention):
+        super().__init__()
+        self.attn = attn
+
+    def forward(self, x: torch.Tensor, tok: torch.Tensor, group):
+        a = self.attn
+        b, nl, dim = x.shape
+        t = tok.shape[1]
+
+        def split(z):
+            z = a.qkv(z)
+            return z.view(z.shape[0], z.shape[1], 3, a.num_heads,
+                          dim // a.num_heads).unbind(2)
+
+        qx, kx, vx = split(x)
+        if not t:
+            out_x = ring.ring_flash_attention(qx, kx, vx, group)
+            return a.proj(out_x.reshape(b, nl, dim)), tok
+        qt, kt, vt = split(tok)
+
+        # patch rows: 2^lse_p is the ring side's softmax mass, (acc, m, l)
+        # of the tokens their exact side
+        out_p, lse_p = ring.ring_flash_attention_with_lse(qx, kx, vx, group)
+        acc_t, m_t, l_t = ring.attention_stats(qx, kt, vt)
+        m_tot = torch.maximum(lse_p, m_t)
+        w_p = torch.exp2(lse_p - m_tot)
+        w_t = torch.exp2(m_t - m_tot)
+        out_x = ((out_p * w_p[..., None] + acc_t * w_t[..., None])
+                 / (w_p + l_t * w_t)[..., None]).to(x.dtype)
+        out_x = a.proj(out_x.reshape(b, nl, dim))
+
+        # token rows: every rank's partial stats against its own patches
+        parts = [ring.all_gather(s, group)
+                 for s in ring.attention_stats(qt, kx, vx)]
+        acc, m, l = ring.attention_stats(qt, kt, vt)
+        for i in range(parts[0].shape[0]):
+            acc, m, l = ring.merge_stats(acc, m, l, *(s[i] for s in parts))
+        out_t = (acc / torch.where(l == 0, torch.ones_like(l), l)[..., None]
+                 ).to(tok.dtype)
+        return out_x, a.proj(out_t.reshape(b, t, dim))
+
+
+class RingGlobalBlock(nn.Module):
+    """A `Block` over the global sequence [patches; extra tokens] with the
+    patch tokens view-sharded over the ranks of a process group (JAX
+    `RingGlobalBlock`). Wraps the `Block` and uses its parameters, so a
+    trunk runs any global layer either way with one state dict. LayerNorm,
+    MLP and LayerScale act on the local patches and the replicated tokens
+    alike; only attention needs the ring.
+
+    Training: `tok` and its output are replicated, every rank computing the
+    same token rows. A loss summed over ranks that includes the token
+    output counts it once per rank; divide that term by the group size.
+    """
+
+    def __init__(self, block: Block, entropy_scaling_base: Optional[int] = None):
+        super().__init__()
+        if entropy_scaling_base is not None:
+            raise NotImplementedError(
+                "entropy scaling is not ported yet: ROADMAP queue A item 10")
+        self.block = block
+        self.attn = _RingAttention(block.attn)
+
+    def forward(self, x: torch.Tensor, tok: torch.Tensor, group):
+        """x (B, N_local, C), tok (B, T, C) -> the same two shapes."""
+        blk = self.block
+        hx, ht = self.attn(blk.norm1(x), blk.norm1(tok), group)
+        if blk.ls1 is not None:
+            hx, ht = blk.ls1(hx), blk.ls1(ht)
+        x, tok = x + hx, tok + ht
+        hx, ht = blk.mlp(blk.norm2(x)), blk.mlp(blk.norm2(tok))
+        if blk.ls2 is not None:
+            hx, ht = blk.ls2(hx), blk.ls2(ht)
+        return x + hx, tok + ht
 
 
 @torch.no_grad()

@@ -1,13 +1,19 @@
 """Alternating frame/global multi-view trunk with IFR taps.
 
 Counterpart of mapanything_tpu/nn/trunk.py::AlternatingAttentionTrunk, the
-unrolled layer loop (no RoPE, no view PE, no sequence parallelism): `depth`
-pre-norm blocks alternating per-frame self-attention (even layers, tokens of
-one view) and global self-attention (odd layers, all views' patch tokens
-plus the extra scale token). The global sequence is padded to a multiple of
+unrolled layer loop (no RoPE, no view PE): `depth` pre-norm blocks
+alternating per-frame self-attention (even layers, tokens of one view) and
+global self-attention (odd layers, all views' patch tokens plus the extra
+scale token). The global sequence is padded to a multiple of
 `pad_tokens_to` and the pad keys are masked through `n_valid`. Layers in
 `indices` are tapped, each through its own LayerNorm; the final norm covers
 the patches and the extra tokens.
+
+Sequence parallelism: with a process group (`seq_group`), the views are
+sharded over its ranks, each rank holding V/p of them. Global layers run
+their block as a `RingGlobalBlock` on the local views' patches and the
+replicated token, with no padding; the ref/non-ref embedding uses the global
+view index rank * V_local + i. Frame layers are per view and unchanged.
 """
 
 from __future__ import annotations
@@ -15,10 +21,11 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Block, Dense, FusedLayerNorm
+from .layers import Block, Dense, FusedLayerNorm, RingGlobalBlock
 
 
 class AlternatingAttentionTrunk(nn.Module):
@@ -46,9 +53,13 @@ class AlternatingAttentionTrunk(nn.Module):
                             FusedLayerNorm(dim, dtype=dtype, device=device))
         self.norm = FusedLayerNorm(dim, dtype=dtype, device=device)
 
-    def forward(self, features: torch.Tensor, extra_tokens: torch.Tensor):
+    def forward(self, features: torch.Tensor, extra_tokens: torch.Tensor,
+                seq_group=None):
         """features (B, V, gh, gw, C_in), extra_tokens (B, T, C_in) ->
         (final (B, V, gh, gw, dim), [tap (B, V, gh, gw, dim)], tok (B, T, dim))
+
+        With `seq_group`, V counts this rank's views (see the module
+        docstring); the token is the same on every rank.
         """
         b, v, gh, gw, _ = features.shape
         p = gh * gw
@@ -58,14 +69,18 @@ class AlternatingAttentionTrunk(nn.Module):
 
         if self.ref_nonref_embed is not None:
             emb = self.ref_nonref_embed.to(dt)
-            is_ref = torch.zeros(v, dtype=dt, device=x.device)
-            is_ref[0] = 1
-            is_ref = is_ref[None, :, None, None]
+            first = 0 if seq_group is None else dist.get_rank(seq_group) * v
+            is_ref = (torch.arange(first, first + v, device=x.device) == 0
+                      ).to(dt)[None, :, None, None]
             x = x + is_ref * emb[0] + (1.0 - is_ref) * emb[1]
 
         intermediates = []
         for i, blk in enumerate(self.layers):
-            if i % 2:  # global: [all views' patches | extra tokens | pad]
+            if i % 2 and seq_group is not None:  # global, view-sharded
+                x, tok = RingGlobalBlock(blk)(x.reshape(b, v * p, dim), tok,
+                                              seq_group)
+                x = x.reshape(b, v, p, dim)
+            elif i % 2:  # global: [all views' patches | extra tokens | pad]
                 n_tot = v * p + tok.shape[1]
                 flat = torch.cat([x.reshape(b, v * p, dim), tok], dim=1)
                 n_valid = None

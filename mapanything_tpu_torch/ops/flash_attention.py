@@ -37,13 +37,18 @@ keys past ``n_valid`` explicitly and read the (B, N, H) strides directly.
 Each kernel has a wrapper that takes tensors of either device:
 :func:`flash_attention_fwd_lse`, :func:`flash_attention_dkv` and
 :func:`flash_attention_dq`; :func:`flash_attention_bwd` computes delta and
-calls the two backward ones.
+calls the two backward ones. The dK/dV and dQ wrappers also write fp32
+(``out_dtype=torch.float32``: the ``_f32`` entries of the same kernels), for
+the ring backward's per-pair partials (ops/ring_attention.py, which holds
+the ring's own two kernels' wrappers).
 
 Launch counters: ``flash_attention.kernel_counts`` counts the launches of
-each CUDA kernel ("fwd", "fwd_lse", "dkv", "dq"), each wrapper adding one
-where it launches; ``flash_attention.kernel_launches`` is their sum and
-``flash_attention.plain_launches`` counts the wrappers' calls of their
-plain twins (on CPU tensors). :func:`reset_launch_counts` zeroes them.
+each CUDA kernel ("fwd", "fwd_lse", "dkv", "dq", and the ring's
+"fwd_stats" and "pt_do"; the fp32 forms count under "dkv" and "dq"), each
+wrapper adding one where it launches; ``flash_attention.kernel_launches``
+is their sum and ``flash_attention.plain_launches`` counts the wrappers'
+calls of their plain twins (on CPU tensors). :func:`reset_launch_counts`
+zeroes them.
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ import torch
 
 _LOG2E = 1.4426950408889634
 _HEAD_DIM = 64
-KERNELS = ("fwd", "fwd_lse", "dkv", "dq")
+KERNELS = ("fwd", "fwd_lse", "dkv", "dq", "fwd_stats", "pt_do")
 
 
 def _kv_eff(k: torch.Tensor, n_valid: int | None) -> int:
@@ -116,10 +121,10 @@ def _probs_and_dscores(q, k, v, dout, lse, delta, kv_eff):
 
 
 def flash_attention_dkv_plain(q, k, v, dout, lse, delta,
-                              n_valid: int | None = None):
+                              n_valid: int | None = None, out_dtype=None):
     """The plain version of the dK/dV kernel: dV = P^T dO and
     dK = dS^T Q * d^-1/2, rows of keys >= n_valid zero. Returns (dk, dv),
-    (B, Nk, H, D) in q's dtype."""
+    (B, Nk, H, D) in `out_dtype` (default q's dtype)."""
     kv_eff = _kv_eff(k, n_valid)
     p, ds = _probs_and_dscores(q, k, v, dout, lse, delta, kv_eff)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
@@ -127,17 +132,18 @@ def flash_attention_dkv_plain(q, k, v, dout, lse, delta,
     dv[:, :kv_eff] = torch.einsum("bhqk,bqhd->bkhd", p, dout.float())
     dk[:, :kv_eff] = torch.einsum("bhqk,bqhd->bkhd", ds,
                                   q.float()) * q.shape[-1] ** -0.5
-    return dk.to(q.dtype), dv.to(q.dtype)
+    return dk.to(out_dtype or q.dtype), dv.to(out_dtype or q.dtype)
 
 
 def flash_attention_dq_plain(q, k, v, dout, lse, delta,
-                             n_valid: int | None = None) -> torch.Tensor:
+                             n_valid: int | None = None,
+                             out_dtype=None) -> torch.Tensor:
     """The plain version of the dQ kernel: dQ = dS K * d^-1/2,
-    (B, Nq, H, D) in q's dtype."""
+    (B, Nq, H, D) in `out_dtype` (default q's dtype)."""
     kv_eff = _kv_eff(k, n_valid)
     _, ds = _probs_and_dscores(q, k, v, dout, lse, delta, kv_eff)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k[:, :kv_eff].float())
-    return (dq * q.shape[-1] ** -0.5).to(q.dtype)
+    return (dq * q.shape[-1] ** -0.5).to(out_dtype or q.dtype)
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout,
@@ -212,11 +218,15 @@ def _kernel_fn(library: str, entry: str):
         "flash_attn_fwd": [_P] * 4 + [_I] * 4 + [_P, ctypes.c_float, _P],
         "flash_attn_fwd_lse": [_P] * 5 + [_I] * 4
         + [_P, ctypes.c_float, _P],
+        "flash_attn_fwd_stats": [_P] * 6 + [_I] * 4
+        + [_P, ctypes.c_float, _P],
         "flash_attn_bwd_dkv": [_P] * 8 + [_I] * 5
         + [_P, ctypes.c_float, ctypes.c_float, _P],
         "flash_attn_bwd_dq": [_P] * 7 + [_I] * 4
         + [_P, ctypes.c_float, ctypes.c_float, _P],
-    }[entry]
+        "flash_attn_bwd_pt_do": [_P] * 5 + [_I] * 4
+        + [_P, ctypes.c_float, _P],
+    }[entry.removesuffix("_f32")]
     return fn
 
 
@@ -288,20 +298,31 @@ def flash_attention_fwd_lse(q, k, v, n_valid: int | None = None):
     return _plain(flash_attention_fwd_lse_plain, q, k, v, n_valid)
 
 
+def _out_entry(entry: str, out_dtype) -> str:
+    """The entry point writing `out_dtype`: bf16 (default) or fp32."""
+    if out_dtype in (None, torch.bfloat16):
+        return entry
+    if out_dtype == torch.float32:
+        return entry + "_f32"
+    raise TypeError(f"{entry} writes bfloat16 or float32, not {out_dtype}")
+
+
 def flash_attention_dkv(q, k, v, dout, lse, delta,
-                        n_valid: int | None = None):
+                        n_valid: int | None = None, out_dtype=None):
     """(dk, dv): the dK/dV kernel on CUDA tensors, its plain twin on CPU
     tensors. dout needs the kernels' layout (see _kernel_layout); lse and
-    delta are contiguous (B, H, Nq) fp32."""
+    delta are contiguous (B, H, Nq) fp32. `out_dtype` float32 writes the
+    gradients in fp32 (the ring's per-pair partials); default q's dtype."""
     if not q.is_cuda:
         return _plain(flash_attention_dkv_plain, q, k, v, dout, lse, delta,
-                      n_valid)
+                      n_valid, out_dtype)
+    entry = _out_entry("flash_attn_bwd_dkv", out_dtype)
     _check_bwd_args(q, k, v, dout, lse, delta)
     b, nq, h, d = q.shape
     nk = k.shape[1]
-    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
-    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    _launch("dkv", "flash_attn_bwd", "flash_attn_bwd_dkv", q.device,
+    dk = torch.empty(k.shape, dtype=out_dtype or k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    _launch("dkv", "flash_attn_bwd", entry, q.device,
             *_bwd_common(q, k, v, dout, lse, delta), dk.data_ptr(),
             dv.data_ptr(), b, h, nq, nk, _kv_eff(k, n_valid),
             _strides(q, k, v, dout, dk, dv), d**-0.5 * _LOG2E, d**-0.5)
@@ -309,16 +330,18 @@ def flash_attention_dkv(q, k, v, dout, lse, delta,
 
 
 def flash_attention_dq(q, k, v, dout, lse, delta,
-                       n_valid: int | None = None) -> torch.Tensor:
+                       n_valid: int | None = None,
+                       out_dtype=None) -> torch.Tensor:
     """dq: the dQ kernel on CUDA tensors, its plain twin on CPU tensors
     (arguments as :func:`flash_attention_dkv`)."""
     if not q.is_cuda:
         return _plain(flash_attention_dq_plain, q, k, v, dout, lse, delta,
-                      n_valid)
+                      n_valid, out_dtype)
+    entry = _out_entry("flash_attn_bwd_dq", out_dtype)
     _check_bwd_args(q, k, v, dout, lse, delta)
     b, nq, h, d = q.shape
-    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    _launch("dq", "flash_attn_bwd", "flash_attn_bwd_dq", q.device,
+    dq = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)
+    _launch("dq", "flash_attn_bwd", entry, q.device,
             *_bwd_common(q, k, v, dout, lse, delta), dq.data_ptr(), b, h, nq,
             _kv_eff(k, n_valid), _strides(q, k, v, dout, dq),
             d**-0.5 * _LOG2E, d**-0.5)

@@ -1,0 +1,222 @@
+"""Check view-sharded inference and the ring block across processes against
+the unsharded computation, one process per card:
+
+    torchrun --nproc_per_node=N -m mapanything_tpu_torch.parallel.ring_check
+
+Every rank builds the same model (the released config; `--size test` for a
+tiny one) with the same weights, `--weights normal` (every parameter
+N(0, 0.02^2) from a seeded numpy generator, as chip_smoke.py's phases 3
+and 5) or `--weights init` (the model's own seeded init, LayerNorm and
+LayerScale at 1, as phase 4), and the same synthetic views, then
+
+  1. runs `InferencePipeline(model, view_shard_group=group).infer` and the
+     unsharded `infer` of the same views, and compares pts3d and
+     depth_along_ray (rel-L2), camera quaternions, translations and the
+     metric scale (relative), limit 1e-2 each; beside them, not held to a
+     limit, the same differences between the unsharded call with flash and
+     with math attention: how far bf16-level changes of attention move
+     this model's outputs. Times 5 calls of each after 2 warm-ups and
+     counts the kernel launches of the timed sharded calls;
+  2. takes the gradient of RingGlobalBlock over its shard of x plus the
+     replicated token (loss sum(out_x^2) + sum(out_t^2) / N per rank,
+     parameter and token gradients all-reduced) and compares every
+     gradient with the plain Block's on the whole [x; tok], rel-L2 2e-2.
+
+Rank 0 prints one JSON line; the exit code is 1 if a check failed. With
+`--device cpu` the group is gloo and the plain kernel twins run.
+chip_smoke.py's phase 5 runs both checks on a one-process group.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..models import MapAnything, MapAnythingConfig
+from ..nn.layers import Block, RingGlobalBlock, init_weights_
+from ..ops.flash_attention import flash_attention, reset_launch_counts
+from ..utils.inference import InferencePipeline
+from ..utils.weights import random_normal_
+from .distributed import init_distributed
+
+ERR_LIMIT = 1e-2
+GRAD_LIMIT = 2e-2
+_TEST_CFG = dict(encoder_size="test", trunk_dim=64, trunk_depth=2,
+                 trunk_num_heads=2, trunk_indices=(0, 1), dpt_feature_dim=32,
+                 dpt_out_channels=(32, 32, 32, 32), dpt_hidden_dims=(16, 8))
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed(fn, device, calls=5):
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(calls):
+        _sync(device)
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def output_differences(got, ref, suffix="") -> dict:
+    """pts3d and depth_along_ray rel-L2 (worst view), cameras and scale
+    relative, between two `infer` results of the same views."""
+    res = {}
+    for key in ("pts3d", "depth_along_ray"):
+        res[f"{key}_rel_l2{suffix}"] = max(_rel_l2(g[key], r[key])
+                                           for g, r in zip(got, ref))
+    for key in ("cam_quats", "cam_trans", "metric_scaling_factor"):
+        res[f"{key}_rel{suffix}"] = _rel_l2(
+            torch.stack([g[key] for g in got]),
+            torch.stack([r[key] for r in ref]))
+    return res
+
+
+def _launches() -> dict:
+    return {"kernel_counts": dict(flash_attention.kernel_counts),
+            "plain_launches": flash_attention.plain_launches}
+
+
+def check_inference(model, group, views, device, calls=5):
+    """Returns (results, the last sharded `infer` output). The launch counts
+    and the peak memory are those of the timed sharded calls: 2 warm-ups
+    and `calls`, `forwards_counted` in all."""
+    plain = InferencePipeline(model)
+    sharded = InferencePipeline(model, view_shard_group=group)
+    ref = plain.infer(views, apply_mask=False)
+    res = output_differences(sharded.infer(views, apply_mask=False), ref)
+    model.set_attn_impl("math")
+    try:
+        res.update(output_differences(plain.infer(views, apply_mask=False),
+                                       ref, "_math_vs_flash"))
+    finally:
+        model.set_attn_impl("auto")
+    del ref
+    res["unsharded_infer_ms"], res["unsharded_infer_ms_all"] = _timed(
+        lambda: plain.infer(views), device, calls)
+    last = [None]
+
+    def call():
+        last[0] = sharded.infer(views)
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    res["infer_ms"], res["infer_ms_all"] = _timed(call, device, calls)
+    res.update(_launches(), forwards_counted=calls + 2)
+    if device.type == "cuda":
+        res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res, last[0]
+
+
+def check_block_gradient(dim, heads, n, group, device, dtype) -> dict:
+    """The launch counts are those of the ring block's forward and
+    backward."""
+    p, rank = dist.get_world_size(group), dist.get_rank(group)
+    blk = Block(dim, heads, dtype=dtype, device=device)
+    init_weights_(blk, torch.Generator(device=device).manual_seed(3))
+    gen = torch.Generator(device=device).manual_seed(4)
+    x0 = torch.randn((1, n, dim), generator=gen, device=device).to(dtype)
+    t0 = torch.randn((1, 1, dim), generator=gen, device=device).to(dtype)
+
+    def grads(loss_fn, x, tok):
+        blk.zero_grad(set_to_none=True)
+        x, tok = x.clone().requires_grad_(), tok.clone().requires_grad_()
+        loss_fn(x, tok).backward()
+        return x.grad, tok.grad, {name: prm.grad
+                                  for name, prm in blk.named_parameters()}
+
+    def ring_loss(x, tok):
+        out_x, out_t = RingGlobalBlock(blk)(x, tok, group)
+        return ((out_x.float() ** 2).sum()
+                + (out_t.float() ** 2).sum() / p)
+
+    def block_loss(x, tok):
+        return (blk(torch.cat([x, tok], dim=1)).float() ** 2).sum()
+
+    shard = slice(rank * n // p, (rank + 1) * n // p)
+    reset_launch_counts()
+    dx, dtok, dparams = grads(ring_loss, x0[:, shard], t0)
+    launches = _launches()
+    for g in [dtok, *dparams.values()]:
+        dist.all_reduce(g, group=group)
+    rx, rtok, rparams = grads(block_loss, x0, t0)
+    errs = {"x": _rel_l2(dx, rx[:, shard]), "tok": _rel_l2(dtok, rtok)}
+    errs.update({name: _rel_l2(dparams[name], rparams[name])
+                 for name in rparams})
+    return {"x": [1, n, dim], "grad_rel_l2": errs,
+            "worst_grad_rel_l2": max(errs.values()), **launches}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--views", type=int, default=8)
+    parser.add_argument("--size", choices=("released", "test"),
+                        default="released")
+    parser.add_argument("--weights", choices=("normal", "init"),
+                        default="normal")
+    parser.add_argument("--device", default=None,
+                        help="cuda (default, NCCL) or cpu (gloo)")
+    args = parser.parse_args(argv)
+    group = init_distributed(args.device)
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend(group) == "nccl" else torch.device("cpu"))
+    try:
+        if device.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        test = args.size == "test"
+        cfg = (MapAnythingConfig(dtype=torch.float32, **_TEST_CFG) if test
+               else MapAnythingConfig())
+        if args.weights == "init":
+            model = MapAnything(cfg, device=device, generator=torch.Generator(
+                device=device).manual_seed(1)).eval()
+        else:
+            model = random_normal_(MapAnything(cfg, device=device)).eval()
+        hw = 56 if test else 518
+        rng = np.random.default_rng(0)
+        views = [{"img": (0.5 * rng.standard_normal((1, hw, hw, 3))).astype(
+            np.float32), "data_norm_type": ["dinov2"]}
+            for _ in range(args.views)]
+        res = {"ranks": dist.get_world_size(group), "backend":
+               dist.get_backend(group), "views": args.views, "size": args.size,
+               "weights": args.weights,
+               "device": (torch.cuda.get_device_name(device)
+                          if device.type == "cuda" else "cpu")}
+        res["inference"], _ = check_inference(model, group, views, device)
+        del model
+        patches = (hw // 14) ** 2
+        dim, heads = (64, 2) if test else (1024, 16)
+        res["block_gradient"] = check_block_gradient(
+            dim, heads, args.views * patches, group, device, cfg.dtype)
+        ok = (all(val <= ERR_LIMIT for key, val in res["inference"].items()
+                  if key.endswith(("_rel_l2", "_rel")))
+              and res["block_gradient"]["worst_grad_rel_l2"] <= GRAD_LIMIT)
+        res["ok"] = ok
+        if dist.get_rank(group) == 0:
+            print(json.dumps(res), flush=True)
+        return 0 if ok else 1
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -174,10 +174,10 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = MapAnything(MapAnythingConfig(), device="cuda", generator=(
+    model = MapAnything(MapAnythingConfig(), generator=(
         torch.Generator(device="cuda").manual_seed(1)))
-    check = make_synthetic_batch(1, 1, 518, 518, seed=1, device="cuda")
-    train = make_synthetic_batch(1, 4, 518, 518, seed=0, device="cuda")
+    check = make_synthetic_batch(1, 1, 518, 518, seed=1)
+    train = make_synthetic_batch(1, 4, 518, 518, seed=0)
     state = create_train_state(model, OptimConfig(warmup_steps=2,
                                                   total_steps=100))
     step = make_train_step(model, images_only_config())

@@ -9,8 +9,46 @@ same numbers divide every utilisation the port reports.
 from __future__ import annotations
 
 # NVIDIA H100 SXM, bf16 tensor cores, dense (no sparsity), at the 700 W
-# limit: 989 TFLOP/s (NVIDIA's H100 data sheet).
+# limit: 989 TFLOP/s; its HBM3 moves 3.35 TB/s (NVIDIA's H100 data sheet).
 H100_SXM_BF16_DENSE_PEAK_FLOPS = 989e12
+H100_SXM_HBM_BYTES_PER_S = 3.35e12
+
+# tensor-core products of 2 * Nq * Nk * D flops per (batch, head) that each
+# attention kernel runs
+_ATTENTION_PRODUCTS = {"fwd": 2, "fwd_lse": 2, "dkv": 4, "dq": 3,
+                       "fwd_stats": 2, "pt_do": 2}
+
+
+def attention_kernel_work(kernel: str, b: int, nq: int, nk: int, h: int,
+                          d: int, out_bytes: int = 2,
+                          v_is_k: bool = False) -> tuple[int, int]:
+    """(flops, bytes) one attention kernel needs at q (b, nq, h, d) against
+    nk real keys: its tensor-core products, and every input read once and
+    every output written once (bf16 operands; `out_bytes` per output
+    element; fp32 row stats). The softmax's exponentials are not counted."""
+    tok, rows = b * h * d, b * h
+    q = nq * tok * 2  # q, and dO of the same shape
+    kv = nk * tok * 2
+    nbytes = {
+        "fwd": q + 2 * kv + nq * tok * out_bytes,
+        "fwd_lse": q + 2 * kv + nq * tok * out_bytes + rows * nq * 4,
+        "dkv": 2 * q + 2 * kv + 2 * rows * nq * 4 + 2 * nk * tok * out_bytes,
+        "dq": 2 * q + 2 * kv + 2 * rows * nq * 4 + nq * tok * out_bytes,
+        "fwd_stats": (q + (1 if v_is_k else 2) * kv + nq * tok * 4
+                      + 2 * rows * nq * 4),
+        "pt_do": 2 * q + kv + rows * nq * 4 + nk * tok * 4,
+    }[kernel]
+    return 2 * _ATTENTION_PRODUCTS[kernel] * rows * nq * nk * d, nbytes
+
+
+def roofline_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time an H100 SXM takes for this work, in ms: the larger of
+    flops at the bf16 dense peak and bytes at the HBM rate; and which of
+    the two ("operations" or "bytes") sets it."""
+    t_ops = flops / H100_SXM_BF16_DENSE_PEAK_FLOPS
+    t_bytes = nbytes / H100_SXM_HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def vit_layer_flops(tokens: int, dim: int) -> int:

@@ -4,7 +4,10 @@ for images-only input.
 
 The user API is a list of per-view dicts; `stack_views` turns it into the
 batched (B, V, ...) tensors the model takes, on the model's device, and
-`unstack_views` turns the outputs back into one dict per view.
+`unstack_views` turns the outputs back into one dict per view. With a
+process group the forward runs view-sharded
+(parallel/inference.py::view_sharded_forward) and the postprocess runs on
+the gathered outputs.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from .. import geometry as G
 from ..data.image import IMAGE_NORMALIZATION_DICT
 from ..models.mapanything import MapAnything
 from ..ops.quantile import quantile_threshold
+from ..parallel.inference import view_sharded_forward
 
 ALLOWED_VIEW_KEYS = {
     "img", "data_norm_type", "depth_z", "ray_directions", "intrinsics",
@@ -173,10 +177,19 @@ def postprocess_outputs(
 
 
 class InferencePipeline:
-    """Runs `MapAnything` behind the reference's `.infer()` API."""
+    """Runs `MapAnything` behind the reference's `.infer()` API.
 
-    def __init__(self, model: MapAnything):
+    Args:
+        model: the model; the pipeline follows its device.
+        view_shard_group: optional torch.distributed process group: every
+            forward then runs view-sharded over its ranks (sequence-parallel
+            ring attention), and every rank returns all views. The view
+            count must be a multiple of the group size.
+    """
+
+    def __init__(self, model: MapAnything, view_shard_group=None):
         self.model = model
+        self.view_shard_group = view_shard_group
 
     @torch.inference_mode()
     def infer(
@@ -222,7 +235,11 @@ class InferencePipeline:
         views = preprocess_input_views_for_inference(views)
         device = next(self.model.parameters()).device
         batched = stack_views(views, device)
-        preds = self.model(batched)
+        if self.view_shard_group is None:
+            preds = self.model(batched)
+        else:
+            preds = view_sharded_forward(self.model, batched,
+                                         self.view_shard_group)
         out = postprocess_outputs(
             preds, batched["img"], data_norm_type=data_norm_type,
             apply_mask=apply_mask, mask_edges=mask_edges,

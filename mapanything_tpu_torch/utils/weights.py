@@ -110,3 +110,17 @@ def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
     for key, p in model.named_parameters():
         p.copy_(torch.from_numpy(np.ascontiguousarray(state[key])))
     return model
+
+
+@torch.no_grad()
+def random_normal_(model: nn.Module, seed: int = 0,
+                   std: float = 0.02) -> nn.Module:
+    """Every parameter ~ N(0, std^2) from a seeded numpy generator: the same
+    weights on every device and in every process. (Unlike
+    nn/layers.py::init_weights_, LayerNorm scales and biases are random
+    too.)"""
+    rng = np.random.default_rng(seed)
+    for p in model.parameters():
+        host = rng.standard_normal(tuple(p.shape), dtype=np.float32)
+        p.copy_(torch.from_numpy(host * np.float32(std)))
+    return model

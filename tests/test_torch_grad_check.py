@@ -34,13 +34,13 @@ _TERMS = {"total", "pts3d (conf)", "cam_pts3d (exclude top)",
 
 def _model():
     return MapAnything(
-        MapAnythingConfig(dtype=torch.float32, **_SLICE_CFG),
+        MapAnythingConfig(dtype=torch.float32, **_SLICE_CFG), device="cpu",
         generator=torch.Generator().manual_seed(0))
 
 
 @pytest.mark.parametrize("views", [1, 3])
 def test_terms_add_up_to_the_total(views):
-    batch = make_synthetic_batch(1, views, H, W, seed=views)
+    batch = make_synthetic_batch(1, views, H, W, seed=views, device="cpu")
     with torch.no_grad():
         preds = _model()({"img": batch["views"]["img"]})
     loss, details = overall_loss(batch["gt"], preds)
@@ -51,7 +51,8 @@ def test_terms_add_up_to_the_total(views):
 
 
 def test_flash_matches_math_on_cpu():
-    res = compare(_model(), make_synthetic_batch(1, 2, H, W, seed=0))
+    res = compare(_model(), make_synthetic_batch(1, 2, H, W, seed=0,
+                                                  device="cpu"))
     assert res["loss_rel_diff"] <= 1e-5
     assert res["grad_rel_l2"] <= 1e-5
     assert res["qkv_grad_rel_l2"] <= 1e-5

@@ -13,12 +13,24 @@ import pytest
 import torch
 
 from mapanything_tpu_torch.ops.flash_attention import (
+    attention_delta,
     flash_attention,
     flash_attention_bwd_plain,
+    flash_attention_dkv,
+    flash_attention_dkv_plain,
+    flash_attention_dq,
+    flash_attention_dq_plain,
     flash_attention_fwd_lse,
     flash_attention_fwd_lse_plain,
     flash_attention_plain,
     reset_launch_counts,
+)
+from mapanything_tpu_torch.ops.ring_attention import (
+    flash_attention_pt_do,
+    flash_attention_pt_do_plain,
+    flash_attention_stats,
+    flash_attention_stats_plain,
+    merge_stats,
 )
 
 
@@ -171,7 +183,8 @@ def test_cuda_training_kernels_match_plain(cuda_device, shape, n_valid,
     out.backward(dout)
     torch.cuda.synchronize()
     assert flash_attention.kernel_counts == {"fwd": 0, "fwd_lse": 1,
-                                             "dkv": 1, "dq": 1}
+                                             "dkv": 1, "dq": 1,
+                                             "fwd_stats": 0, "pt_do": 0}
     assert flash_attention.plain_launches == 0
 
     qd, kd, vd = (x.detach() for x in (q, k, v))
@@ -196,3 +209,65 @@ def test_cuda_training_kernels_match_plain(cuda_device, shape, n_valid,
         else:
             assert max(_err(g[:, :real], r[:, :real])) <= 1e-2, f"d{name}"
             assert not g[:, real:].any(), f"d{name} pad rows"
+
+
+# the ring's shards at 518^2 with p = 1: 4 and 8 views of 1369 patches (no
+# padding, a ragged last tile), and a small ragged shard with two batches
+_RING_CASES = [(1, 5476, 16, 64), (1, 10952, 16, 64), (2, 300, 2, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _RING_CASES)
+def test_cuda_ring_kernels_match_plain(cuda_device, shape):
+    """The ring's kernels on the fused-qkv layout against their plain
+    twins: the stats forward (and with V := K), P^T dO, and the fp32 forms
+    of dK/dV and dQ fed the global lse; a 4-way split of the keys merges
+    to the forward kernel's output."""
+    q, k, v = _cuda_qkv(shape, None, "fused_qkv", cuda_device)
+    reset_launch_counts()
+    stats = flash_attention_stats(q, k, v)
+    stats_kk = flash_attention_stats(q, k, k)
+    torch.cuda.synchronize()
+    for got, ref in ((stats, flash_attention_stats_plain(q, k, v)),
+                     (stats_kk, flash_attention_stats_plain(q, k, k))):
+        for name, a, r in zip(("acc", "m", "l"), got, ref):
+            assert max(_err(a, r)) <= 1e-2, name
+    acc, m, l = flash_attention_stats_plain(q, k, v)
+    lse = (m + torch.log2(l)).transpose(1, 2).contiguous()
+    dout = torch.randn(shape, device=cuda_device).to(torch.bfloat16)
+    delta = attention_delta(dout, (acc / l[..., None]).to(torch.bfloat16))
+    args = (q, k, v, dout, lse, delta)
+    for got, ref in (
+            (flash_attention_pt_do(q, k, dout, lse),
+             flash_attention_pt_do_plain(q, k, dout, lse)),
+            (flash_attention_dkv(*args, out_dtype=torch.float32),
+             flash_attention_dkv_plain(*args, out_dtype=torch.float32)),
+            (flash_attention_dq(*args, out_dtype=torch.float32),
+             flash_attention_dq_plain(*args, out_dtype=torch.float32))):
+        for a, r in zip(got if isinstance(got, tuple) else (got,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            assert a.dtype == torch.float32
+            assert max(_err(a, r)) <= 1e-2
+    torch.cuda.synchronize()
+    assert flash_attention.kernel_counts == {"fwd": 0, "fwd_lse": 0,
+                                             "dkv": 1, "dq": 1,
+                                             "fwd_stats": 2, "pt_do": 1}
+    assert flash_attention.plain_launches == 0
+
+    n = shape[1]
+    cuts = [0, n // 4, n // 2, 3 * n // 4, n]
+    merged = flash_attention_stats(q, k[:, :cuts[1]], v[:, :cuts[1]])
+    for a, b in zip(cuts[1:-1], cuts[2:]):
+        merged = merge_stats(*merged,
+                             *flash_attention_stats(q, k[:, a:b], v[:, a:b]))
+    out = merged[0] / merged[2][..., None]
+    assert max(_err(out, flash_attention(q, k, v))) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_stats_without_keys(cuda_device):
+    """A shard with no key: m = -inf, l = 0, acc = 0 (the merge's guard)."""
+    q, k, v = _cuda_qkv((1, 100, 2, 64), None, "fused_qkv", cuda_device)
+    acc, m, l = flash_attention_stats(q, k[:, :0], v[:, :0])
+    torch.cuda.synchronize()
+    assert torch.isneginf(m).all() and not l.any() and not acc.any()

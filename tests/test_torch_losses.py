@@ -123,7 +123,7 @@ def test_safe_norm_gradient_at_zero_matches_jax():
 def test_synthetic_batch_matches_jax():
     with jax.default_matmul_precision(HIGHEST):
         ref = jax_batch(2, 3, 14, 21, seed=5)
-    out = make_synthetic_batch(2, 3, 14, 21, seed=5)
+    out = make_synthetic_batch(2, 3, 14, 21, seed=5, device="cpu")
     for part in ("views", "gt"):
         assert set(out[part]) == set(ref[part])
         for key in ref[part]:

@@ -188,7 +188,8 @@ def slice_models():
         params = jit_init(jax_model, jax.random.PRNGKey(0), views,
                           images_only_config())
     params = _perturb(params, 11)
-    port = MapAnything(MapAnythingConfig(dtype=torch.float32, **_SLICE_CFG))
+    port = MapAnything(MapAnythingConfig(dtype=torch.float32, **_SLICE_CFG),
+                       device="cpu")
     load_jax_params(port, params)
     return JaxPipeline(jax_model, params), InferencePipeline(port)
 

@@ -76,7 +76,8 @@ def setup():
 
 
 def _port_model(params):
-    model = MapAnything(MapAnythingConfig(dtype=torch.float32, **_SLICE_CFG))
+    model = MapAnything(MapAnythingConfig(dtype=torch.float32, **_SLICE_CFG),
+                        device="cpu")
     return load_jax_params(model, params)
 
 
@@ -103,7 +104,7 @@ def test_loss_and_gradients_match_jax(setup):
     port = _port_model(params)
     ref_grads = from_jax_params(jax.tree.map(np.asarray, ref_grads), port)
 
-    batch = make_synthetic_batch(1, 2, H, W, seed=0)
+    batch = make_synthetic_batch(1, 2, H, W, seed=0, device="cpu")
     names = [n for n, _ in port.named_parameters()]
     reset_launch_counts()
     loss, det, grads = PS.loss_and_grads(
@@ -184,7 +185,7 @@ def test_three_steps_match_jax(setup):
     port = _port_model(params)
     train_step = PS.make_train_step(port, images_only_config())
     tstate = PS.create_train_state(port, PS.OptimConfig(**cfg))
-    batch = make_synthetic_batch(1, 2, H, W, seed=0)
+    batch = make_synthetic_batch(1, 2, H, W, seed=0, device="cpu")
     for i, (ref_loss, ref_norm) in enumerate(ref):
         tstate, m = train_step(tstate, batch)
         assert abs(float(m["loss"]) - ref_loss) <= 1e-4 * abs(ref_loss), i

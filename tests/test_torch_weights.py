@@ -45,7 +45,8 @@ def small_params():
 
 
 def test_small_config_consumes_every_leaf(small_params):
-    model = MapAnything(MapAnythingConfig(dtype=torch.float32, **_SMALL))
+    model = MapAnything(MapAnythingConfig(dtype=torch.float32, **_SMALL),
+                        device="cpu")
     state = from_jax_params(small_params, model)
     n_leaves = len(jax.tree_util.tree_leaves(small_params))
     assert len(state) == n_leaves == len(list(model.parameters()))
@@ -104,7 +105,8 @@ def test_generator_init_is_seeded_and_runs():
     cfg = MapAnythingConfig(dtype=torch.float32, **_SMALL)
 
     def build(seed):
-        return MapAnything(cfg, generator=torch.Generator().manual_seed(seed))
+        return MapAnything(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(seed))
 
     a, b, c = build(0), build(0), build(1)
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
