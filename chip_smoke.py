@@ -6,15 +6,25 @@
 Phases, in order (any failure exits non-zero and prints no result line):
 
   1. Builds the CUDA libraries from mapanything_tpu_torch/csrc (the
-     flash-attention forward with its lse and stats epilogues; the
-     backward's dK/dV and dQ in bf16 and fp32, and P^T dO), one nvcc each,
-     in parallel, and prints the build times and ptxas register use.
+     TMA/wgmma flash-attention forward with its lse and stats epilogues;
+     the backward's dK/dV and dQ in bf16 and fp32, and P^T dO; the
+     forward's probe variants with the mma.sync baseline), one nvcc each,
+     in parallel, and prints the build times, each kernel's ptxas register
+     use, the dynamic shared memory of each forward configuration, and the
+     HGMMA (wgmma) and UTMALDG (TMA load) counts of the forward's SASS
+     (cuobjdump), failing where either is missing.
+  Times: every kernel and library time is device time, a CUDA graph of 20
+  back-to-back calls between two CUDA events (perf/timing.py::device_ms);
+  the plain versions' by events around 5 calls in a row (::events_ms);
+  beside each kernel the wrapper's host microseconds per call (::host_us).
   2. The forward kernel vs its plain PyTorch version, bf16, seeded normal
      inputs laid out as nn/layers.py::Attention passes them (strided views
      of one fused qkv tensor, rows at or past n_valid zeroed), at the five
      attention shapes of the serving path (encoder, frame, 1-, 2- and
      8-view global layers at 518^2): max-abs and rel-L2 error over the real
-     rows (limit 1e-2 each) and the median time of each. Every kernel row
+     rows (limit 1e-2 each), the same for the mma.sync baseline
+     (perf/flash_probes.py::flash_attention_mma), and the time of each
+     (new kernel, baseline, plain). Every kernel row
      of phases 2-2c also carries its bound (utils/flops.py::roofline_ms:
      the larger of its tensor-core flops at 989 TFLOP/s and its bytes at
      3.35 TB/s) and the time of the one PyTorch call that computes the same
@@ -27,15 +37,25 @@ Phases, in order (any failure exits non-zero and prints no result line):
      the forward with lse (out and lse), dK/dV and dQ (fed the plain
      forward's lse and delta); each output's max-abs over the plain's
      max-abs and rel-L2 over the real rows (limit 1e-2 each), and the
-     median time of each kernel and of its plain twin.
+     time of each kernel and of its plain twin; the forward with lse also
+     against and beside the mma.sync baseline's.
   2c. The ring's kernels against their plain twins, bf16 q/k/v on the
      fused-qkv layout, at the 4- and 8-view shards of a one-rank ring
      ((1, 5476, 16, 64) and (1, 10952, 16, 64), no padding, a ragged last
      key tile): the stats forward (acc, m, l; and with V := K), P^T dO and
      the fp32 forms of dK/dV and dQ fed the plain stats' global lse;
-     max-abs over the plain's max-abs and rel-L2 (limit 1e-2 each), median
-     times of 20 (plain: 5). At 8 views the stats of 4 key shards merged
-     by merge_stats must equal flash_attn_fwd over all keys.
+     max-abs over the plain's max-abs and rel-L2 (limit 1e-2 each), the
+     stats also for the mma.sync baseline, and the times. At 8 views the
+     stats of 4 key shards merged by merge_stats must equal flash_attn_fwd
+     over all keys.
+  2d. Every probe of perf/flash_probes.py (the Hopper counterparts of the
+     TPU tuning probes: softmax variants, bf16 exp, row sum by the P V
+     product, tile shapes, step (a), ping-pong) and the main configuration
+     with 2 and 4 heads per block, a persistent grid, and (B, N, H, D) or
+     (B, H, N, D)-copied inputs, once at the 2-view global shape against
+     its plain version (limit 1e-2 max-abs over the plain's max-abs and
+     rel-L2), with its time. Phases 3-5 then require 0 launches of every
+     probe and of the baseline.
   3. Serving end to end at full width: MapAnythingConfig() (DINOv2-L/14,
      24-layer trunk, dim 1024, DPT 256) in bf16 with seeded random weights
      (numpy normals x 0.02), synthetic 518x518 PNGs through load_images and
@@ -137,7 +157,7 @@ TRAIN_SHAPES = ATTENTION_SHAPES + [
 TRAINING_KERNELS = {
     # name: (source, the JAX Pallas kernel it replaces)
     "flash_attn_fwd_lse": (
-        "mapanything_tpu_torch/csrc/flash_attn_fwd.cu",
+        "mapanything_tpu_torch/csrc/flash_attn_fwd_sm90.cu",
         "mapanything_tpu/ops/flash_attention_bwd.py:73"),
     "flash_attn_bwd_dkv": (
         "mapanything_tpu_torch/csrc/flash_attn_bwd.cu",
@@ -150,7 +170,7 @@ TRAINING_KERNELS = {
 # (ring_attention.py::_pair_bwd asks the Pallas pair for out_dtype=float32)
 RING_KERNELS = {
     "flash_attn_fwd_stats": (
-        "mapanything_tpu_torch/csrc/flash_attn_fwd.cu",
+        "mapanything_tpu_torch/csrc/flash_attn_fwd_sm90.cu",
         "mapanything_tpu/ops/ring_attention.py:45"),
     "flash_attn_bwd_pt_do": (
         "mapanything_tpu_torch/csrc/flash_attn_bwd.cu",
@@ -185,20 +205,31 @@ def fail(msg: str) -> int:
     return 1
 
 
-def median_ms(fn, torch, reps: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def kernel_ms(fn) -> float:
+    """Device ms per call of a kernel or a library call: a CUDA graph of 20
+    back-to-back calls, replayed between two CUDA events
+    (perf/timing.py::device_ms). No host work of the wrapper enters it."""
+    from mapanything_tpu_torch.perf.timing import device_ms
+
+    return device_ms(fn)
+
+
+def plain_ms(fn) -> float:
+    """Device ms per call of a plain version: events around 5 calls issued
+    back to back (perf/timing.py::events_ms; each call allocates its score
+    matrix, which a graph's pool would keep for every call)."""
+    from mapanything_tpu_torch.perf.timing import events_ms
+
+    return events_ms(fn)
+
+
+def host_us(fn) -> float:
+    """A wrapper's host µs per call (perf/timing.py::host_us). Phase 2
+    holds the forward's own wrapper (ops/flash_attention.py::_fwd_cuda)
+    beside the baseline's, which does the same work."""
+    from mapanything_tpu_torch.perf.timing import host_us as measure
+
+    return measure(fn)
 
 
 def rel_l2(a, b) -> float:
@@ -219,7 +250,7 @@ def attention_inputs(torch, shape, n_valid, seed):
     return qkv.unbind(2)
 
 
-def kernel_vs_plain(torch, fa, F):
+def kernel_vs_plain(torch, fa, fp, F):
     rows = []
     for name, shape, n_valid in ATTENTION_SHAPES:
         q, k, v = attention_inputs(torch, shape, n_valid, seed=len(rows))
@@ -228,15 +259,22 @@ def kernel_vs_plain(torch, fa, F):
         torch.cuda.synchronize()
         real = shape[1] if n_valid is None else n_valid
         o, r = out[:, :real].float(), ref[:, :real].float()
+        mo = fp.flash_attention_mma(q, k, v, n_valid)[:, :real].float()
         row = {
             "shape": list(shape), "n_valid": n_valid,
             "max_abs_err": float((o - r).abs().max()),
             "rel_l2": rel_l2(o, r),
-            "ms": median_ms(lambda: fa.flash_attention(q, k, v, n_valid),
-                            torch),
-            "plain_ms": median_ms(
-                lambda: fa.flash_attention_plain(q, k, v, n_valid), torch,
-                reps=10),
+            "mma_max_abs_err": float((mo - r).abs().max()),
+            "mma_rel_l2": rel_l2(mo, r),
+            "ms": kernel_ms(lambda: fa.flash_attention(q, k, v, n_valid)),
+            "mma_ms": kernel_ms(
+                lambda: fp.flash_attention_mma(q, k, v, n_valid)),
+            "plain_ms": plain_ms(
+                lambda: fa.flash_attention_plain(q, k, v, n_valid)),
+            "host_us": host_us(
+                lambda: fa._fwd_cuda(q, k, v, n_valid, with_lse=False)),
+            "mma_host_us": host_us(
+                lambda: fp.flash_attention_mma(q, k, v, n_valid)),
         }
         flops = fa.attention_flops(shape[0], shape[1], real, shape[2],
                                    shape[3])
@@ -246,11 +284,13 @@ def kernel_vs_plain(torch, fa, F):
         print(f"attention {name} {tuple(shape)} n_valid={n_valid}: "
               f"max_abs={row['max_abs_err']:.3e} rel_l2={row['rel_l2']:.3e} "
               f"kernel {row['ms']:.4f} ms ({row['tflops']:.2f} TFLOP/s) "
-              f"plain {row['plain_ms']:.4f} ms bound {row['bound_ms']:.4f} "
-              f"ms ({row['bound_by']}) library {row['library_ms']:.4f} ms",
+              f"mma.sync {row['mma_ms']:.4f} ms plain {row['plain_ms']:.4f} "
+              f"ms bound {row['bound_ms']:.4f} ms ({row['bound_by']}) "
+              f"library {row['library_ms']:.4f} ms; host "
+              f"{row['host_us']:.1f} us (mma.sync {row['mma_host_us']:.1f})",
               flush=True)
         rows.append((name, row))
-        del q, k, v, out, ref, o, r
+        del q, k, v, out, ref, o, r, mo
         torch.cuda.empty_cache()
     return rows
 
@@ -284,13 +324,13 @@ def library_fwd_ms(torch, qh, kh, vh) -> float:
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        return median_ms(lambda: sdpa(qh, kh, vh), torch)
+        return kernel_ms(lambda: sdpa(qh, kh, vh))
 
 
 def library_fwd_lse_ms(torch, qh, kh, vh) -> float:
     """The flash SDPA forward that also writes the lse."""
     op = torch.ops.aten._scaled_dot_product_flash_attention
-    return median_ms(lambda: op(qh, kh, vh), torch)
+    return kernel_ms(lambda: op(qh, kh, vh))
 
 
 def library_bwd_ms(torch, qh, kh, vh, dout) -> float:
@@ -299,12 +339,11 @@ def library_bwd_ms(torch, qh, kh, vh, dout) -> float:
     out, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
     op = torch.ops.aten._scaled_dot_product_flash_attention_backward
     dout_h = dout.transpose(1, 2)
-    return median_ms(lambda: op(dout_h, qh, kh, vh, out, lse, cum_q, cum_k,
-                                max_q, max_k, 0.0, False, seed, offset),
-                     torch)
+    return kernel_ms(lambda: op(dout_h, qh, kh, vh, out, lse, cum_q, cum_k,
+                                 max_q, max_k, 0.0, False, seed, offset))
 
 
-def training_kernels_vs_plain(torch, fa, F):
+def training_kernels_vs_plain(torch, fa, fp, F):
     """Phase 2b: {kernel name: [row per shape]}."""
     rows = {name: [] for name in TRAINING_KERNELS}
     for i, (name, shape, n_valid) in enumerate(TRAIN_SHAPES):
@@ -359,9 +398,25 @@ def training_kernels_vs_plain(torch, fa, F):
                 row[f"{oname}_max_abs_err"] = float((got - ref).abs().max())
                 row[f"{oname}_max_abs_rel"] = max_abs_rel(got, ref)
                 row[f"{oname}_rel_l2"] = rel_l2(got, ref)
+            if kname == "flash_attn_fwd_lse":  # the mma.sync baseline
+                mma_out = fp.flash_attention_fwd_lse_mma(q, k, v, n_valid)
+                pairs = zip(mma_out, (ref_out, ref_lse), (1, 2))
+                errs = [(got.transpose(1, axis)[:, :real].float(),
+                         ref.transpose(1, axis)[:, :real].float())
+                        for got, ref, axis in pairs]
+                row["mma_max_abs_err"] = max(float((a - b).abs().max())
+                                             for a, b in errs)
+                row["mma_max_abs_rel"] = max(max_abs_rel(a, b)
+                                             for a, b in errs)
+                row["mma_rel_l2"] = max(rel_l2(a, b) for a, b in errs)
+                del mma_out, errs
             kernel_fn, plain_fn = timed[kname]
-            row["ms"] = median_ms(kernel_fn, torch)
-            row["plain_ms"] = median_ms(plain_fn, torch, reps=5, warmup=1)
+            row["ms"] = kernel_ms(kernel_fn)
+            row["plain_ms"] = plain_ms(plain_fn)
+            row["host_us"] = host_us(kernel_fn)
+            if kname == "flash_attn_fwd_lse":  # the mma.sync baseline
+                row["mma_ms"] = kernel_ms(
+                    lambda: fp.flash_attention_fwd_lse_mma(q, k, v, n_valid))
             fwd_flops = fa.attention_flops(shape[0], shape[1], real,
                                            shape[2], shape[3])
             row["tflops"] = (fwd_flops / 2 * products[kname] / row["ms"]
@@ -371,18 +426,21 @@ def training_kernels_vs_plain(torch, fa, F):
             rows[kname].append(row)
             errs = {key: f"{val:.3e}" for key, val in row.items()
                     if key.endswith(("_rel", "_rel_l2"))}
+            mma = (f" mma.sync {row['mma_ms']:.4f} ms" if "mma_ms" in row
+                   else "")
             print(f"{kname} {name} {tuple(shape)} n_valid={n_valid}: {errs} "
                   f"kernel {row['ms']:.4f} ms ({row['tflops']:.2f} TFLOP/s)"
-                  f" plain {row['plain_ms']:.4f} ms bound "
+                  f"{mma} plain {row['plain_ms']:.4f} ms bound "
                   f"{row['bound_ms']:.4f} ms library "
-                  f"{row['library_ms']:.4f} ms", flush=True)
+                  f"{row['library_ms']:.4f} ms host {row['host_us']:.1f} us",
+                  flush=True)
         del (q, k, v, dout, out, lse, ref_out, ref_lse, delta, dk, dv, dq,
              ref_dk, ref_dv, ref_dq, checks, timed, bwd_args, lib)
         torch.cuda.empty_cache()
     return rows
 
 
-def ring_kernels_vs_plain(torch, fa, ring, F):
+def ring_kernels_vs_plain(torch, fa, ring, fp, F):
     """Phase 2c: ({kernel name: [row per case]}, the split-and-merge row).
     Each backward kernel gets the plain stats' global lse and delta."""
     rows = {name: [] for name in RING_KERNELS}
@@ -400,6 +458,9 @@ def ring_kernels_vs_plain(torch, fa, ring, F):
         bwd = (q, k, v, dout, lse, delta)
         lib = sdpa_layout(q, k, v, n)
         lib_bwd = library_bwd_ms(torch, *lib, dout)
+        # the stats cases also time the mma.sync baseline's stats entry
+        mma = {at: lambda: fp.flash_attention_stats_mma(q, k, v),
+               at + "_v_is_k": lambda: fp.flash_attention_stats_mma(q, k, k)}
         cases = [
             ("flash_attn_fwd_stats", at, ("acc", "m", "l"),
              lambda: ring.flash_attention_stats(q, k, v),
@@ -436,16 +497,30 @@ def ring_kernels_vs_plain(torch, fa, ring, F):
                 row[f"{oname}_max_abs_err"] = float((a - r).abs().max())
                 row[f"{oname}_max_abs_rel"] = max_abs_rel(a, r)
                 row[f"{oname}_rel_l2"] = rel_l2(a, r)
+            if kname == "flash_attn_fwd_stats":  # the mma.sync baseline
+                base = [(a, r) for a, r in zip(mma[case](), ref)]
+                row["mma_max_abs_err"] = max(float((a - r).abs().max())
+                                             for a, r in base)
+                row["mma_max_abs_rel"] = max(max_abs_rel(a, r)
+                                             for a, r in base)
+                row["mma_rel_l2"] = max(rel_l2(a, r) for a, r in base)
+                del base
             del got, ref
-            row["ms"] = median_ms(kernel_fn, torch)
-            row["plain_ms"] = median_ms(plain_fn, torch, reps=5, warmup=1)
+            row["ms"] = kernel_ms(kernel_fn)
+            row["plain_ms"] = plain_ms(plain_fn)
+            row["host_us"] = host_us(kernel_fn)
+            if kname == "flash_attn_fwd_stats":
+                row["mma_ms"] = kernel_ms(mma[case])
             row.update(cost)
             row["library_ms"] = library
             rows[kname].append(row)
             errs = {key: f"{val:.3e}" for key, val in row.items()
                     if key.endswith(("_rel", "_rel_l2"))}
+            mma_txt = (f" mma.sync {row['mma_ms']:.4f} ms" if "mma_ms" in row
+                       else "")
             print(f"{kname} {case} {tuple(shape)}: {errs} kernel "
-                  f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms bound "
+                  f"{row['ms']:.4f} ms{mma_txt} plain {row['plain_ms']:.4f} "
+                  f"ms host {row['host_us']:.1f} us bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}) library "
                   f"{library if library is None else round(library, 4)} ms",
                   flush=True)
@@ -463,9 +538,77 @@ def ring_kernels_vs_plain(torch, fa, ring, F):
                      "out_rel_l2": rel_l2(out, ref)}
             print(f"split-and-merge {at}: {json.dumps(merge)}", flush=True)
             del st, out, ref
-        del q, k, v, dout, lse, delta, bwd, lib, cases
+        del q, k, v, dout, lse, delta, bwd, lib, cases, mma
         torch.cuda.empty_cache()
     return rows, merge, None
+
+
+# phase 2d holds every probe case at one shape: the 2-view global layer
+PROBE_SHAPE = ("global_2view", (1, 2816, 16, 64), 2739)
+
+
+def probes_vs_plain(torch, fa, fp, F):
+    """Phase 2d: {case: row}, every probe of perf/flash_probes.py once
+    against its plain version, with its device time."""
+    at, shape, n_valid = PROBE_SHAPE
+    q, k, v = attention_inputs(torch, shape, n_valid, seed=600)
+    contig = [x.contiguous() for x in (q, k, v)]
+    plain = fa.flash_attention_plain
+    cases = {name: (lambda name=name: fp.flash_probe(name, q, k, v, n_valid),
+                    spec[1]) for name, spec in fp.VARIANTS.items()}
+    for g in (2, 4):
+        cases[f"main_G{g}"] = (lambda g=g: fp.flash_probe(
+            "main", q, k, v, n_valid, heads_per_block=g), plain)
+    cases["main_persistent"] = (lambda: fp.flash_probe(
+        "main", q, k, v, n_valid, persistent_blocks=132), plain)
+    cases["layout_bnhd"] = (lambda: fp.flash_probe("main", *contig, n_valid),
+                            plain)
+    cases["layout_bhnd"] = (lambda: fp.flash_probe(
+        "main", *contig, n_valid, layout="bhnd"), plain)
+    cost = bound(F, "fwd", shape, n_valid)
+    lib = library_fwd_ms(torch, *sdpa_layout(q, k, v, n_valid))
+    flops = fa.attention_flops(shape[0], shape[1], n_valid, shape[2],
+                               shape[3])
+    refs, ref_ms, rows = {}, {}, {}
+    for case, (fn, plain_fn) in cases.items():
+        if plain_fn not in refs:
+            refs[plain_fn] = plain_fn(q, k, v, n_valid)[:, :n_valid].float()
+            ref_ms[plain_fn] = plain_ms(lambda: plain_fn(q, k, v, n_valid))
+        got = fn()[:, :n_valid].float()
+        torch.cuda.synchronize()
+        ref = refs[plain_fn]
+        row = {"at": at, "shape": list(shape), "n_valid": n_valid,
+               "max_abs_err": float((got - ref).abs().max()),
+               "max_abs_rel": max_abs_rel(got, ref),
+               "rel_l2": rel_l2(got, ref), "ms": kernel_ms(fn),
+               "plain_ms": ref_ms[plain_fn], "library_ms": lib, **cost}
+        row["tflops"] = flops / row["ms"] / 1e9
+        rows[case] = row
+        print(f"probe {case} {at}: max_abs_rel={row['max_abs_rel']:.3e} "
+              f"rel_l2={row['rel_l2']:.3e} {row['ms']:.4f} ms "
+              f"({row['tflops']:.1f} TFLOP/s) plain {row['plain_ms']:.4f} ms",
+              flush=True)
+        del got
+    del q, k, v, contig, refs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def probe_replaces(fp, case: str) -> str:
+    """The TPU probe (file:line) a phase-2d case stands in for."""
+    if case.startswith("main_G"):
+        return fp.REPLACES["heads_per_block"]
+    if case.startswith("main_persistent"):
+        return fp.REPLACES["persistent"]
+    return fp.REPLACES[case]
+
+
+def untouched_baseline(fp) -> str | None:
+    """None if no probe and no mma.sync baseline entry was launched since
+    the last fp.reset_probe_counts()."""
+    used = {key: val for key, val in fp.probe_counts.items() if val}
+    return f"probe or baseline launches on the main path: {used}" if used \
+        else None
 
 
 def write_images(folder: str, n: int) -> list[str]:
@@ -712,6 +855,7 @@ def main() -> int:
         from mapanything_tpu_torch.ops import ring_attention as ring
         from mapanything_tpu_torch.parallel import init_distributed
         from mapanything_tpu_torch.parallel import ring_check as RC
+        from mapanything_tpu_torch.perf import flash_probes as fp
         from mapanything_tpu_torch.train import step as T
         from mapanything_tpu_torch.train.grad_check import compare
         from mapanything_tpu_torch.utils import flops as F
@@ -745,18 +889,41 @@ def main() -> int:
           flush=True)
     for name, (path, log, secs) in built.items():
         print(f"  {os.path.relpath(path, HERE)}: {secs:.2f} s", flush=True)
+        kernel = "?"
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    ptxas: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1][:80]
+            elif "registers" in line or (
+                    "spill" in line and " 0 bytes spill stores" not in line):
+                print(f"    ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
+    # the forward runs on wgmma (HGMMA) and TMA (UTMALDG): its SASS says so
+    sass = _build.sass_counts(built["flash_attn_fwd"][0])
+    for kernel, counts in sass.items():
+        print(f"    SASS {kernel[:80]}: {counts}", flush=True)
+    fwd_sass = {key: val for key, val in sass.items()
+                if "flash_fwd_sm90_kernel" in key}
+    if len(fwd_sass) != 3 or not all(c["HGMMA"] and c["UTMALDG"]
+                                     for c in fwd_sass.values()):
+        return fail(f"the forward's three kernels lack HGMMA or UTMALDG in "
+                    f"their SASS: {fwd_sass}")
+    smem = {"flash_attn_fwd": _build.load_library(
+        "flash_attn_fwd").flash_attn_fwd_smem_bytes()}
+    probe_lib = _build.load_library("flash_attn_fwd_probes")
+    for name, spec in fp.VARIANTS.items():
+        smem[f"probe {name}"] = probe_lib.flash_attn_fwd_probe_smem_bytes(
+            spec[0])
+    print(f"  dynamic shared memory per block (bytes): {json.dumps(smem)}",
+          flush=True)
 
     # phase 2: the serving forward kernel
-    attn = kernel_vs_plain(torch, fa, F)
+    attn = kernel_vs_plain(torch, fa, fp, F)
     for name, row in attn:
-        if not (row["max_abs_err"] <= ERR_LIMIT and row["rel_l2"] <= ERR_LIMIT):
+        if not all(row[key] <= ERR_LIMIT for key in (
+                "max_abs_err", "rel_l2", "mma_max_abs_err", "mma_rel_l2")):
             return fail(f"kernel disagrees with plain at {name}: {row}")
 
     # phase 2b: the training kernels
-    train_rows = training_kernels_vs_plain(torch, fa, F)
+    train_rows = training_kernels_vs_plain(torch, fa, fp, F)
     for kname, rows in train_rows.items():
         for row in rows:
             bad = {key: val for key, val in row.items()
@@ -767,7 +934,7 @@ def main() -> int:
                             f"{bad}")
 
     # phase 2c: the ring's kernels
-    ring_rows, merge, bad = ring_kernels_vs_plain(torch, fa, ring, F)
+    ring_rows, merge, bad = ring_kernels_vs_plain(torch, fa, ring, fp, F)
     if bad:
         return fail(bad)
     for kname, rows in ring_rows.items():
@@ -779,6 +946,17 @@ def main() -> int:
             if bad:
                 return fail(f"{kname} disagrees with plain at {row['at']}: "
                             f"{bad}")
+
+    # phase 2d: the probes, each once against its plain version
+    probe_rows = probes_vs_plain(torch, fa, fp, F)
+    for case, row in probe_rows.items():
+        if not (row["max_abs_rel"] <= ERR_LIMIT
+                and row["rel_l2"] <= ERR_LIMIT):
+            return fail(f"probe {case} disagrees with its plain version: "
+                        f"{row}")
+
+    # phases 3-5 run the main path: no probe and no baseline launch
+    fp.reset_probe_counts()
 
     # phase 3: serving at full width
     t0 = time.perf_counter()
@@ -801,6 +979,9 @@ def main() -> int:
             launches += res["kernel_launches"]
     print(f"peak device memory (serving) "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    bad = untouched_baseline(fp)
+    if bad:
+        return fail(f"serving: {bad}")
     del model, pipe
     torch.cuda.empty_cache()
 
@@ -822,6 +1003,9 @@ def main() -> int:
     print(f"train 1x4v@518: {json.dumps(train)}", flush=True)
     if bad:
         return fail(f"training step: {bad}")
+    bad = untouched_baseline(fp)
+    if bad:
+        return fail(f"training: {bad}")
     trained = compare(model, make_synthetic_batch(1, 1, 518, 518, seed=1))
     print(f"train 1-view flash vs math, after {TRAIN_STEPS + 4} steps (not "
           f"held to a limit): {json.dumps(trained)}", flush=True)
@@ -851,18 +1035,24 @@ def main() -> int:
         print(f"ring block gradient: {json.dumps(block_res)}", flush=True)
         if bad:
             return fail(bad)
+        bad = untouched_baseline(fp)
+        if bad:
+            return fail(f"ring: {bad}")
     finally:
         torch.distributed.destroy_process_group()
 
     def timing(row):
         return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms")}
+                                          "bound_by", "library_ms", "mma_ms",
+                                          "host_us") if key in row}
+
+    new_fwd = "mapanything_tpu_torch/csrc/flash_attn_fwd_sm90.cu"
 
     g2 = dict(attn)["global_2view"]
     kernels = [{
         "name": "flash_attn_fwd",
         "route": "cuda",
-        "source": "mapanything_tpu_torch/csrc/flash_attn_fwd.cu",
+        "source": new_fwd,
         "replaces": "mapanything_tpu/ops/flash_attention.py:147",
         "also_replaces": "mapanything_tpu/ops/flash_attention.py:94",
         "launches": launches,
@@ -913,6 +1103,32 @@ def main() -> int:
         if kname == "flash_attn_fwd_stats":
             entry["split_and_merge"] = merge
         kernels.append(entry)
+    # the mma.sync baseline (off the main path: 0 launches there), timed in
+    # phases 2-2c beside the new kernel at the same shapes
+    mma_src = "mapanything_tpu_torch/csrc/flash_attn_fwd_mma.cu"
+    for new in [row for row in kernels if row["source"] == new_fwd]:
+        per = {at: row for at, row in new["per_shape"].items()
+               if "mma_ms" in row}
+        at = new["ms_at"]
+        kernels.append({
+            "name": new["name"] + "_mma", "route": "cuda", "source": mma_src,
+            "replaces": new["replaces"], "launches": 0,
+            "max_abs_err": max(row["mma_max_abs_err"] for row in per.values()),
+            "ms": per[at]["mma_ms"],
+            "plain_ms": new["plain_ms"], "bound_ms": new["bound_ms"],
+            "bound_by": new["bound_by"], "library_ms": new["library_ms"],
+            "ms_at": at, "note": "the baseline, off the main path",
+            "ms_per_shape": {key: row["mma_ms"] for key, row in per.items()},
+        })
+    for case, row in probe_rows.items():
+        kernels.append({
+            "name": f"flash_attn_fwd_probe[{case}]", "route": "cuda",
+            "source": "mapanything_tpu_torch/csrc/flash_attn_fwd_probes.cu",
+            "replaces": probe_replaces(fp, case), "launches": 0,
+            "max_abs_err": row["max_abs_err"], **timing(row),
+            "ms_at": row["at"], "max_abs_rel": row["max_abs_rel"],
+            "rel_l2": row["rel_l2"], "tflops": row["tflops"],
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

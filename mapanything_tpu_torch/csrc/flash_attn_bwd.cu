@@ -23,7 +23,8 @@
 // What bounds them on an H100: each key tile of the dK/dV pass does four
 // 64-deep products per q tile it streams (S^T, dP^T, dV, dK), the dQ pass
 // three; at D = 64 both are compute bound like the forward. The design
-// mirrors the forward (csrc/flash_attn_fwd.cu): four warps, each owning 16
+// mirrors the mma.sync forward (csrc/flash_attn_fwd_mma.cu, the baseline
+// of the TMA/wgmma one): four warps, each owning 16
 // rows, mma.sync m16n8k16 with bf16 operands and fp32 accumulators, the
 // row-owner's operands (K and V here, Q and dO in the dQ pass) held as A
 // fragments in registers for the whole loop, the streamed tiles read from

@@ -1,6 +1,13 @@
-// Flash-attention forward for Hopper (sm_90a): softmax(Q K^T * d^-1/2) V,
-// optionally with the per-row log-sum-exp that the backward needs, or as the
-// unnormalised partial state that the ring merges.
+// The mma.sync flash-attention forward (sm_90a, pre-Hopper tensor-core
+// path): softmax(Q K^T * d^-1/2) V, optionally with the per-row
+// log-sum-exp that the backward needs, or as the unnormalised partial state
+// that the ring merges.
+//
+// This was the main path's forward until the TMA/wgmma kernel of
+// csrc/flash_fwd_sm90.cuh replaced it. It stays as the baseline that kernel
+// is timed against: its entries (flash_attn_fwd_mma, flash_attn_fwd_lse_mma,
+// flash_attn_fwd_stats_mma) live in the probe library and nothing on the
+// main path calls them.
 //
 // Replaces the two serving-path Pallas kernels of the JAX package:
 //   mapanything_tpu/ops/flash_attention.py::_flash_kernel_1pass_T (kv <= 2816)
@@ -42,8 +49,8 @@
 // V may be the same tensor as K (the ring's lse backward sums P K): K and V
 // are read through their own strides.
 //
-// wgmma, TMA, cp.async pipelining and warp specialisation are the work of
-// the PRs that make this kernel fast.
+// It has no copy/compute overlap inside a block (plain 16-byte loads
+// bracketed by __syncthreads) and issues both products through mma.sync.
 //
 // Layout: q (B, Nq, H, 64), k and v (B, Nk, H, 64), read through their
 // (batch, token, head) strides with unit stride along D; o is written the
@@ -199,32 +206,35 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace
 
-// Plain C entry points, bound with ctypes.
+// Plain C entry points, bound with ctypes; the arguments of
+// csrc/flash_attn_fwd_sm90.cu's entries of the same names without "_mma".
 //   q, k, v: bfloat16; o: bfloat16 (flash_attn_fwd, flash_attn_fwd_lse) or
-//     the fp32 unnormalised accumulator (flash_attn_fwd_stats)
-//   lse: (batch, heads, nq) float32, contiguous (flash_attn_fwd_lse only)
-//   m, l: (batch, nq, heads) float32, contiguous (flash_attn_fwd_stats only)
+//     the fp32 unnormalised accumulator (flash_attn_fwd_stats_mma)
+//   lse: (batch, heads, nq) float32, contiguous (flash_attn_fwd_lse_mma only)
+//   m, l: (batch, nq, heads) float32, contiguous (..._stats_mma only)
 //   strides: 12 element strides, (batch, token, head) for q, k, v, o
 //   qscale: softmax scale times log2(e)
 // Each returns the cudaError_t of the launch (0 on success).
-extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              void* o, int64_t batch, int64_t heads,
-                              int64_t nq, int64_t kv_eff, const int64_t* st,
-                              float qscale, void* stream) {
+extern "C" int flash_attn_fwd_mma(const void* q, const void* k,
+                                  const void* v, void* o, int64_t batch,
+                                  int64_t heads, int64_t nq, int64_t kv_eff,
+                                  const int64_t* st, float qscale,
+                                  void* stream) {
   return launch<kOut>(q, k, v, o, nullptr, nullptr, batch, heads, nq, kv_eff,
                       st, qscale, stream);
 }
 
-extern "C" int flash_attn_fwd_lse(const void* q, const void* k, const void* v,
-                                  void* o, void* lse, int64_t batch,
-                                  int64_t heads, int64_t nq, int64_t kv_eff,
-                                  const int64_t* st, float qscale,
-                                  void* stream) {
+extern "C" int flash_attn_fwd_lse_mma(const void* q, const void* k,
+                                      const void* v, void* o, void* lse,
+                                      int64_t batch, int64_t heads,
+                                      int64_t nq, int64_t kv_eff,
+                                      const int64_t* st, float qscale,
+                                      void* stream) {
   return launch<kOutLse>(q, k, v, o, static_cast<float*>(lse), nullptr, batch,
                          heads, nq, kv_eff, st, qscale, stream);
 }
 
-extern "C" int flash_attn_fwd_stats(const void* q, const void* k,
+extern "C" int flash_attn_fwd_stats_mma(const void* q, const void* k,
                                     const void* v, void* acc, void* m,
                                     void* l, int64_t batch, int64_t heads,
                                     int64_t nq, int64_t kv_eff,

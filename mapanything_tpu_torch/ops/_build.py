@@ -27,13 +27,20 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # a function-local static of an inline function stays in its library
+    # (GCC's default binds it process-wide): see csrc/flash_fwd_sm90.cuh
+    "-Xcompiler", "-fno-gnu-unique",
     "-Xptxas", "-v",
 )
 
-# library name -> sources under csrc/
+# library name -> sources under csrc/. The probe library (the forward's
+# tuning variants and the mma.sync baseline, perf/flash_probes.py) builds in
+# its own nvcc process beside the main path's two.
 LIBRARIES = {
-    "flash_attn_fwd": ("flash_attn_fwd.cu",),
+    "flash_attn_fwd": ("flash_attn_fwd_sm90.cu",),
     "flash_attn_bwd": ("flash_attn_bwd.cu",),
+    "flash_attn_fwd_probes": ("flash_attn_fwd_probes.cu",
+                              "flash_attn_fwd_mma.cu"),
 }
 
 
@@ -97,6 +104,25 @@ def build_all() -> dict[str, tuple[Path, str, float]]:
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:
         futures = {name: pool.submit(timed, name) for name in LIBRARIES}
     return {name: fut.result() for name, fut in futures.items()}
+
+
+def sass_counts(path: Path, opcodes=("HGMMA", "UTMALDG")) -> dict:
+    """{kernel symbol: {opcode: count}} in a built library's SASS
+    (cuobjdump -sass), for the kernels whose code uses any of `opcodes`:
+    the proof that a kernel runs on wgmma (HGMMA) and TMA (UTMALDG)."""
+    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    proc = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                          capture_output=True, text=True, check=True)
+    counts, name = {}, None
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+        elif name is not None:
+            for op in opcodes:
+                if op in line:
+                    per = counts.setdefault(name, dict.fromkeys(opcodes, 0))
+                    per[op] += 1
+    return counts
 
 
 @functools.lru_cache(maxsize=None)

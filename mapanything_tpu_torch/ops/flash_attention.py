@@ -9,7 +9,7 @@ devices; the device of the tensors picks the implementation, and nothing
 falls back from one to the other:
 
   * forward, when none of q, k, v needs a gradient (serving under
-    ``torch.inference_mode``): ``csrc/flash_attn_fwd.cu``'s
+    ``torch.inference_mode``): ``csrc/flash_attn_fwd_sm90.cu``'s
     ``flash_attn_fwd`` on CUDA, :func:`flash_attention_plain` on the CPU.
     No lse is written.
   * forward under differentiation: ``flash_attn_fwd_lse`` (the same kernel
@@ -28,8 +28,12 @@ The kernels replace the JAX package's Pallas kernels
 ``::_dq_kernel``. At head dim 64 all of them do a few hundred flops per byte
 they move, so they are bound by arithmetic: the score and probability tiles
 stay in registers and shared memory (the (N, N) matrices never reach device
-memory) and every product runs on the tensor cores with ``mma.sync`` (bf16
-operands, fp32 accumulation). The kernels take bf16 only, D = 64. The TPU
+memory) and every product runs on the tensor cores (bf16 operands, fp32
+accumulation): the forward on Hopper's TMA and ``wgmma`` with warp
+specialisation (``csrc/flash_fwd_sm90.cuh``), the backward on ``mma.sync``.
+A failed build or launch of the forward raises; nothing falls back to the
+``mma.sync`` forward, which stays off the main path as the baseline that
+perf/flash_probes.py times. The kernels take bf16 only, D = 64. The TPU
 tricks of the Pallas kernels (transposed S/acc layouts, the ones-row row
 sum, padding kv to a block multiple) are not carried over: the kernels mask
 keys past ``n_valid`` explicitly and read the (B, N, H) strides directly.
@@ -226,8 +230,23 @@ def _kernel_fn(library: str, entry: str):
         + [_P, ctypes.c_float, ctypes.c_float, _P],
         "flash_attn_bwd_pt_do": [_P] * 5 + [_I] * 4
         + [_P, ctypes.c_float, _P],
-    }[entry.removesuffix("_f32")]
+        "flash_attn_fwd_probe": [ctypes.c_int] + [_P] * 4 + [_I] * 4
+        + [_P, ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
+    }[entry.removesuffix("_f32").removesuffix("_mma")]
     return fn
+
+
+# codes the forward's entries return beyond cudaError_t
+# (csrc/flash_fwd_sm90.cuh, csrc/flash_attn_fwd_probes.cu)
+_ERRORS = {10001: "the CUDA driver has no cuTensorMapEncodeTiled",
+           10002: "the CUDA driver refused a TMA tensor map",
+           10003: "no such probe variant"}
+
+
+def _check_err(entry: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: "
+                           f"{_ERRORS.get(err, f'cudaError {err}')}")
 
 
 def _strides(*tensors) -> ctypes.Array:
@@ -240,8 +259,7 @@ def _launch(kernel: str, library: str, entry: str, device, *args) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    _check_err(entry, err)
     flash_attention.kernel_counts[kernel] += 1
     flash_attention.kernel_launches += 1
 

@@ -13,7 +13,7 @@ The kernels, each with a wrapper that launches it on CUDA tensors and runs
 its plain twin on CPU tensors (and counts either, in
 ops/flash_attention.py's counters):
 
-  * :func:`flash_attention_stats`: ``csrc/flash_attn_fwd.cu``'s
+  * :func:`flash_attention_stats`: ``csrc/flash_attn_fwd_sm90.cu``'s
     ``flash_attn_fwd_stats`` (replaces the Pallas ``_flash_stats_kernel``),
     the forward writing the unnormalised fp32 accumulator and the base-2
     stats m and l;

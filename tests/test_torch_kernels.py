@@ -271,3 +271,125 @@ def test_cuda_stats_without_keys(cuda_device):
     acc, m, l = flash_attention_stats(q, k[:, :0], v[:, :0])
     torch.cuda.synchronize()
     assert torch.isneginf(m).all() and not l.any() and not acc.any()
+
+
+# --- the TMA/wgmma forward (csrc/flash_fwd_sm90.cuh) and its probes ---------
+
+# q rows and keys that are not multiples of its 128-row / 128-key tiles: a
+# single key, no key, a ragged last key tile at 129 and 10952 keys, three
+# batches
+_TILING_CASES = [
+    ((1, 200, 2, 64), 77),
+    ((1, 300, 2, 64), 1),
+    ((1, 300, 2, 64), 0),
+    ((1, 129, 2, 64), None),
+    ((1, 10952, 16, 64), None),
+    ((3, 250, 4, 64), 129),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,n_valid", _TILING_CASES)
+def test_cuda_forward_tiling_matches_plain(cuda_device, shape, n_valid):
+    """The three entries (forward, with lse, stats with V and with V := K)
+    against their plain versions where the tiles are ragged."""
+    q, k, v = _cuda_qkv(shape, n_valid, "fused_qkv", cuda_device)
+    real = shape[1] if n_valid is None else n_valid
+    rows = max(real, 1)
+    reset_launch_counts()
+    out = flash_attention(q, k, v, n_valid=n_valid)
+    out_l, lse = flash_attention_fwd_lse(q, k, v, n_valid)
+    ref, ref_lse = flash_attention_fwd_lse_plain(q, k, v, n_valid)
+    kk, vv = k[:, :real], v[:, :real]
+    stats = [flash_attention_stats(q, kk, vv),
+             flash_attention_stats(q, kk, kk)]
+    refs = [flash_attention_stats_plain(q, kk, vv),
+            flash_attention_stats_plain(q, kk, kk)]
+    torch.cuda.synchronize()
+    assert flash_attention.kernel_counts == {"fwd": 1, "fwd_lse": 1, "dkv": 0,
+                                             "dq": 0, "fwd_stats": 2,
+                                             "pt_do": 0}
+    if real == 0:
+        assert not out.any() and not out_l.any() and torch.isinf(lse).all()
+        for acc, m, l in stats:
+            assert torch.isneginf(m).all() and not l.any() and not acc.any()
+        return
+    for got in (out, out_l):
+        assert max(_err(got[:, :rows], ref[:, :rows])) <= 1e-2
+    assert max(_err(lse[..., :rows], ref_lse[..., :rows])) <= 1e-2
+    for got, want in zip(stats, refs):
+        for name, a, r in zip(("acc", "m", "l"), got, want):
+            assert max(_err(a, r)) <= 1e-2, name
+
+
+def _probe_inputs(layout, device):
+    """B * H = 64 heads of 700 rows (650 real), on one of three layouts."""
+    q, k, v = _cuda_qkv((4, 700, 16, 64), 650, "fused_qkv", device)
+    if layout != "fused_qkv":
+        q, k, v = (x.contiguous() for x in (q, k, v))
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", [
+    ("fused_qkv", 1, 0), ("fused_qkv", 2, 0), ("fused_qkv", 4, 0),
+    ("fused_qkv", 1, 132), ("fused_qkv", 1, 7), ("bnhd", 1, 0),
+    ("bhnd", 1, 0)])
+def test_cuda_probe_schedules_and_layouts(cuda_device, schedule):
+    """The main configuration with G heads per block, a persistent grid
+    (also one far smaller than the work), and the three input layouts."""
+    from mapanything_tpu_torch.perf import flash_probes as fp
+
+    layout, heads, blocks = schedule
+    q, k, v = _probe_inputs(layout, cuda_device)
+    fp.reset_probe_counts()
+    out = fp.flash_probe("main", q, k, v, 650, heads_per_block=heads,
+                         persistent_blocks=blocks,
+                         layout="bhnd" if layout == "bhnd" else "as_given")
+    torch.cuda.synchronize()
+    assert fp.probe_counts["main"] == 1 and fp.probe_counts["plain"] == 0
+    ref = flash_attention_plain(q, k, v, 650)
+    assert max(_err(out[:, :650], ref[:, :650])) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["main", "simple", "nomax", "noexp",
+                                  "bf16exp", "sumfuse", "pingpong",
+                                  "t64x128", "t64x176", "t128x64",
+                                  "t128x176", "t128x128s3", "t128x176s3",
+                                  "t192x64", "t128x128", "t192x128"])
+def test_cuda_probe_variants_match_their_plain(cuda_device, name):
+    from mapanything_tpu_torch.perf import flash_probes as fp
+
+    q, k, v = _cuda_qkv((2, 1408, 16, 64), 1370, "fused_qkv", cuda_device)
+    out = fp.flash_probe(name, q, k, v, 1370)
+    ref = fp.VARIANTS[name][1](q, k, v, 1370)
+    torch.cuda.synchronize()
+    assert max(_err(out[:, :1370], ref[:, :1370])) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_baseline_matches_plain_and_stays_off_the_main_path(cuda_device):
+    """The mma.sync baseline's three entries against their plain versions;
+    the main path's wrappers never launch it."""
+    from mapanything_tpu_torch.perf import flash_probes as fp
+
+    q, k, v = _cuda_qkv((1, 2816, 16, 64), 2739, "fused_qkv", cuda_device)
+    fp.reset_probe_counts()
+    flash_attention(q, k, v, n_valid=2739)
+    flash_attention_fwd_lse(q, k, v, 2739)
+    flash_attention_stats(q, k, v)
+    torch.cuda.synchronize()
+    assert not any(fp.probe_counts.values())
+    out = fp.flash_attention_mma(q, k, v, 2739)
+    out_l, lse = fp.flash_attention_fwd_lse_mma(q, k, v, 2739)
+    stats = fp.flash_attention_stats_mma(q, k, v)
+    ref, ref_lse = flash_attention_fwd_lse_plain(q, k, v, 2739)
+    torch.cuda.synchronize()
+    assert {key: fp.probe_counts[key] for key in fp.BASELINE} == dict.fromkeys(
+        fp.BASELINE, 1)
+    for got in (out, out_l):
+        assert max(_err(got[:, :2739], ref[:, :2739])) <= 1e-2
+    assert max(_err(lse[..., :2739], ref_lse[..., :2739])) <= 1e-2
+    for a, r in zip(stats, flash_attention_stats_plain(q, k, v)):
+        assert max(_err(a, r)) <= 1e-2
