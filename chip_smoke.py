@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's three slices once on one NVIDIA GPU.
+"""Drive the PyTorch port's slices once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,12 +7,15 @@ Phases, in order (any failure exits non-zero and prints no result line):
 
   1. Builds the CUDA libraries from mapanything_tpu_torch/csrc (the
      TMA/wgmma flash-attention forward with its lse and stats epilogues;
-     the backward's dK/dV and dQ in bf16 and fp32, and P^T dO; the
-     forward's probe variants with the mma.sync baseline), one nvcc each,
-     in parallel, and prints the build times, each kernel's ptxas register
-     use, the dynamic shared memory of each forward configuration, and the
-     HGMMA (wgmma) and UTMALDG (TMA load) counts of the forward's SASS
-     (cuobjdump), failing where either is missing.
+     the TMA/wgmma backward's dK/dV and dQ in bf16 and fp32, with the
+     ring's P^T dO; the probe library: the forward's probe variants and
+     the mma.sync forward and backward, the baselines), one nvcc each, in
+     parallel, and prints the build times, each kernel's ptxas register
+     use, the dynamic shared memory of each forward and backward
+     configuration, and the HGMMA (wgmma) and UTMALDG (TMA load) counts in
+     the SASS (cuobjdump) of the forward's three instances and of the
+     backward's dK/dV and dQ in both output types, failing where either is
+     missing.
   Times: every kernel and library time is device time, a CUDA graph of 20
   back-to-back calls between two CUDA events (perf/timing.py::device_ms);
   the plain versions' by events around 5 calls in a row (::events_ms);
@@ -35,17 +38,22 @@ Phases, in order (any failure exits non-zero and prints no result line):
      (encoder (4, 1408, 16, 64), frame (4, 1369, 16, 64), global
      (1, 5504, 16, 64)):
      the forward with lse (out and lse), dK/dV and dQ (fed the plain
-     forward's lse and delta); each output's max-abs over the plain's
-     max-abs and rel-L2 over the real rows (limit 1e-2 each), and the
-     time of each kernel and of its plain twin; the forward with lse also
-     against and beside the mma.sync baseline's.
+     forward's lse and delta), and the pair row: delta, dK/dV and dQ as
+     the backward runs them in one call (ops/flash_attention.py::
+     flash_attention_bwd); each output's max-abs over the plain's max-abs
+     and rel-L2 over the real rows (limit 1e-2 each), the same for the
+     mma.sync baseline of each kernel, and the time of each kernel, its
+     baseline and its plain twin. The pair is timed against FA2's
+     backward, which computes the same function, and bound by that
+     function's 5 products; dK/dV and dQ alone have no library call.
   2c. The ring's kernels against their plain twins, bf16 q/k/v on the
      fused-qkv layout, at the 4- and 8-view shards of a one-rank ring
      ((1, 5476, 16, 64) and (1, 10952, 16, 64), no padding, a ragged last
      key tile): the stats forward (acc, m, l; and with V := K), P^T dO and
      the fp32 forms of dK/dV and dQ fed the plain stats' global lse;
      max-abs over the plain's max-abs and rel-L2 (limit 1e-2 each), the
-     stats also for the mma.sync baseline, and the times. At 8 views the
+     stats and the fp32 dK/dV and dQ also for their mma.sync baselines,
+     and the times. At 8 views the
      stats of 4 key shards merged by merge_stats must equal flash_attn_fwd
      over all keys.
   2d. Every probe of perf/flash_probes.py (the Hopper counterparts of the
@@ -55,7 +63,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
      (B, H, N, D)-copied inputs, once at the 2-view global shape against
      its plain version (limit 1e-2 max-abs over the plain's max-abs and
      rel-L2), with its time. Phases 3-5 then require 0 launches of every
-     probe and of the baseline.
+     probe and of the baselines.
   3. Serving end to end at full width: MapAnythingConfig() (DINOv2-L/14,
      24-layer trunk, dim 1024, DPT 256) in bf16 with seeded random weights
      (numpy normals x 0.02), synthetic 518x518 PNGs through load_images and
@@ -154,33 +162,37 @@ TRAIN_SHAPES = ATTENTION_SHAPES + [
     ("frame_4view", (4, 1369, 16, 64), None),
     ("global_4view", (1, 5504, 16, 64), 5477),
 ]
+CSRC = "mapanything_tpu_torch/csrc/"
+NEW_FWD = CSRC + "flash_attn_fwd_sm90.cu"
+NEW_BWD = CSRC + "flash_attn_bwd_sm90.cu"
+# the mma.sync kernels the main path ran before, off it as baselines
+MMA_SOURCE = {NEW_FWD: CSRC + "flash_attn_fwd_mma.cu",
+              NEW_BWD: CSRC + "flash_attn_bwd_mma.cu"}
 TRAINING_KERNELS = {
     # name: (source, the JAX Pallas kernel it replaces)
     "flash_attn_fwd_lse": (
-        "mapanything_tpu_torch/csrc/flash_attn_fwd_sm90.cu",
-        "mapanything_tpu/ops/flash_attention_bwd.py:73"),
+        NEW_FWD, "mapanything_tpu/ops/flash_attention_bwd.py:73"),
     "flash_attn_bwd_dkv": (
-        "mapanything_tpu_torch/csrc/flash_attn_bwd.cu",
-        "mapanything_tpu/ops/flash_attention_bwd.py:96"),
+        NEW_BWD, "mapanything_tpu/ops/flash_attention_bwd.py:96"),
     "flash_attn_bwd_dq": (
-        "mapanything_tpu_torch/csrc/flash_attn_bwd.cu",
-        "mapanything_tpu/ops/flash_attention_bwd.py:156"),
+        NEW_BWD, "mapanything_tpu/ops/flash_attention_bwd.py:156"),
 }
+# the backward as one call, delta (torch) + dK/dV + dQ (ops/flash_attention.
+# py::flash_attention_bwd): no kernel of its own, so it has no counter;
+# phase 2b holds it against FA2's backward, which computes the same function
+PAIR = "flash_attn_bwd_pair"
 # the ring path: its two kernels and the fp32-output forms of dK/dV and dQ
 # (ring_attention.py::_pair_bwd asks the Pallas pair for out_dtype=float32)
 RING_KERNELS = {
     "flash_attn_fwd_stats": (
-        "mapanything_tpu_torch/csrc/flash_attn_fwd_sm90.cu",
-        "mapanything_tpu/ops/ring_attention.py:45"),
+        NEW_FWD, "mapanything_tpu/ops/ring_attention.py:45"),
     "flash_attn_bwd_pt_do": (
-        "mapanything_tpu_torch/csrc/flash_attn_bwd.cu",
+        CSRC + "flash_attn_pt_do.cu",
         "mapanything_tpu/ops/ring_attention.py:358"),
     "flash_attn_bwd_dkv_f32": (
-        "mapanything_tpu_torch/csrc/flash_attn_bwd.cu",
-        "mapanything_tpu/ops/flash_attention_bwd.py:96"),
+        NEW_BWD, "mapanything_tpu/ops/flash_attention_bwd.py:96"),
     "flash_attn_bwd_dq_f32": (
-        "mapanything_tpu_torch/csrc/flash_attn_bwd.cu",
-        "mapanything_tpu/ops/flash_attention_bwd.py:156"),
+        NEW_BWD, "mapanything_tpu/ops/flash_attention_bwd.py:156"),
 }
 # kernel name -> its counter in flash_attention.kernel_counts
 COUNTER = {"flash_attn_fwd": "fwd", "flash_attn_fwd_lse": "fwd_lse",
@@ -343,9 +355,45 @@ def library_bwd_ms(torch, qh, kh, vh, dout) -> float:
                                  max_q, max_k, 0.0, False, seed, offset))
 
 
+def errors_of(outputs) -> dict:
+    """{name}_max_abs_err, _max_abs_rel and _rel_l2 of each (got, ref) pair
+    of `outputs`, over the rows the caller kept."""
+    row = {}
+    for oname, (got, ref) in outputs.items():
+        got, ref = got.float(), ref.float()
+        row[f"{oname}_max_abs_err"] = float((got - ref).abs().max())
+        row[f"{oname}_max_abs_rel"] = max_abs_rel(got, ref)
+        row[f"{oname}_rel_l2"] = rel_l2(got, ref)
+    return row
+
+
+def baseline_errors(outputs) -> dict:
+    """The mma.sync baseline's worst error over its outputs."""
+    errs = errors_of(outputs)
+    return {f"mma_{kind}": max(val for key, val in errs.items()
+                               if key.endswith(f"_{kind}"))
+            for kind in ("max_abs_err", "max_abs_rel", "rel_l2")}
+
+
+def print_row(kname, case, shape, row):
+    errs = {key: f"{val:.3e}" for key, val in row.items()
+            if key.endswith(("_rel", "_rel_l2"))}
+    mma = (f" mma.sync {row['mma_ms']:.4f} ms" if "mma_ms" in row else "")
+    lib = row["library_ms"]
+    print(f"{kname} {case} {tuple(shape)}: {errs} kernel {row['ms']:.4f} ms"
+          + (f" ({row['tflops']:.2f} TFLOP/s)" if "tflops" in row else "")
+          + f"{mma} plain {row['plain_ms']:.4f} ms bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}) library "
+          f"{'none' if lib is None else f'{lib:.4f} ms'} host "
+          f"{row['host_us']:.1f} us", flush=True)
+
+
 def training_kernels_vs_plain(torch, fa, fp, F):
-    """Phase 2b: {kernel name: [row per shape]}."""
-    rows = {name: [] for name in TRAINING_KERNELS}
+    """Phase 2b: {kernel name or PAIR: [row per shape]}. The backward
+    kernels are fed the plain forward's lse and delta; the pair row times
+    delta, dK/dV and dQ as the backward runs them, in one call, against
+    FA2's backward, which computes the same function."""
+    rows = {name: [] for name in [*TRAINING_KERNELS, PAIR]}
     for i, (name, shape, n_valid) in enumerate(TRAIN_SHAPES):
         q, k, v = attention_inputs(torch, shape, n_valid, seed=100 + i)
         real = shape[1] if n_valid is None else n_valid
@@ -357,85 +405,82 @@ def training_kernels_vs_plain(torch, fa, fp, F):
         ref_out, ref_lse = fa.flash_attention_fwd_lse_plain(q, k, v, n_valid)
         delta = fa.attention_delta(dout, ref_out)
         bwd_args = (q, k, v, dout, ref_lse, delta, n_valid)
+        pair_args = (q, k, v, ref_out, ref_lse, dout, n_valid)
         dk, dv = fa.flash_attention_dkv(*bwd_args)
         ref_dk, ref_dv = fa.flash_attention_dkv_plain(*bwd_args)
         dq = fa.flash_attention_dq(*bwd_args)
         ref_dq = fa.flash_attention_dq_plain(*bwd_args)
+        pair = fa.flash_attention_bwd(*pair_args)
+        mma_fwd = fp.flash_attention_fwd_lse_mma(q, k, v, n_valid)
+        mma_dk, mma_dv = fp.flash_attention_dkv_mma(*bwd_args)
+        mma_dq = fp.flash_attention_dq_mma(*bwd_args)
         torch.cuda.synchronize()
-        checks = {
-            "flash_attn_fwd_lse": {"out": (out, ref_out),
-                                   "lse": (lse.transpose(1, 2),
-                                           ref_lse.transpose(1, 2))},
-            "flash_attn_bwd_dkv": {"dk": (dk, ref_dk), "dv": (dv, ref_dv)},
-            "flash_attn_bwd_dq": {"dq": (dq, ref_dq)},
-        }
-        timed = {
-            "flash_attn_fwd_lse": (
-                lambda: fa.flash_attention_fwd_lse(q, k, v, n_valid),
-                lambda: fa.flash_attention_fwd_lse_plain(q, k, v, n_valid)),
-            "flash_attn_bwd_dkv": (
-                lambda: fa.flash_attention_dkv(*bwd_args),
-                lambda: fa.flash_attention_dkv_plain(*bwd_args)),
-            "flash_attn_bwd_dq": (
-                lambda: fa.flash_attention_dq(*bwd_args),
-                lambda: fa.flash_attention_dq_plain(*bwd_args)),
-        }
-        # matmul flops: 2 (QK^T, PV) forward, 4 (S^T, dP^T, dV, dK) in dK/dV,
-        # 3 (S, dP, dQ) in dQ
-        products = {"flash_attn_fwd_lse": 2, "flash_attn_bwd_dkv": 4,
-                    "flash_attn_bwd_dq": 3}
-        # the one PyTorch call of each: the flash SDPA forward with lse, and
-        # its backward, which computes dK, dV and dQ together
+
+        def real_rows(**pairs):  # (got, ref) over the real rows
+            return {key: (got[:, :real], ref[:, :real])
+                    for key, (got, ref) in pairs.items()}
+
+        def lse_rows(got):  # (B, H, N) -> (B, N, H)
+            return got.transpose(1, 2)
+
+        # (row, outputs against the plain version's, kernel fn, plain fn,
+        # the mma.sync baseline's (outputs, fn) or None, its work in
+        # utils/flops.py, library ms) of each row. The pair's work is the
+        # backward's own 5 products (S, dP, dV, dK, dQ); its two kernels
+        # run 7, computing S and dP once in each. The library call is the
+        # flash SDPA forward with lse, and its backward for the pair: no
+        # single call computes dK/dV or dQ alone.
         lib = sdpa_layout(q, k, v, real)
-        lib_bwd = library_bwd_ms(torch, *lib, dout)
-        library = {"flash_attn_fwd_lse": library_fwd_lse_ms(torch, *lib),
-                   "flash_attn_bwd_dkv": lib_bwd,
-                   "flash_attn_bwd_dq": lib_bwd}
-        for kname, outputs in checks.items():
-            row = {"at": name, "shape": list(shape), "n_valid": n_valid}
-            for oname, (got, ref) in outputs.items():
-                got, ref = got[:, :real].float(), ref[:, :real].float()
-                row[f"{oname}_max_abs_err"] = float((got - ref).abs().max())
-                row[f"{oname}_max_abs_rel"] = max_abs_rel(got, ref)
-                row[f"{oname}_rel_l2"] = rel_l2(got, ref)
-            if kname == "flash_attn_fwd_lse":  # the mma.sync baseline
-                mma_out = fp.flash_attention_fwd_lse_mma(q, k, v, n_valid)
-                pairs = zip(mma_out, (ref_out, ref_lse), (1, 2))
-                errs = [(got.transpose(1, axis)[:, :real].float(),
-                         ref.transpose(1, axis)[:, :real].float())
-                        for got, ref, axis in pairs]
-                row["mma_max_abs_err"] = max(float((a - b).abs().max())
-                                             for a, b in errs)
-                row["mma_max_abs_rel"] = max(max_abs_rel(a, b)
-                                             for a, b in errs)
-                row["mma_rel_l2"] = max(rel_l2(a, b) for a, b in errs)
-                del mma_out, errs
-            kernel_fn, plain_fn = timed[kname]
+        cases = [
+            ("flash_attn_fwd_lse",
+             real_rows(out=(out, ref_out),
+                       lse=(lse_rows(lse), lse_rows(ref_lse))),
+             lambda: fa.flash_attention_fwd_lse(q, k, v, n_valid),
+             lambda: fa.flash_attention_fwd_lse_plain(q, k, v, n_valid),
+             (real_rows(out=(mma_fwd[0], ref_out),
+                        lse=(lse_rows(mma_fwd[1]), lse_rows(ref_lse))),
+              lambda: fp.flash_attention_fwd_lse_mma(q, k, v, n_valid)),
+             "fwd_lse", library_fwd_lse_ms(torch, *lib)),
+            ("flash_attn_bwd_dkv",
+             real_rows(dk=(dk, ref_dk), dv=(dv, ref_dv)),
+             lambda: fa.flash_attention_dkv(*bwd_args),
+             lambda: fa.flash_attention_dkv_plain(*bwd_args),
+             (real_rows(dk=(mma_dk, ref_dk), dv=(mma_dv, ref_dv)),
+              lambda: fp.flash_attention_dkv_mma(*bwd_args)),
+             "dkv", None),
+            ("flash_attn_bwd_dq", real_rows(dq=(dq, ref_dq)),
+             lambda: fa.flash_attention_dq(*bwd_args),
+             lambda: fa.flash_attention_dq_plain(*bwd_args),
+             (real_rows(dq=(mma_dq, ref_dq)),
+              lambda: fp.flash_attention_dq_mma(*bwd_args)),
+             "dq", None),
+            (PAIR,
+             real_rows(dq=(pair[0], ref_dq), dk=(pair[1], ref_dk),
+                       dv=(pair[2], ref_dv)),
+             lambda: fa.flash_attention_bwd(*pair_args),
+             lambda: fa.flash_attention_bwd_plain(*pair_args),
+             None, "bwd", library_bwd_ms(torch, *lib, dout)),
+        ]
+        for (kname, outputs, kernel_fn, plain_fn, mma, work,
+             library) in cases:
+            row = {"at": name, "shape": list(shape), "n_valid": n_valid,
+                   **errors_of(outputs)}
             row["ms"] = kernel_ms(kernel_fn)
             row["plain_ms"] = plain_ms(plain_fn)
             row["host_us"] = host_us(kernel_fn)
-            if kname == "flash_attn_fwd_lse":  # the mma.sync baseline
-                row["mma_ms"] = kernel_ms(
-                    lambda: fp.flash_attention_fwd_lse_mma(q, k, v, n_valid))
-            fwd_flops = fa.attention_flops(shape[0], shape[1], real,
-                                           shape[2], shape[3])
-            row["tflops"] = (fwd_flops / 2 * products[kname] / row["ms"]
-                             / 1e9)
-            row.update(bound(F, COUNTER[kname], shape, real))
-            row["library_ms"] = library[kname]
+            if mma is not None:
+                row.update(baseline_errors(mma[0]))
+                row["mma_ms"] = kernel_ms(mma[1])
+            flops, _ = F.attention_kernel_work(work, shape[0], shape[1],
+                                               real, shape[2], shape[3])
+            row["tflops"] = flops / row["ms"] / 1e9
+            row.update(bound(F, work, shape, real))
+            row["library_ms"] = library
             rows[kname].append(row)
-            errs = {key: f"{val:.3e}" for key, val in row.items()
-                    if key.endswith(("_rel", "_rel_l2"))}
-            mma = (f" mma.sync {row['mma_ms']:.4f} ms" if "mma_ms" in row
-                   else "")
-            print(f"{kname} {name} {tuple(shape)} n_valid={n_valid}: {errs} "
-                  f"kernel {row['ms']:.4f} ms ({row['tflops']:.2f} TFLOP/s)"
-                  f"{mma} plain {row['plain_ms']:.4f} ms bound "
-                  f"{row['bound_ms']:.4f} ms library "
-                  f"{row['library_ms']:.4f} ms host {row['host_us']:.1f} us",
-                  flush=True)
+            print_row(kname, name, shape, row)
         del (q, k, v, dout, out, lse, ref_out, ref_lse, delta, dk, dv, dq,
-             ref_dk, ref_dv, ref_dq, checks, timed, bwd_args, lib)
+             ref_dk, ref_dv, ref_dq, pair, mma_fwd, mma_dk, mma_dv, mma_dq,
+             cases, bwd_args, pair_args, lib)
         torch.cuda.empty_cache()
     return rows
 
@@ -457,73 +502,63 @@ def ring_kernels_vs_plain(torch, fa, ring, fp, F):
         del acc, m, l
         bwd = (q, k, v, dout, lse, delta)
         lib = sdpa_layout(q, k, v, n)
-        lib_bwd = library_bwd_ms(torch, *lib, dout)
-        # the stats cases also time the mma.sync baseline's stats entry
-        mma = {at: lambda: fp.flash_attention_stats_mma(q, k, v),
-               at + "_v_is_k": lambda: fp.flash_attention_stats_mma(q, k, k)}
+        # (kernel, case, outputs, kernel fn, plain fn, mma.sync baseline fn
+        # or None, bound, library ms); the fp32 dK/dV and dQ have no single
+        # PyTorch call of their own
         cases = [
             ("flash_attn_fwd_stats", at, ("acc", "m", "l"),
              lambda: ring.flash_attention_stats(q, k, v),
              lambda: ring.flash_attention_stats_plain(q, k, v),
+             lambda: fp.flash_attention_stats_mma(q, k, v),
              bound(F, "fwd_stats", shape, n),
              library_fwd_lse_ms(torch, *lib)),
             ("flash_attn_fwd_stats", at + "_v_is_k", ("acc", "m", "l"),
              lambda: ring.flash_attention_stats(q, k, k),
              lambda: ring.flash_attention_stats_plain(q, k, k),
+             lambda: fp.flash_attention_stats_mma(q, k, k),
              bound(F, "fwd_stats", shape, n, v_is_k=True),
              library_fwd_lse_ms(torch, lib[0], lib[1], lib[1])),
             ("flash_attn_bwd_pt_do", at, ("out",),
              lambda: ring.flash_attention_pt_do(q, k, dout, lse),
              lambda: ring.flash_attention_pt_do_plain(q, k, dout, lse),
-             bound(F, "pt_do", shape, n), None),
+             None, bound(F, "pt_do", shape, n), None),
             ("flash_attn_bwd_dkv_f32", at, ("dk", "dv"),
              lambda: fa.flash_attention_dkv(*bwd, out_dtype=f32),
              lambda: fa.flash_attention_dkv_plain(*bwd, out_dtype=f32),
-             bound(F, "dkv", shape, n, out_bytes=4), lib_bwd),
+             lambda: fp.flash_attention_dkv_mma(*bwd, out_dtype=f32),
+             bound(F, "dkv", shape, n, out_bytes=4), None),
             ("flash_attn_bwd_dq_f32", at, ("dq",),
              lambda: fa.flash_attention_dq(*bwd, out_dtype=f32),
              lambda: fa.flash_attention_dq_plain(*bwd, out_dtype=f32),
-             bound(F, "dq", shape, n, out_bytes=4), lib_bwd),
+             lambda: fp.flash_attention_dq_mma(*bwd, out_dtype=f32),
+             bound(F, "dq", shape, n, out_bytes=4), None),
         ]
-        for kname, case, names, kernel_fn, plain_fn, cost, library in cases:
+        for (kname, case, names, kernel_fn, plain_fn, mma_fn, cost,
+             library) in cases:
             got, ref = kernel_fn(), plain_fn()
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
             ref = ref if isinstance(ref, tuple) else (ref,)
-            row = {"at": case, "shape": list(shape)}
-            for oname, a, r in zip(names, got, ref):
+            for oname, a in zip(names, got):
                 if a.dtype != f32:
                     return rows, merge, f"{kname} {case}: {oname} {a.dtype}"
-                row[f"{oname}_max_abs_err"] = float((a - r).abs().max())
-                row[f"{oname}_max_abs_rel"] = max_abs_rel(a, r)
-                row[f"{oname}_rel_l2"] = rel_l2(a, r)
-            if kname == "flash_attn_fwd_stats":  # the mma.sync baseline
-                base = [(a, r) for a, r in zip(mma[case](), ref)]
-                row["mma_max_abs_err"] = max(float((a - r).abs().max())
-                                             for a, r in base)
-                row["mma_max_abs_rel"] = max(max_abs_rel(a, r)
-                                             for a, r in base)
-                row["mma_rel_l2"] = max(rel_l2(a, r) for a, r in base)
+            row = {"at": case, "shape": list(shape),
+                   **errors_of(dict(zip(names, zip(got, ref))))}
+            if mma_fn is not None:
+                base = mma_fn()
+                base = base if isinstance(base, tuple) else (base,)
+                row.update(baseline_errors(dict(zip(names, zip(base, ref)))))
                 del base
             del got, ref
             row["ms"] = kernel_ms(kernel_fn)
             row["plain_ms"] = plain_ms(plain_fn)
             row["host_us"] = host_us(kernel_fn)
-            if kname == "flash_attn_fwd_stats":
-                row["mma_ms"] = kernel_ms(mma[case])
+            if mma_fn is not None:
+                row["mma_ms"] = kernel_ms(mma_fn)
             row.update(cost)
             row["library_ms"] = library
             rows[kname].append(row)
-            errs = {key: f"{val:.3e}" for key, val in row.items()
-                    if key.endswith(("_rel", "_rel_l2"))}
-            mma_txt = (f" mma.sync {row['mma_ms']:.4f} ms" if "mma_ms" in row
-                       else "")
-            print(f"{kname} {case} {tuple(shape)}: {errs} kernel "
-                  f"{row['ms']:.4f} ms{mma_txt} plain {row['plain_ms']:.4f} "
-                  f"ms host {row['host_us']:.1f} us bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}) library "
-                  f"{library if library is None else round(library, 4)} ms",
-                  flush=True)
+            print_row(kname, case, shape, row)
         if at == "ring_8view":  # 4 kv shards merged = the whole kv
             cuts = [n * j // 4 for j in range(5)]
             st = ring.flash_attention_stats(q, k[:, :cuts[1]], v[:, :cuts[1]])
@@ -538,7 +573,7 @@ def ring_kernels_vs_plain(torch, fa, ring, fp, F):
                      "out_rel_l2": rel_l2(out, ref)}
             print(f"split-and-merge {at}: {json.dumps(merge)}", flush=True)
             del st, out, ref
-        del q, k, v, dout, lse, delta, bwd, lib, cases, mma
+        del q, k, v, dout, lse, delta, bwd, lib, cases
         torch.cuda.empty_cache()
     return rows, merge, None
 
@@ -834,6 +869,118 @@ def flash_vs_math_gradient(torch, model, make_synthetic_batch, compare):
     return res, None
 
 
+def timing(row):
+    return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms", "mma_ms",
+                                      "host_us") if key in row}
+
+
+def kernels_summary(fp, attn, train_rows, ring_rows, merge, probe_rows,
+                    launches, train, ring_res, block_res) -> list:
+    """The kernels' JSON rows: each kernel at its main-path shape with its
+    launches in phases 3-5, the baselines and the probes."""
+    g2 = dict(attn)["global_2view"]
+    kernels = [{
+        "name": "flash_attn_fwd",
+        "route": "cuda",
+        "source": NEW_FWD,
+        "replaces": "mapanything_tpu/ops/flash_attention.py:147",
+        "also_replaces": "mapanything_tpu/ops/flash_attention.py:94",
+        "launches": launches,
+        "max_abs_err": max(row["max_abs_err"] for _, row in attn),
+        **timing(g2),
+        "ms_at": "global_2view",
+        "library_call": "F.scaled_dot_product_attention, flash backend",
+        "per_shape": {name: row for name, row in attn},
+    }]
+    alone = "none: no one call computes it alone; see flash_attn_bwd_pair"
+    library_call = {
+        "flash_attn_fwd_lse": "aten._scaled_dot_product_flash_attention",
+        "flash_attn_bwd_dkv": alone, "flash_attn_bwd_dq": alone,
+        "flash_attn_fwd_stats": ("aten._scaled_dot_product_flash_attention "
+                                 "(nearest: normalised output and lse)"),
+        "flash_attn_bwd_pt_do": None,
+        "flash_attn_bwd_dkv_f32": alone, "flash_attn_bwd_dq_f32": alone,
+    }
+    # launches on the main path: training kernels from phase 4's steps, the
+    # ring's from phase 5 (the fp32 forms are the ring block's dkv and dq)
+    main_launches = {kname: train[f"{COUNTER[kname]}_launches"]
+                     for kname in TRAINING_KERNELS}
+    main_launches["flash_attn_fwd_stats"] = (
+        ring_res["kernel_counts"]["fwd_stats"]
+        + block_res["kernel_counts"]["fwd_stats"])
+    for kname in ("flash_attn_bwd_pt_do", "flash_attn_bwd_dkv_f32",
+                  "flash_attn_bwd_dq_f32"):
+        main_launches[kname] = block_res["kernel_counts"][COUNTER[kname]]
+    for kname, (source, replaces) in (TRAINING_KERNELS | RING_KERNELS).items():
+        rows = (train_rows | ring_rows)[kname]
+        at = {"flash_attn_fwd_stats": "ring_8view"}.get(
+            kname, "ring_4view" if kname in RING_KERNELS else "global_4view")
+        main = next(row for row in rows if row["at"] == at)
+        entry = {
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": main_launches[kname],
+            "max_abs_err": max(val for row in rows for key, val in row.items()
+                               if key.endswith("_max_abs_err")),
+            **timing(main), "ms_at": at,
+            "library_call": library_call[kname],
+            "per_shape": {row["at"]: row for row in rows},
+        }
+        if kname == "flash_attn_fwd_lse":
+            entry["also_replaces"] = (
+                "mapanything_tpu/ops/flash_attention_bwd.py:29")
+        if kname == "flash_attn_fwd_stats":
+            entry["split_and_merge"] = merge
+        kernels.append(entry)
+    # the mma.sync baselines (off the main path: 0 launches there), timed in
+    # phases 2-2c beside the new kernels at the same shapes
+    for new in [row for row in kernels if row["source"] in MMA_SOURCE]:
+        per = {at: row for at, row in new["per_shape"].items()
+               if "mma_ms" in row}
+        at = new["ms_at"]
+        kernels.append({
+            "name": new["name"] + "_mma", "route": "cuda",
+            "source": MMA_SOURCE[new["source"]],
+            "replaces": new["replaces"], "launches": 0,
+            "max_abs_err": max(row["mma_max_abs_err"] for row in per.values()),
+            "ms": per[at]["mma_ms"],
+            "plain_ms": new["plain_ms"], "bound_ms": new["bound_ms"],
+            "bound_by": new["bound_by"], "library_ms": new["library_ms"],
+            "ms_at": at, "note": "the baseline, off the main path",
+            "ms_per_shape": {key: row["mma_ms"] for key, row in per.items()},
+        })
+    # the backward as one call: each of phase 4's backward calls launched
+    # one dK/dV and one dQ
+    pair = {row["at"]: row for row in train_rows[PAIR]}
+    kernels.append({
+        "name": PAIR, "route": "cuda", "source": NEW_BWD,
+        "replaces": TRAINING_KERNELS["flash_attn_bwd_dkv"][1],
+        "also_replaces": TRAINING_KERNELS["flash_attn_bwd_dq"][1],
+        "launches": train["dq_launches"],
+        "max_abs_err": max(val for row in pair.values()
+                           for key, val in row.items()
+                           if key.endswith("_max_abs_err")),
+        **timing(pair["global_4view"]), "ms_at": "global_4view",
+        "library_call": ("aten._scaled_dot_product_flash_attention_backward "
+                         "(dQ, dK and dV together)"),
+        "note": ("delta + dK/dV + dQ in one call, as the backward runs "
+                 "them; launches: backward calls; bound: the backward's "
+                 "5 products"),
+        "per_shape": pair,
+    })
+    for case, row in probe_rows.items():
+        kernels.append({
+            "name": f"flash_attn_fwd_probe[{case}]", "route": "cuda",
+            "source": "mapanything_tpu_torch/csrc/flash_attn_fwd_probes.cu",
+            "replaces": probe_replaces(fp, case), "launches": 0,
+            "max_abs_err": row["max_abs_err"], **timing(row),
+            "ms_at": row["at"], "max_abs_rel": row["max_abs_rel"],
+            "rel_l2": row["rel_l2"], "tflops": row["tflops"],
+        })
+    return kernels
+
+
 def main() -> int:
     try:
         import torch
@@ -897,18 +1044,25 @@ def main() -> int:
                     "spill" in line and " 0 bytes spill stores" not in line):
                 print(f"    ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
     # the forward runs on wgmma (HGMMA) and TMA (UTMALDG): its SASS says so
-    sass = _build.sass_counts(built["flash_attn_fwd"][0])
-    for kernel, counts in sass.items():
-        print(f"    SASS {kernel[:80]}: {counts}", flush=True)
-    fwd_sass = {key: val for key, val in sass.items()
-                if "flash_fwd_sm90_kernel" in key}
-    if len(fwd_sass) != 3 or not all(c["HGMMA"] and c["UTMALDG"]
-                                     for c in fwd_sass.values()):
-        return fail(f"the forward's three kernels lack HGMMA or UTMALDG in "
-                    f"their SASS: {fwd_sass}")
+    # so do the backward's dK/dV and dQ, in both output types
+    for lib, kernel, count in (("flash_attn_fwd", "flash_fwd_sm90_kernel", 3),
+                               ("flash_attn_bwd", "flash_bwd_dkv_sm90_kernel",
+                                2),
+                               ("flash_attn_bwd", "flash_bwd_dq_sm90_kernel",
+                                2)):
+        sass = {key: val for key, val in
+                _build.sass_counts(built[lib][0]).items() if kernel in key}
+        for key, counts in sass.items():
+            print(f"    SASS {key[:80]}: {counts}", flush=True)
+        if len(sass) != count or not all(c["HGMMA"] and c["UTMALDG"]
+                                         for c in sass.values()):
+            return fail(f"the {count} instances of {kernel} lack HGMMA or "
+                        f"UTMALDG in their SASS: {sass}")
+    bwd_lib = _build.load_library("flash_attn_bwd")
     smem = {"flash_attn_fwd": _build.load_library(
-        "flash_attn_fwd").flash_attn_fwd_smem_bytes()}
-    probe_lib = _build.load_library("flash_attn_fwd_probes")
+        "flash_attn_fwd").flash_attn_fwd_smem_bytes(),
+            "flash_attn_bwd": bwd_lib.flash_attn_bwd_smem_bytes()}
+    probe_lib = _build.load_library(fp.LIBRARY)
     for name, spec in fp.VARIANTS.items():
         smem[f"probe {name}"] = probe_lib.flash_attn_fwd_probe_smem_bytes(
             spec[0])
@@ -1041,94 +1195,9 @@ def main() -> int:
     finally:
         torch.distributed.destroy_process_group()
 
-    def timing(row):
-        return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms", "mma_ms",
-                                          "host_us") if key in row}
-
-    new_fwd = "mapanything_tpu_torch/csrc/flash_attn_fwd_sm90.cu"
-
-    g2 = dict(attn)["global_2view"]
-    kernels = [{
-        "name": "flash_attn_fwd",
-        "route": "cuda",
-        "source": new_fwd,
-        "replaces": "mapanything_tpu/ops/flash_attention.py:147",
-        "also_replaces": "mapanything_tpu/ops/flash_attention.py:94",
-        "launches": launches,
-        "max_abs_err": max(row["max_abs_err"] for _, row in attn),
-        **timing(g2),
-        "ms_at": "global_2view",
-        "library_call": "F.scaled_dot_product_attention, flash backend",
-        "per_shape": {name: row for name, row in attn},
-    }]
-    backward = ("aten._scaled_dot_product_flash_attention_backward (dQ, dK "
-                "and dV together)")
-    library_call = {
-        "flash_attn_fwd_lse": "aten._scaled_dot_product_flash_attention",
-        "flash_attn_bwd_dkv": backward, "flash_attn_bwd_dq": backward,
-        "flash_attn_fwd_stats": ("aten._scaled_dot_product_flash_attention "
-                                 "(nearest: normalised output and lse)"),
-        "flash_attn_bwd_pt_do": None,
-        "flash_attn_bwd_dkv_f32": backward, "flash_attn_bwd_dq_f32": backward,
-    }
-    # launches on the main path: training kernels from phase 4's steps, the
-    # ring's from phase 5 (the fp32 forms are the ring block's dkv and dq)
-    main_launches = {kname: train[f"{COUNTER[kname]}_launches"]
-                     for kname in TRAINING_KERNELS}
-    main_launches["flash_attn_fwd_stats"] = (
-        ring_res["kernel_counts"]["fwd_stats"]
-        + block_res["kernel_counts"]["fwd_stats"])
-    for kname in ("flash_attn_bwd_pt_do", "flash_attn_bwd_dkv_f32",
-                  "flash_attn_bwd_dq_f32"):
-        main_launches[kname] = block_res["kernel_counts"][COUNTER[kname]]
-    for kname, (source, replaces) in (TRAINING_KERNELS | RING_KERNELS).items():
-        rows = (train_rows | ring_rows)[kname]
-        at = {"flash_attn_fwd_stats": "ring_8view"}.get(
-            kname, "ring_4view" if kname in RING_KERNELS else "global_4view")
-        main = next(row for row in rows if row["at"] == at)
-        entry = {
-            "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": main_launches[kname],
-            "max_abs_err": max(val for row in rows for key, val in row.items()
-                               if key.endswith("_max_abs_err")),
-            **timing(main), "ms_at": at,
-            "library_call": library_call[kname],
-            "per_shape": {row["at"]: row for row in rows},
-        }
-        if kname == "flash_attn_fwd_lse":
-            entry["also_replaces"] = (
-                "mapanything_tpu/ops/flash_attention_bwd.py:29")
-        if kname == "flash_attn_fwd_stats":
-            entry["split_and_merge"] = merge
-        kernels.append(entry)
-    # the mma.sync baseline (off the main path: 0 launches there), timed in
-    # phases 2-2c beside the new kernel at the same shapes
-    mma_src = "mapanything_tpu_torch/csrc/flash_attn_fwd_mma.cu"
-    for new in [row for row in kernels if row["source"] == new_fwd]:
-        per = {at: row for at, row in new["per_shape"].items()
-               if "mma_ms" in row}
-        at = new["ms_at"]
-        kernels.append({
-            "name": new["name"] + "_mma", "route": "cuda", "source": mma_src,
-            "replaces": new["replaces"], "launches": 0,
-            "max_abs_err": max(row["mma_max_abs_err"] for row in per.values()),
-            "ms": per[at]["mma_ms"],
-            "plain_ms": new["plain_ms"], "bound_ms": new["bound_ms"],
-            "bound_by": new["bound_by"], "library_ms": new["library_ms"],
-            "ms_at": at, "note": "the baseline, off the main path",
-            "ms_per_shape": {key: row["mma_ms"] for key, row in per.items()},
-        })
-    for case, row in probe_rows.items():
-        kernels.append({
-            "name": f"flash_attn_fwd_probe[{case}]", "route": "cuda",
-            "source": "mapanything_tpu_torch/csrc/flash_attn_fwd_probes.cu",
-            "replaces": probe_replaces(fp, case), "launches": 0,
-            "max_abs_err": row["max_abs_err"], **timing(row),
-            "ms_at": row["at"], "max_abs_rel": row["max_abs_rel"],
-            "rel_l2": row["rel_l2"], "tflops": row["tflops"],
-        })
+    kernels = kernels_summary(fp, attn, train_rows, ring_rows, merge,
+                              probe_rows, launches, train, ring_res,
+                              block_res)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

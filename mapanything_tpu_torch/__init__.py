@@ -4,8 +4,9 @@ Images-only MapAnything inference (DINOv2-L encoder, alternating
 frame/global trunk, DPT + pose + scale heads, factored geometry) and its
 training step (the released loss, AdamW; train/) on an NVIDIA H100.
 Attention runs forward and backward through hand-written CUDA
-flash-attention kernels (the TMA/wgmma forward csrc/flash_attn_fwd_sm90.cu,
-the backward csrc/flash_attn_bwd.cu), built with nvcc at first use; on CPU tensors every kernel runs its plain
+flash-attention kernels on TMA and wgmma (the forward
+csrc/flash_attn_fwd_sm90.cu, the backward csrc/flash_attn_bwd_sm90.cu),
+built with nvcc at first use; on CPU tensors every kernel runs its plain
 PyTorch version. The JAX package
 mapanything_tpu is the reference this port is tested against; this package
 imports neither jax nor flax.

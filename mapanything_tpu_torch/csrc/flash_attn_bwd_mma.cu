@@ -1,19 +1,21 @@
-// Flash-attention backward for Hopper (sm_90a): dK/dV and dQ from the saved
-// output's per-row log-sum-exp, never materialising the (Nq, Nk) matrices.
+// The mma.sync flash-attention backward (sm_90a, pre-Hopper tensor-core
+// path): dK/dV and dQ from the saved output's per-row log-sum-exp, never
+// materialising the (Nq, Nk) matrices.
+//
+// This was the main path's backward until the TMA/wgmma kernels of
+// csrc/flash_bwd_sm90.cuh replaced it. It stays as the baseline they are
+// timed against: its entries (flash_attn_bwd_dkv_mma, _dkv_f32_mma, _dq_mma,
+// _dq_f32_mma) live in the probe library and nothing on the main path calls
+// them (perf/flash_probes.py wraps them).
 //
 // Replaces the two Pallas backward kernels of the JAX package:
-//   mapanything_tpu/ops/flash_attention_bwd.py::_dkv_kernel  (flash_attn_bwd_dkv)
-//   mapanything_tpu/ops/flash_attention_bwd.py::_dq_kernel   (flash_attn_bwd_dq)
+//   mapanything_tpu/ops/flash_attention_bwd.py::_dkv_kernel
+//   mapanything_tpu/ops/flash_attention_bwd.py::_dq_kernel
 // with the same split: a key-major pass accumulates dK and dV, a q-major
 // pass accumulates dQ, so no two blocks write one output row and no atomics
 // are needed (the gradients are deterministic). Each comes in two output
 // types: bf16 (the single-device backward) and fp32 (the ring backward's
-// per-pair partials, flash_attn_bwd_dkv_f32 / _dq_f32, which the ring adds
-// in fp32 and rounds once, as ring_attention.py::_pair_bwd asks with
-// out_dtype=float32). A third kernel is the dV arm of the dK/dV pass alone,
-//   mapanything_tpu/ops/ring_attention.py::_pt_do_kernel (flash_attn_bwd_pt_do)
-// out_j = sum_i exp2(s'_ij - lse_i) dO_i in fp32, for the ring's
-// lse-cotangent backward, without the dP, dS and dK products.
+// per-pair partials).
 //
 // The formulas, with s' = q.k * d^-1/2 * log2(e) and the forward's base-2
 // lse, delta = rowsum(dO * O) (computed by the caller):
@@ -23,23 +25,23 @@
 // What bounds them on an H100: each key tile of the dK/dV pass does four
 // 64-deep products per q tile it streams (S^T, dP^T, dV, dK), the dQ pass
 // three; at D = 64 both are compute bound like the forward. The design
-// mirrors the mma.sync forward (csrc/flash_attn_fwd_mma.cu, the baseline
-// of the TMA/wgmma one): four warps, each owning 16
-// rows, mma.sync m16n8k16 with bf16 operands and fp32 accumulators, the
-// row-owner's operands (K and V here, Q and dO in the dQ pass) held as A
-// fragments in registers for the whole loop, the streamed tiles read from
-// shared memory through ldmatrix / ldmatrix.trans, and P and dS repacked from
-// accumulators into A fragments in registers, so neither touches shared
-// memory. The dK/dV pass computes S^T = K Q^T directly rather than S, so the
-// key rows are the accumulator rows. S, P and dS stay fp32 until they are
-// rounded to bf16 as tensor-core operands, as the JAX kernels round them.
+// mirrors the mma.sync forward (csrc/flash_attn_fwd_mma.cu): four warps,
+// each owning 16 rows, mma.sync m16n8k16 with bf16 operands and fp32
+// accumulators, the row-owner's operands (K and V here, Q and dO in the dQ
+// pass) held as A fragments in registers for the whole loop, the streamed
+// tiles read from shared memory through ldmatrix / ldmatrix.trans, and P
+// and dS repacked from accumulators into A fragments in registers. The
+// dK/dV pass computes S^T = K Q^T directly rather than S, so the key rows
+// are the accumulator rows. S, P and dS stay fp32 until they are rounded to
+// bf16 as tensor-core operands, as the JAX kernels round them. Copies are
+// synchronous loads by the block's own threads between two __syncthreads()
+// per streamed tile: they never overlap the products inside a block.
 //
-// None of the TPU layout tricks is carried over (transposed outputs, q^T /
-// dO^T streamed from HBM, unmasked padded tails): the kernels read the
-// (batch, token, head) strides of q, k, v and dO directly (unit stride
-// along D), mask keys at or past kv_eff explicitly (their dK/dV rows are
-// written as 0), and give q rows past nq zero weight through lse = +inf.
-// A row that saw no key carries lse = +inf from the forward, so its P is 0.
+// The kernels read the (batch, token, head) strides of q, k, v and dO
+// directly (unit stride along D), mask keys at or past kv_eff explicitly
+// (their dK/dV rows are written as 0), and give q rows past nq zero weight
+// through lse = +inf. A row that saw no key carries lse = +inf from the
+// forward, so its P is 0.
 //
 // Layout: q, dO, dQ (B, Nq, H, 64); k, v, dK, dV (B, Nk, H, 64); inputs
 // bf16, outputs bf16 or fp32; lse and delta contiguous (B, H, Nq) fp32.
@@ -243,80 +245,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// out = P^T dO, fp32: the dV arm of flash_bwd_dkv_kernel alone. One block
-// per (64-key tile, batch * head); each warp owns 16 key rows, the loop
-// streams 64-row tiles of Q and dO. Two 64-deep products per tile pair
-// (S^T, then P^T dO), so it is compute bound like the others. Every key row
-// below nk is real (a ring shard has no padding); the ragged last tile's
-// rows past nk are zeros and are not written.
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_pt_do_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ dout,
-                           const float* __restrict__ lse,
-                           float* __restrict__ out,
-                           int64_t q_sb, int64_t q_sn, int64_t q_sh,
-                           int64_t k_sb, int64_t k_sn, int64_t k_sh,
-                           int64_t do_sb, int64_t do_sn, int64_t do_sh,
-                           int64_t o_sb, int64_t o_sn, int64_t o_sh,
-                           int heads, int nq, int nk, float qscale) {
-  __shared__ __align__(16) __nv_bfloat16 qs[kTile * kHPitch];
-  __shared__ __align__(16) __nv_bfloat16 dos[kTile * kHPitch];
-  __shared__ float lse_s[kTile];
-
-  const int b = blockIdx.y / heads;
-  const int h = blockIdx.y % heads;
-  const int n0 = blockIdx.x * kTile;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* dob = dout + b * do_sb + h * do_sh;
-  const float* lse_bh = lse + static_cast<int64_t>(blockIdx.y) * nq;
-
-  // this block's K rows as A fragments (rows past nk are zeros)
-  load_tile_bf16(qs, k + b * k_sb + h * k_sh, k_sn, n0, nk);
-  __syncthreads();
-  uint32_t kf[4][4];
-  load_a_frags(kf, qs, warp, lane);
-  const int key0 = n0 + warp * 16 + lane / 4;
-  const bool live[2] = {key0 < nk, key0 + 8 < nk};
-
-  float acc[8][4];  // this warp's 16 keys x 64 dims
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
-
-  for (int m0 = 0; m0 < nq; m0 += kTile) {
-    __syncthreads();  // the previous tile's readers (or the fragments) are done
-    load_tile_bf16(qs, qb, q_sn, m0, nq);
-    load_tile_bf16(dos, dob, do_sn, m0, nq);
-    if (threadIdx.x < kTile) {
-      const int row = m0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < nq ? lse_bh[row] : INFINITY;
-    }
-    __syncthreads();
-
-    float pt[8][4];  // S^T = K Q^T, then P^T: keys x 64 q columns
-    mma_a_times_tile_t(pt, kf, qs, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = j * 8 + (lane % 4) * 2 + (c & 1);
-        pt[j][c] = live[c / 2] ? exp2f(pt[j][c] * qscale - lse_s[col]) : 0.f;
-      }
-    mma_acc_times_tile(acc, pt, dos, lane);  // out += P^T dO
-  }
-
-  float* ob = out + b * o_sb + h * o_sh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = n0 + warp * 16 + lane / 4 + r * 8;
-    if (row < nk) store_row(ob, o_sn, row, acc, r, 1.f, lane);
-  }
-}
-
 template <typename OutT>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
@@ -365,73 +293,54 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 
 // Plain C entry points, bound with ctypes.
 //   q, k, v, dout: bfloat16, unit stride along D = 64; the outputs bfloat16
-//            (flash_attn_bwd_dkv, _dq) or float32 (the _f32 forms, _pt_do)
+//            (flash_attn_bwd_dkv_mma, _dq_mma) or float32 (the _f32 forms)
 //   lse, delta: (batch, heads, nq) float32, contiguous
 //   strides: element strides (batch, token, head) of q, k, v, dout, then
-//            the outputs (dk, dv for dkv; dq for dq); for pt_do those of
-//            q, k, dout and out
+//            the outputs (dk, dv for dkv; dq for dq)
 //   qscale: softmax scale times log2(e); scale: the softmax scale
 // Each returns the cudaError_t of the launch (0 on success).
-extern "C" int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
-                                  const void* dout, const void* lse,
-                                  const void* delta, void* dk, void* dv,
-                                  int64_t batch, int64_t heads, int64_t nq,
-                                  int64_t nk, int64_t kv_eff,
-                                  const int64_t* st, float qscale, float scale,
-                                  void* stream) {
-  return launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, batch,
-                                   heads, nq, nk, kv_eff, st, qscale, scale,
-                                   stream);
-}
-
-extern "C" int flash_attn_bwd_dkv_f32(const void* q, const void* k,
+extern "C" int flash_attn_bwd_dkv_mma(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
                                       void* dk, void* dv, int64_t batch,
                                       int64_t heads, int64_t nq, int64_t nk,
                                       int64_t kv_eff, const int64_t* st,
-                                      float qscale, float scale,
-                                      void* stream) {
+                                      float qscale, float scale, void* stream) {
+  return launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, batch,
+                                   heads, nq, nk, kv_eff, st, qscale, scale,
+                                   stream);
+}
+
+extern "C" int flash_attn_bwd_dkv_f32_mma(const void* q, const void* k,
+                                          const void* v, const void* dout,
+                                          const void* lse, const void* delta,
+                                          void* dk, void* dv, int64_t batch,
+                                          int64_t heads, int64_t nq, int64_t nk,
+                                          int64_t kv_eff, const int64_t* st,
+                                          float qscale, float scale,
+                                          void* stream) {
   return launch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, batch, heads,
                            nq, nk, kv_eff, st, qscale, scale, stream);
 }
 
-extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
-                                 const void* dout, const void* lse,
-                                 const void* delta, void* dq, int64_t batch,
-                                 int64_t heads, int64_t nq, int64_t kv_eff,
-                                 const int64_t* st, float qscale, float scale,
-                                 void* stream) {
-  return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, batch, heads,
-                                  nq, kv_eff, st, qscale, scale, stream);
-}
-
-extern "C" int flash_attn_bwd_dq_f32(const void* q, const void* k,
+extern "C" int flash_attn_bwd_dq_mma(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const void* lse, const void* delta,
                                      void* dq, int64_t batch, int64_t heads,
                                      int64_t nq, int64_t kv_eff,
                                      const int64_t* st, float qscale,
                                      float scale, void* stream) {
-  return launch_dq<float>(q, k, v, dout, lse, delta, dq, batch, heads, nq,
-                          kv_eff, st, qscale, scale, stream);
+  return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, batch, heads,
+                                  nq, kv_eff, st, qscale, scale, stream);
 }
 
-extern "C" int flash_attn_bwd_pt_do(const void* q, const void* k,
-                                    const void* dout, const void* lse,
-                                    void* out, int64_t batch, int64_t heads,
-                                    int64_t nq, int64_t nk, const int64_t* st,
-                                    float qscale, void* stream) {
-  const dim3 grid(static_cast<unsigned>((nk + kTile - 1) / kTile),
-                  static_cast<unsigned>(batch * heads));
-  flash_bwd_pt_do_kernel<<<grid, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<float*>(out), st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-      static_cast<int>(heads), static_cast<int>(nq), static_cast<int>(nk),
-      qscale);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int flash_attn_bwd_dq_f32_mma(const void* q, const void* k,
+                                         const void* v, const void* dout,
+                                         const void* lse, const void* delta,
+                                         void* dq, int64_t batch, int64_t heads,
+                                         int64_t nq, int64_t kv_eff,
+                                         const int64_t* st, float qscale,
+                                         float scale, void* stream) {
+  return launch_dq<float>(q, k, v, dout, lse, delta, dq, batch, heads, nq,
+                          kv_eff, st, qscale, scale, stream);
 }

@@ -52,23 +52,12 @@
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and the CUDA driver API's enums (no -lcuda)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
 #include <algorithm>
 
-#include "wgmma_sm90.cuh"
+#include "sm90_common.cuh"
 
 namespace flash_sm90 {
 
-using flash::wgmma_rs;
-using flash::wgmma_ss;
-
-constexpr int kD = 64;          // head dim: one bf16 row is 128 bytes
-constexpr int kRowBytes = 128;  // = the swizzle width
 constexpr int kProducerRegs = 24;
 
 enum Epilogue { kOut = 0, kOutLse = 1, kStats = 2 };
@@ -120,141 +109,22 @@ struct Params {
   float qscale;  // d^-1/2 * log2(e)
 };
 
-// --- PTX --------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed. A wait that
-// outlasts ~10 s of clock (a wrong phase would hang) traps instead.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long t0 = 0;
-  for (int tries = 0;; ++tries) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (tries == 4096) t0 = clock64();
-    if (tries > 4096 && (tries & 1023) == 0 && clock64() - t0 > 20000000000LL)
-      __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Pin registers that an asynchronous wgmma reads or writes: the compiler
-// may neither move their uses across this point nor reuse them before it.
-template <int N>
-__device__ __forceinline__ void pin(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle. K-major tiles (Q, K):
-// lbo unused, sbo = 1024 (the next 8 rows). MN-major (V): lbo = the next 64
-// columns, sbo = 1024 (the next 8 keys).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ex2_bf16x2(uint32_t x) {
-  uint32_t y;
-  asm("ex2.approx.ftz.bf16x2 %0, %1;\n" : "=r"(y) : "r"(x));
-  return y;
-}
-
 // --- one warpgroup's pieces -------------------------------------------------
 
-// S (64 x kBN) = Q (this warpgroup's 64 rows) K^T: 4 k-steps of 16 of D,
-// each 32 bytes further along the swizzled 128-byte rows.
+// S (64 x kBN) = Q (this warpgroup's 64 rows) K^T.
 template <class C>
 __device__ __forceinline__ void gemm_qk(float* s, uint32_t q_addr,
                                         uint32_t k_addr) {
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk)
-    wgmma_ss<C::kBN>(s, sw128_desc(q_addr + kk * 32, 0, 1024),
-                     sw128_desc(k_addr + kk * 32, 0, 1024), kk > 0);
+  gemm_ss_nt<C::kBN>(s, q_addr, k_addr);
 }
 
-// O (64 x kDV) += P (registers) V: kBN / 16 k-steps of 16 keys (2048 bytes).
-// With kSumFuse the columns 64-79 come from the ones tile (lbo).
+// O (64 x kDV) += P (registers) V. With kSumFuse the columns 64-79 come
+// from the ones tile (lbo).
 template <class C>
 __device__ __forceinline__ void gemm_pv(float* o, const uint32_t* p,
                                         uint32_t v_addr, uint32_t ones_addr) {
-  const uint32_t lbo = C::kSumFuse ? ones_addr - v_addr : 0;
-#pragma unroll
-  for (int kk = 0; kk < C::kBN / 16; ++kk)
-    wgmma_rs<C::kDV>(o, p + 4 * kk, sw128_desc(v_addr + kk * 2048, lbo, 1024));
+  gemm_rs_mn<C::kDV, C::kBN>(o, p, v_addr,
+                             C::kSumFuse ? ones_addr - v_addr : 0);
 }
 
 // The softmax of one score tile, in place: masks keys >= kv_eff, updates
@@ -416,17 +286,6 @@ __device__ __forceinline__ Item item_of(const Params& prm, int w) {
   return {bh / prm.heads, bh % prm.heads, (w % prm.qtiles) * C::kBM};
 }
 
-// TMA coordinates (after D) of row `row`, head h, batch b in a map whose
-// dims are (D, H, N, B), or (D, N, H, B) when `swap`.
-__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map,
-                                          uint32_t bar, int swap, int h,
-                                          int row, int b) {
-  if (swap)
-    tma_load(dst, map, bar, row, h, b);
-  else
-    tma_load(dst, map, bar, h, row, b);
-}
-
 // --- the kernels ------------------------------------------------------------
 
 template <class C>
@@ -460,8 +319,7 @@ struct Smem {
 
 template <class C>
 __device__ __forceinline__ Smem<C> setup_smem(uint8_t* raw) {
-  const uint32_t a = smem_u32(raw);
-  Smem<C> sm{(a + 1023u) & ~1023u};
+  Smem<C> sm{aligned_base(raw)};
   if (threadIdx.x == 0) {
     mbar_init(sm.q_full(), 1);
     mbar_init(sm.q_empty(), C::kWG * 128);
@@ -472,7 +330,7 @@ __device__ __forceinline__ Smem<C> setup_smem(uint8_t* raw) {
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (C::kSumFuse) {  // column 64 of every key row: 1, written swizzled
-    uint8_t* ones = raw + (sm.ones() - a);
+    uint8_t* ones = raw + (sm.ones() - smem_u32(raw));
     for (int i = threadIdx.x; i < C::kBN * kRowBytes / 16; i += blockDim.x)
       reinterpret_cast<uint4*>(ones)[i] = make_uint4(0u, 0u, 0u, 0u);
     __syncthreads();
@@ -684,62 +542,7 @@ __global__ void __launch_bounds__(128, 1)
   }
 }
 
-// --- host: tensor maps and the launch ---------------------------------------
-
-// cuTensorMapEncodeTiled of the CUDA driver API, found through the runtime so
-// that nothing links -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      f = nullptr;
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
-}
-
-// Error codes of the entries beyond cudaError_t.
-constexpr int kErrNoEncoder = 10001;  // no cuTensorMapEncodeTiled
-constexpr int kErrMap = 10002;        // the CUDA driver refused a map
-
-// A 4-D map over a bf16 (B, N, H, 64) tensor with element strides (sb, sn,
-// sh), `rows` tokens (reads past them give zeros), boxes of 64 x box_rows.
-// The two middle dims go in order of stride; *swap says which order.
-inline int make_map(CUtensorMap* map, const void* ptr, int64_t batch,
-                    int64_t heads, int64_t rows, int64_t sb, int64_t sn,
-                    int64_t sh, int box_rows, int* swap) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return kErrNoEncoder;
-  *swap = sn < sh;
-  const cuuint64_t n = static_cast<cuuint64_t>(rows > 0 ? rows : 1);
-  const cuuint64_t hd = static_cast<cuuint64_t>(heads);
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD), *swap ? n : hd,
-                        *swap ? hd : n, static_cast<cuuint64_t>(batch)};
-  cuuint64_t strides[3] = {
-      static_cast<cuuint64_t>((*swap ? sn : sh) * 2),
-      static_cast<cuuint64_t>((*swap ? sh : sn) * 2),
-      static_cast<cuuint64_t>(sb * 2)};
-  const cuuint32_t br = static_cast<cuuint32_t>(box_rows);
-  cuuint32_t box[4] = {static_cast<cuuint32_t>(kD), *swap ? br : 1u,
-                       *swap ? 1u : br, 1u};
-  cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrMap;
-}
+// --- host: the launch -----------------------------------------------------
 
 template <class C>
 constexpr auto kernel_of() {
@@ -752,7 +555,8 @@ constexpr auto kernel_of() {
 // Launches configuration C. st: the 12 element strides (batch, token,
 // head) of q, k, v, o. heads_per_block > 1 gives each block that many heads
 // of one q tile; persistent_blocks > 0 a persistent grid of that many
-// blocks. Returns 0 or an error code (cudaError_t or the two above).
+// blocks. Returns 0 or an error code (cudaError_t, or kErrNoEncoder /
+// kErrMap of csrc/sm90_common.cuh).
 template <class C>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            float* l_out, int64_t batch, int64_t heads, int64_t nq,

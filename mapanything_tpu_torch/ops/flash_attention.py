@@ -17,9 +17,9 @@ falls back from one to the other:
     :func:`flash_attention_fwd_lse_plain`; q, k, v, the output and the lse
     are saved.
   * backward: ``delta = rowsum(dO * O)`` in fp32 (a torch op, as in JAX),
-    then ``csrc/flash_attn_bwd.cu``'s dK/dV and dQ kernels, or on the CPU
-    :func:`flash_attention_bwd_plain`, which writes out the same formulas
-    (not torch autograd of the plain forward).
+    then ``csrc/flash_attn_bwd_sm90.cu``'s dK/dV and dQ kernels, or on the
+    CPU :func:`flash_attention_bwd_plain`, which writes out the same
+    formulas (not torch autograd of the plain forward).
 
 The kernels replace the JAX package's Pallas kernels
 ``flash_attention.py::_flash_kernel_1pass_T`` / ``_flash_kernel_T``
@@ -29,11 +29,12 @@ The kernels replace the JAX package's Pallas kernels
 they move, so they are bound by arithmetic: the score and probability tiles
 stay in registers and shared memory (the (N, N) matrices never reach device
 memory) and every product runs on the tensor cores (bf16 operands, fp32
-accumulation): the forward on Hopper's TMA and ``wgmma`` with warp
-specialisation (``csrc/flash_fwd_sm90.cuh``), the backward on ``mma.sync``.
-A failed build or launch of the forward raises; nothing falls back to the
-``mma.sync`` forward, which stays off the main path as the baseline that
-perf/flash_probes.py times. The kernels take bf16 only, D = 64. The TPU
+accumulation), on Hopper's TMA and ``wgmma`` with warp specialisation: the
+forward in ``csrc/flash_fwd_sm90.cuh``, the backward's key-major dK/dV and
+q-major dQ passes in ``csrc/flash_bwd_sm90.cuh``. A failed build or launch
+raises; nothing falls back to the ``mma.sync`` kernels that ran before,
+which stay off the main path as the baselines that perf/flash_probes.py
+times. The kernels take bf16 only, D = 64. The TPU
 tricks of the Pallas kernels (transposed S/acc layouts, the ones-row row
 sum, padding kv to a block multiple) are not carried over: the kernels mask
 keys past ``n_valid`` explicitly and read the (B, N, H) strides directly.
@@ -232,12 +233,12 @@ def _kernel_fn(library: str, entry: str):
         + [_P, ctypes.c_float, _P],
         "flash_attn_fwd_probe": [ctypes.c_int] + [_P] * 4 + [_I] * 4
         + [_P, ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
-    }[entry.removesuffix("_f32").removesuffix("_mma")]
+    }[entry.removesuffix("_mma").removesuffix("_f32")]
     return fn
 
 
-# codes the forward's entries return beyond cudaError_t
-# (csrc/flash_fwd_sm90.cuh, csrc/flash_attn_fwd_probes.cu)
+# codes the TMA entries, forward and backward, return beyond cudaError_t
+# (csrc/sm90_common.cuh::make_map, csrc/flash_attn_fwd_probes.cu)
 _ERRORS = {10001: "the CUDA driver has no cuTensorMapEncodeTiled",
            10002: "the CUDA driver refused a TMA tensor map",
            10003: "no such probe variant"}
@@ -325,6 +326,33 @@ def _out_entry(entry: str, out_dtype) -> str:
     raise TypeError(f"{entry} writes bfloat16 or float32, not {out_dtype}")
 
 
+def _dkv_cuda(launch, q, k, v, dout, lse, delta, n_valid, out_dtype):
+    """Check the dK/dV arguments, allocate dk and dv, and hand the entry
+    (bf16 or _f32) and its arguments to `launch(entry, device, *args)`."""
+    entry = _out_entry("flash_attn_bwd_dkv", out_dtype)
+    _check_bwd_args(q, k, v, dout, lse, delta)
+    b, nq, h, d = q.shape
+    dk = torch.empty(k.shape, dtype=out_dtype or k.dtype, device=k.device)
+    dv = torch.empty_like(dk)
+    launch(entry, q.device, *_bwd_common(q, k, v, dout, lse, delta),
+           dk.data_ptr(), dv.data_ptr(), b, h, nq, k.shape[1],
+           _kv_eff(k, n_valid), _strides(q, k, v, dout, dk, dv),
+           d**-0.5 * _LOG2E, d**-0.5)
+    return dk, dv
+
+
+def _dq_cuda(launch, q, k, v, dout, lse, delta, n_valid, out_dtype):
+    """As :func:`_dkv_cuda`, for the dQ entry."""
+    entry = _out_entry("flash_attn_bwd_dq", out_dtype)
+    _check_bwd_args(q, k, v, dout, lse, delta)
+    b, nq, h, d = q.shape
+    dq = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)
+    launch(entry, q.device, *_bwd_common(q, k, v, dout, lse, delta),
+           dq.data_ptr(), b, h, nq, _kv_eff(k, n_valid),
+           _strides(q, k, v, dout, dq), d**-0.5 * _LOG2E, d**-0.5)
+    return dq
+
+
 def flash_attention_dkv(q, k, v, dout, lse, delta,
                         n_valid: int | None = None, out_dtype=None):
     """(dk, dv): the dK/dV kernel on CUDA tensors, its plain twin on CPU
@@ -334,17 +362,8 @@ def flash_attention_dkv(q, k, v, dout, lse, delta,
     if not q.is_cuda:
         return _plain(flash_attention_dkv_plain, q, k, v, dout, lse, delta,
                       n_valid, out_dtype)
-    entry = _out_entry("flash_attn_bwd_dkv", out_dtype)
-    _check_bwd_args(q, k, v, dout, lse, delta)
-    b, nq, h, d = q.shape
-    nk = k.shape[1]
-    dk = torch.empty(k.shape, dtype=out_dtype or k.dtype, device=k.device)
-    dv = torch.empty_like(dk)
-    _launch("dkv", "flash_attn_bwd", entry, q.device,
-            *_bwd_common(q, k, v, dout, lse, delta), dk.data_ptr(),
-            dv.data_ptr(), b, h, nq, nk, _kv_eff(k, n_valid),
-            _strides(q, k, v, dout, dk, dv), d**-0.5 * _LOG2E, d**-0.5)
-    return dk, dv
+    return _dkv_cuda(functools.partial(_launch, "dkv", "flash_attn_bwd"), q,
+                     k, v, dout, lse, delta, n_valid, out_dtype)
 
 
 def flash_attention_dq(q, k, v, dout, lse, delta,
@@ -355,15 +374,8 @@ def flash_attention_dq(q, k, v, dout, lse, delta,
     if not q.is_cuda:
         return _plain(flash_attention_dq_plain, q, k, v, dout, lse, delta,
                       n_valid, out_dtype)
-    entry = _out_entry("flash_attn_bwd_dq", out_dtype)
-    _check_bwd_args(q, k, v, dout, lse, delta)
-    b, nq, h, d = q.shape
-    dq = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)
-    _launch("dq", "flash_attn_bwd", entry, q.device,
-            *_bwd_common(q, k, v, dout, lse, delta), dq.data_ptr(), b, h, nq,
-            _kv_eff(k, n_valid), _strides(q, k, v, dout, dq),
-            d**-0.5 * _LOG2E, d**-0.5)
-    return dq
+    return _dq_cuda(functools.partial(_launch, "dq", "flash_attn_bwd"), q, k,
+                    v, dout, lse, delta, n_valid, out_dtype)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, n_valid: int | None = None):

@@ -17,7 +17,7 @@ ops/flash_attention.py's counters):
     ``flash_attn_fwd_stats`` (replaces the Pallas ``_flash_stats_kernel``),
     the forward writing the unnormalised fp32 accumulator and the base-2
     stats m and l;
-  * :func:`flash_attention_pt_do`: ``csrc/flash_attn_bwd.cu``'s
+  * :func:`flash_attention_pt_do`: ``csrc/flash_attn_pt_do.cu``'s
     ``flash_attn_bwd_pt_do`` (replaces ``_pt_do_kernel``), P^T dO in fp32;
   * the dK/dV and dQ kernels of ops/flash_attention.py in their fp32-output
     form, for the ring backward's per-pair partials (:func:`_pair_bwd`).

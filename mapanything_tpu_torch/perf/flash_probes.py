@@ -1,5 +1,5 @@
-"""The flash-attention forward's Hopper tuning probes, and its mma.sync
-baseline.
+"""The flash-attention forward's Hopper tuning probes, and the mma.sync
+baselines of the forward and the backward.
 
 The JAX package's TPU tuning probes (ROADMAP queue B, B9) are variants of
 its forward kernel. Their Hopper counterparts are variants of the port's
@@ -37,8 +37,11 @@ of raw scores crosses zero). :func:`flash_probe` launches the variant on
 CUDA tensors and runs the plain version on CPU tensors. The baseline
 wrappers (:func:`flash_attention_mma`, :func:`flash_attention_fwd_lse_mma`,
 :func:`flash_attention_stats_mma`) launch the mma.sync kernel
-(``csrc/flash_attn_fwd_mma.cu``) that the main path ran before; nothing on
-the main path calls them. Launches count in :data:`probe_counts`.
+(``csrc/flash_attn_fwd_mma.cu``) that the main path ran before, and
+:func:`flash_attention_dkv_mma` / :func:`flash_attention_dq_mma` the
+mma.sync backward (``csrc/flash_attn_bwd_mma.cu``, bf16 or fp32 outputs);
+all are built into the probe library and nothing on the main path calls
+them. Launches count in :data:`probe_counts`.
 
     python -m mapanything_tpu_torch.perf.flash_probes [--out FILE]
 
@@ -68,7 +71,7 @@ from ..ops.flash_attention import (
     flash_attention_plain,
 )
 
-LIBRARY = "flash_attn_fwd_probes"
+LIBRARY = "flash_attn_probes"
 
 # --- plain versions ---------------------------------------------------------
 
@@ -136,7 +139,7 @@ REPLACES = {
     "layout_bhnd": _B9 + "qkv_layout_experiment.py:29",
 }
 LAYOUTS = ("as_given", "bhnd")
-BASELINE = ("mma_fwd", "mma_fwd_lse", "mma_fwd_stats")
+BASELINE = ("mma_fwd", "mma_fwd_lse", "mma_fwd_stats", "mma_dkv", "mma_dq")
 
 
 def reset_probe_counts() -> None:
@@ -233,6 +236,36 @@ def flash_attention_stats_mma(q, k, v):
     _mma("mma_fwd_stats", "flash_attn_fwd_stats_mma", q, k, v, k.shape[1],
          (acc, m, l), acc)
     return acc, m, l
+
+
+def _mma_bwd(counter):
+    """launch(entry, device, *args) of the mma.sync backward's entries."""
+    return lambda entry, device, *args: _launch(counter, entry + "_mma",
+                                                device, *args)
+
+
+def flash_attention_dkv_mma(q, k, v, dout, lse, delta,
+                            n_valid: int | None = None, out_dtype=None):
+    """(dk, dv) of the baseline's ``flash_attn_bwd_dkv_mma`` (or
+    ``_dkv_f32_mma`` for out_dtype float32) on CUDA tensors, arguments as
+    ops/flash_attention.py's :func:`flash_attention_dkv`; its plain twin on
+    the CPU."""
+    if not q.is_cuda:
+        return _plain(fa.flash_attention_dkv_plain, q, k, v, dout, lse, delta,
+                      n_valid, out_dtype)
+    return fa._dkv_cuda(_mma_bwd("mma_dkv"), q, k, v, dout, lse, delta,
+                        n_valid, out_dtype)
+
+
+def flash_attention_dq_mma(q, k, v, dout, lse, delta,
+                           n_valid: int | None = None, out_dtype=None):
+    """dq of the baseline's ``flash_attn_bwd_dq_mma`` (or ``_dq_f32_mma``),
+    as :func:`flash_attention_dkv_mma`."""
+    if not q.is_cuda:
+        return _plain(fa.flash_attention_dq_plain, q, k, v, dout, lse, delta,
+                      n_valid, out_dtype)
+    return fa._dq_cuda(_mma_bwd("mma_dq"), q, k, v, dout, lse, delta,
+                       n_valid, out_dtype)
 
 
 # --- the sweep (one GPU) ----------------------------------------------------
@@ -363,6 +396,8 @@ __all__ = [
     "REPLACES",
     "VARIANTS",
     "errors",
+    "flash_attention_dkv_mma",
+    "flash_attention_dq_mma",
     "flash_attention_fwd_lse_mma",
     "flash_attention_mma",
     "flash_attention_stats_mma",

@@ -14,8 +14,10 @@ H100_SXM_BF16_DENSE_PEAK_FLOPS = 989e12
 H100_SXM_HBM_BYTES_PER_S = 3.35e12
 
 # tensor-core products of 2 * Nq * Nk * D flops per (batch, head) that each
-# attention kernel runs
-_ATTENTION_PRODUCTS = {"fwd": 2, "fwd_lse": 2, "dkv": 4, "dq": 3,
+# attention kernel runs. "bwd" is the whole backward (delta, dK/dV and dQ)
+# as one function: the 5 products it needs (S, dP, dV, dK, dQ); the dK/dV
+# and dQ kernels together run 7, since each computes S and dP
+_ATTENTION_PRODUCTS = {"fwd": 2, "fwd_lse": 2, "dkv": 4, "dq": 3, "bwd": 5,
                        "fwd_stats": 2, "pt_do": 2}
 
 
@@ -25,7 +27,9 @@ def attention_kernel_work(kernel: str, b: int, nq: int, nk: int, h: int,
     """(flops, bytes) one attention kernel needs at q (b, nq, h, d) against
     nk real keys: its tensor-core products, and every input read once and
     every output written once (bf16 operands; `out_bytes` per output
-    element; fp32 row stats). The softmax's exponentials are not counted."""
+    element; fp32 row stats). The softmax's exponentials are not counted.
+    "bwd" reads q, k, v, the output, dO and the lse and writes dq, dk and
+    dv (delta is its own intermediate)."""
     tok, rows = b * h * d, b * h
     q = nq * tok * 2  # q, and dO of the same shape
     kv = nk * tok * 2
@@ -34,6 +38,8 @@ def attention_kernel_work(kernel: str, b: int, nq: int, nk: int, h: int,
         "fwd_lse": q + 2 * kv + nq * tok * out_bytes + rows * nq * 4,
         "dkv": 2 * q + 2 * kv + 2 * rows * nq * 4 + 2 * nk * tok * out_bytes,
         "dq": 2 * q + 2 * kv + 2 * rows * nq * 4 + nq * tok * out_bytes,
+        "bwd": (3 * q + 2 * kv + rows * nq * 4
+                + (nq + 2 * nk) * tok * out_bytes),
         "fwd_stats": (q + (1 if v_is_k else 2) * kv + nq * tok * 4
                       + 2 * rows * nq * 4),
         "pt_do": 2 * q + kv + rows * nq * 4 + nk * tok * 4,

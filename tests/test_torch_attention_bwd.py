@@ -24,6 +24,8 @@ from mapanything_tpu_torch.ops.attention import sdpa_math
 from mapanything_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd_plain,
+    flash_attention_dkv_plain,
+    flash_attention_dq_plain,
     flash_attention_fwd_lse_plain,
     reset_launch_counts,
 )
@@ -80,6 +82,15 @@ def _port_fwd_bwd(q, k, v, g, n_valid=None):
     (256, 128),   # several k blocks: _fwd_with_lse_kernel_T
     (300, 2816),  # ragged, one block
     (300, 128),   # ragged, several blocks
+    # the Hopper backward's tile edges (64-row q and key tiles and
+    # blocks): Nq = kv_eff one under, at and over each
+    (1, 2816),
+    (63, 2816),
+    (65, 2816),
+    (127, 2816),
+    (129, 2816),
+    (193, 2816),
+    (193, 128),
 ])
 def test_plain_matches_jax_pallas(interpret_pallas, n, single_pass_max):
     q, k, v, g = _inputs(n + single_pass_max, 1, n, 2)
@@ -103,6 +114,84 @@ def test_plain_matches_jax_pallas_n_valid(interpret_pallas, single_pass_max):
         np.testing.assert_allclose(a[real], r[real], err_msg=name, **TOL)
     for grad in out[3:]:
         assert not grad[:, 300:].any()
+
+
+@pytest.mark.parametrize("n_valid", [0, 1, 63, 65, 127, 129, 193])
+def test_plain_matches_jax_pallas_n_valid_edges(interpret_pallas, n_valid):
+    """Aligned-token mode at the Hopper backward's tile edges: n_valid real
+    keys of 256 tokens (0: every key masked, every gradient 0). Real rows
+    agree with JAX; the port's dK/dV rows of masked keys are exact zeros,
+    and so is dQ where no key is real."""
+    q, k, v, g = _inputs(11 + n_valid, 1, 256, 2, n_valid=n_valid)
+    ref = _jax_fwd_bwd(q, k, v, g, n_valid=n_valid)
+    out = _port_fwd_bwd(q, k, v, g, n_valid=n_valid)
+    for name, a, r in zip(("out", "lse", "dq", "dk", "dv"), out, ref):
+        real = (slice(None), slice(None), slice(0, n_valid)) \
+            if name == "lse" else (slice(None), slice(0, n_valid))
+        np.testing.assert_allclose(a[real], r[real], err_msg=name, **TOL)
+    for grad in out[3:]:
+        assert not grad[:, n_valid:].any()
+    if n_valid == 0:
+        assert not out[2].any() and np.isposinf(out[1]).all()
+
+
+def _bf16_inputs(seed, b, n, h, n_valid=None):
+    """_inputs rounded to bf16 values, kept in fp32 numpy arrays."""
+    return [torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+            for x in _inputs(seed, b, n, h, n_valid=n_valid)]
+
+
+def _jax_f32_grads(q, k, v, g, n_valid):
+    """JAX's forward with lse, then its `_run_dkv` / `_run_dq` with fp32
+    outputs (the ring's per-pair partials), as `_bwd` calls them. Returns
+    (dq, dk, dv, lse (B, H, N), delta (B, H, N))."""
+    with jax.default_matmul_precision("highest"):
+        out, res = fb._fwd_with_lse(*map(jnp.asarray, (q, k, v)), 128, 128,
+                                    n_valid=n_valid)
+        qb, kb, vb, ob, lse_t, meta = res
+        b, n, h, d, kv_len, n_pad, _, block_q, block_k = meta
+        gb = fb._prep(jnp.asarray(g), n_pad, b, h, d)
+        delta = jnp.sum(gb * ob, axis=-1)
+        delta_t = jnp.broadcast_to(
+            delta.reshape(b * h, n_pad // block_q, 1, block_q),
+            (b * h, n_pad // block_q, 8, block_q))
+        kw = dict(scale=d**-0.5, n=n, kv_len=kv_len, d=d, block_q=block_q,
+                  block_k=block_k, out_dtype=jnp.float32)
+        dk, dv = fb._run_dkv(qb, kb, vb, gb, lse_t, delta_t, **kw)
+        dq = fb._run_dq(qb, kb, vb, gb, lse_t, delta_t, **kw)
+
+    def unprep(x, length):
+        return np.swapaxes(np.asarray(x)[:, :length].reshape(b, h, length, d),
+                           1, 2)
+
+    lse = np.asarray(lse_t)[:, :, 0, :].reshape(b * h, -1)[:, :n]
+    return (unprep(dq, n), unprep(dk, kv_len), unprep(dv, kv_len),
+            lse.reshape(b, h, n), np.asarray(delta)[:, :n].reshape(b, h, n))
+
+
+@pytest.mark.parametrize("n,n_valid", [(65, None), (193, None), (256, 129),
+                                       (128, 0)])
+def test_plain_matches_jax_pallas_f32_partials(interpret_pallas, n, n_valid):
+    """out_dtype=float32, the ring's per-pair partials: bf16 q, k, v, dO
+    into the port's dK/dV and dQ plain twins, fp32 gradients out, against
+    JAX's `_run_dkv` / `_run_dq` with fp32 outputs on the same (bf16-exact)
+    values, both fed JAX's lse and delta. Masked keys' rows are zeros."""
+    q, k, v, g = _bf16_inputs(20 + n, 1, n, 2, n_valid=n_valid)
+    ref_dq, ref_dk, ref_dv, lse, delta = _jax_f32_grads(q, k, v, g, n_valid)
+    args = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, g)]
+    args += [torch.from_numpy(np.array(x)) for x in (lse, delta)]
+    dk, dv = flash_attention_dkv_plain(*args, n_valid,
+                                       out_dtype=torch.float32)
+    dq = flash_attention_dq_plain(*args, n_valid, out_dtype=torch.float32)
+    real = n if n_valid is None else n_valid
+    for name, a, r in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                       ("dv", dv, ref_dv)):
+        assert a.dtype == torch.float32, name
+        rows = slice(None) if name == "dq" else slice(0, real)
+        np.testing.assert_allclose(a.numpy()[:, rows], r[:, rows],
+                                   err_msg=name, **TOL)
+    for grad in (dk, dv):
+        assert not grad[:, real:].any()
 
 
 @pytest.mark.parametrize("n_valid", [None, 70])

@@ -226,6 +226,32 @@ def test_cpu_baseline_wrappers_run_plain():
     assert not any(fp.probe_counts[key] for key in fp.BASELINE)
 
 
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+def test_cpu_backward_baseline_wrappers_run_plain(out_dtype):
+    """The mma.sync backward's wrappers (dK/dV, dQ; bf16 or fp32 outputs)
+    run their plain versions on the CPU and launch nothing."""
+    from mapanything_tpu_torch.ops.flash_attention import (
+        attention_delta,
+        flash_attention_dkv_plain,
+        flash_attention_dq_plain,
+        flash_attention_fwd_lse_plain,
+    )
+
+    q, k, v = _torch(*_inputs(8, (1, 96, 2, 64)))
+    dout = _torch(*_inputs(9, (1, 96, 2, 64)))[0]
+    out, lse = flash_attention_fwd_lse_plain(q, k, v, 70)
+    args = (q, k, v, dout, lse, attention_delta(dout, out), 70)
+    fp.reset_probe_counts()
+    for got, ref in zip(fp.flash_attention_dkv_mma(*args, out_dtype=out_dtype),
+                        flash_attention_dkv_plain(*args, out_dtype=out_dtype)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    torch.testing.assert_close(
+        fp.flash_attention_dq_mma(*args, out_dtype=out_dtype),
+        flash_attention_dq_plain(*args, out_dtype=out_dtype), rtol=0, atol=0)
+    assert fp.probe_counts["plain"] == 2
+    assert not any(fp.probe_counts[key] for key in fp.BASELINE)
+
+
 def test_probe_plain_formulas():
     """nomax equals the softmax for small scores; noexp is s' V; and the
     (B, H, N, D) layout copy changes nothing on the CPU."""

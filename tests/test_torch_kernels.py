@@ -73,6 +73,18 @@ class TestDispatch:
         out = flash_attention_plain(*qkv, n_valid=0)
         assert torch.equal(out, torch.zeros_like(out))
 
+    def test_tma_entry_errors_are_named(self):
+        """The codes the TMA entries (forward and backward) return beyond
+        cudaError_t raise with their meaning; nothing falls back."""
+        from mapanything_tpu_torch.ops.flash_attention import _check_err
+
+        _check_err("flash_attn_bwd_dkv", 0)
+        for code, text in ((10001, "cuTensorMapEncodeTiled"),
+                           (10002, "refused a TMA tensor map"),
+                           (1, "cudaError 1")):
+            with pytest.raises(RuntimeError, match=text):
+                _check_err("flash_attn_bwd_dkv", code)
+
     def test_strided_views_match_contiguous(self):
         rng = np.random.default_rng(8)
         qkv = torch.from_numpy(
@@ -273,9 +285,9 @@ def test_cuda_stats_without_keys(cuda_device):
     assert torch.isneginf(m).all() and not l.any() and not acc.any()
 
 
-# --- the TMA/wgmma forward (csrc/flash_fwd_sm90.cuh) and its probes ---------
+# --- the TMA/wgmma kernels (csrc/flash_fwd_sm90.cuh, flash_bwd_sm90.cuh) ----
 
-# q rows and keys that are not multiples of its 128-row / 128-key tiles: a
+# q rows and keys that are not multiples of their 64- to 192-row tiles: a
 # single key, no key, a ragged last key tile at 129 and 10952 keys, three
 # batches
 _TILING_CASES = [
@@ -320,6 +332,60 @@ def test_cuda_forward_tiling_matches_plain(cuda_device, shape, n_valid):
     for got, want in zip(stats, refs):
         for name, a, r in zip(("acc", "m", "l"), got, want):
             assert max(_err(a, r)) <= 1e-2, name
+
+
+def _nan_filled_pool(shape, dtype, device, count=2):
+    """Leave `count` freed NaN-filled blocks in the caching allocator, so
+    that outputs allocated next start as NaN where a kernel skips a row."""
+    blocks = [torch.full(shape, float("nan"), dtype=dtype, device=device)
+              for _ in range(count)]
+    del blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,n_valid", _TILING_CASES + [
+    ((4, 1369, 16, 64), None)])
+def test_cuda_backward_tiling_matches_plain(cuda_device, shape, n_valid,
+                                            out_dtype):
+    """The TMA/wgmma dK/dV and dQ (csrc/flash_bwd_sm90.cuh), bf16 and fp32
+    outputs, against their plain versions where the tiles are ragged, and
+    at the frame layers' 1369 tokens, where the lse rows are not 16-byte
+    aligned. Key rows in [kv_eff, nk) are written as zeros."""
+    q, k, v = _cuda_qkv(shape, n_valid, "fused_qkv", cuda_device)
+    real = shape[1] if n_valid is None else n_valid
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    dout = torch.randn(shape, generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    dout[:, real:] = 0
+    ref_out, lse = flash_attention_fwd_lse_plain(q, k, v, n_valid)
+    args = (q, k, v, dout, lse, attention_delta(dout, ref_out), n_valid)
+    reset_launch_counts()
+    _nan_filled_pool(k.shape, out_dtype, cuda_device)
+    dk, dv = flash_attention_dkv(*args, out_dtype=out_dtype)
+    _nan_filled_pool(q.shape, out_dtype, cuda_device, count=1)
+    dq = flash_attention_dq(*args, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert flash_attention.kernel_counts == {"fwd": 0, "fwd_lse": 0,
+                                             "dkv": 1, "dq": 1,
+                                             "fwd_stats": 0, "pt_do": 0}
+    refs = (*flash_attention_dkv_plain(*args, out_dtype=out_dtype),
+            flash_attention_dq_plain(*args, out_dtype=out_dtype))
+    for name, got, ref in zip(("dk", "dv", "dq"), (dk, dv, dq), refs):
+        assert got.dtype == out_dtype and got.shape == ref.shape, name
+        assert torch.isfinite(got).all(), name
+        if real == 0:
+            assert not got.any(), name
+            continue
+        if name != "dq":
+            assert not got[:, real:].any(), f"{name} rows past kv_eff"
+        got, ref = got[:, :real], ref[:, :real]
+        # one key: softmax is constant, dS and so dK and dQ are exactly 0
+        # in the plain version and rounding residue (~1e-8) in the kernel;
+        # dV = P^T dO is not small there and stays held relatively
+        assert (max(_err(got, ref)) <= 1e-2
+                or real == 1 and name in ("dk", "dq")
+                and got.abs().max() <= 1e-5), name
 
 
 def _probe_inputs(layout, device):
@@ -370,26 +436,43 @@ def test_cuda_probe_variants_match_their_plain(cuda_device, name):
 
 @pytest.mark.cuda
 def test_cuda_baseline_matches_plain_and_stays_off_the_main_path(cuda_device):
-    """The mma.sync baseline's three entries against their plain versions;
-    the main path's wrappers never launch it."""
+    """The mma.sync baselines' entries (the forward's three, the backward's
+    dK/dV and dQ in bf16 and fp32) against their plain versions; the main
+    path's wrappers never launch them."""
     from mapanything_tpu_torch.perf import flash_probes as fp
 
     q, k, v = _cuda_qkv((1, 2816, 16, 64), 2739, "fused_qkv", cuda_device)
+    dout = torch.randn(q.shape, device=cuda_device).to(torch.bfloat16)
+    dout[:, 2739:] = 0
+    ref, ref_lse = flash_attention_fwd_lse_plain(q, k, v, 2739)
+    bwd = (q, k, v, dout, ref_lse, attention_delta(dout, ref), 2739)
     fp.reset_probe_counts()
     flash_attention(q, k, v, n_valid=2739)
     flash_attention_fwd_lse(q, k, v, 2739)
     flash_attention_stats(q, k, v)
+    for out_dtype in (None, torch.float32):
+        flash_attention_dkv(*bwd, out_dtype=out_dtype)
+        flash_attention_dq(*bwd, out_dtype=out_dtype)
     torch.cuda.synchronize()
     assert not any(fp.probe_counts.values())
     out = fp.flash_attention_mma(q, k, v, 2739)
     out_l, lse = fp.flash_attention_fwd_lse_mma(q, k, v, 2739)
     stats = fp.flash_attention_stats_mma(q, k, v)
-    ref, ref_lse = flash_attention_fwd_lse_plain(q, k, v, 2739)
+    grads = {out_dtype: (*fp.flash_attention_dkv_mma(*bwd, out_dtype=out_dtype),
+                         fp.flash_attention_dq_mma(*bwd, out_dtype=out_dtype))
+             for out_dtype in (torch.bfloat16, torch.float32)}
     torch.cuda.synchronize()
-    assert {key: fp.probe_counts[key] for key in fp.BASELINE} == dict.fromkeys(
-        fp.BASELINE, 1)
+    assert {key: fp.probe_counts[key] for key in fp.BASELINE} == {
+        "mma_fwd": 1, "mma_fwd_lse": 1, "mma_fwd_stats": 1, "mma_dkv": 2,
+        "mma_dq": 2}
     for got in (out, out_l):
         assert max(_err(got[:, :2739], ref[:, :2739])) <= 1e-2
     assert max(_err(lse[..., :2739], ref_lse[..., :2739])) <= 1e-2
     for a, r in zip(stats, flash_attention_stats_plain(q, k, v)):
         assert max(_err(a, r)) <= 1e-2
+    ref_grads = (*flash_attention_dkv_plain(*bwd),
+                 flash_attention_dq_plain(*bwd))
+    for out_dtype, got in grads.items():
+        for a, r in zip(got, ref_grads):
+            assert a.dtype == out_dtype
+            assert max(_err(a[:, :2739], r[:, :2739])) <= 1e-2
