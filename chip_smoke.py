@@ -8,14 +8,14 @@ Phases, in order (any failure exits non-zero and prints no result line):
   1. Builds the CUDA libraries from mapanything_tpu_torch/csrc (the
      TMA/wgmma flash-attention forward with its lse and stats epilogues;
      the TMA/wgmma backward's dK/dV and dQ in bf16 and fp32, with the
-     ring's P^T dO; the probe library: the forward's probe variants and
-     the mma.sync forward and backward, the baselines), one nvcc each, in
-     parallel, and prints the build times, each kernel's ptxas register
-     use, the dynamic shared memory of each forward and backward
-     configuration, and the HGMMA (wgmma) and UTMALDG (TMA load) counts in
-     the SASS (cuobjdump) of the forward's three instances and of the
-     backward's dK/dV and dQ in both output types, failing where either is
-     missing.
+     ring's TMA/wgmma P^T dO; the probe library: the forward's probe
+     variants and the mma.sync forward, backward and P^T dO, the
+     baselines), one nvcc each, in parallel, and prints the build
+     times, each kernel's ptxas register use (and any spill), the dynamic
+     shared memory of each forward and backward configuration, and the
+     HGMMA (wgmma) and UTMALDG (TMA load) counts in the SASS (cuobjdump) of
+     the forward's three instances, of the backward's dK/dV and dQ in both
+     output types and of P^T dO, failing where either is missing.
   Times: every kernel and library time is device time, a CUDA graph of 20
   back-to-back calls between two CUDA events (perf/timing.py::device_ms);
   the plain versions' by events around 5 calls in a row (::events_ms);
@@ -49,20 +49,22 @@ Phases, in order (any failure exits non-zero and prints no result line):
   2c. The ring's kernels against their plain twins, bf16 q/k/v on the
      fused-qkv layout, at the 4- and 8-view shards of a one-rank ring
      ((1, 5476, 16, 64) and (1, 10952, 16, 64), no padding, a ragged last
-     key tile): the stats forward (acc, m, l; and with V := K), P^T dO and
-     the fp32 forms of dK/dV and dQ fed the plain stats' global lse;
-     max-abs over the plain's max-abs and rel-L2 (limit 1e-2 each), the
-     stats and the fp32 dK/dV and dQ also for their mma.sync baselines,
-     and the times. At 8 views the
-     stats of 4 key shards merged by merge_stats must equal flash_attn_fwd
-     over all keys.
+     key tile): the stats forward (acc, m, l; and with V := K) and the
+     fp32 forms of dK/dV and dQ fed the plain stats' global lse; P^T dO
+     there and at (2, 1000, 16, 64) against 1337 keys with every seventh
+     lse +inf (PT_DO_RAGGED), with its bound (utils/flops.py "pt_do"),
+     its speed-up over the mma.sync baseline and its host µs; max-abs over the
+     plain's max-abs and rel-L2 (limit 1e-2 each), every kernel also for
+     its mma.sync baseline, and the times. At 8 views the stats of 4 key
+     shards merged by merge_stats must equal flash_attn_fwd over all
+     keys.
   2d. Every probe of perf/flash_probes.py (the Hopper counterparts of the
      TPU tuning probes: softmax variants, bf16 exp, row sum by the P V
      product, tile shapes, step (a), ping-pong) and the main configuration
      with 2 and 4 heads per block, a persistent grid, and (B, N, H, D) or
      (B, H, N, D)-copied inputs, once at the 2-view global shape against
      its plain version (limit 1e-2 max-abs over the plain's max-abs and
-     rel-L2), with its time. Phases 3-5 then require 0 launches of every
+     rel-L2), with its time. Phases 3-6 then require 0 launches of every
      probe and of the baselines.
   3. Serving end to end at full width: MapAnythingConfig() (DINOv2-L/14,
      24-layer trunk, dim 1024, DPT 256) in bf16 with seeded random weights
@@ -121,13 +123,33 @@ Phases, in order (any failure exits non-zero and prints no result line):
      at the 4-view training global shape, x (1, 5476, 1024) and the token
      (1, 1, 1024) in bf16, loss sum(out_x^2) + sum(out_t^2), against the
      non-ring Block on [x; tok] (every parameter's and both inputs'
-     gradient within rel-L2 2e-2), with exactly 2 stats, 1 P^T dO, 1 dK/dV
-     and 1 dQ launch. At one rank the ring does not rotate; the rotation is
+     gradient within rel-L2 2e-2), with exactly 2 stats, 1 P^T dO, 1 fp32
+     dK/dV and 1 fp32 dQ launch. At one rank the ring does not rotate; the rotation is
      checked over gloo on the CPU (tests/test_torch_ring_attention.py) and,
      across cards, by `torchrun --nproc_per_node=N -m
      mapanything_tpu_torch.parallel.ring_check`.
+  6. The view-sharded train step (train/seq_parallel.py) at full width on
+     the same one-process group: a model with phase 4's seeded init and
+     phase 4's batch (1 x 4 views x 518^2). First
+     train/grad_check.py::compare_sharded against the unsharded loss and
+     gradient of the same model and batch: the loss within 1e-2 relative,
+     the parameter gradient pulled back from the unsharded path's d loss /
+     d predictions within rel-L2 2e-2 (beside its noise floor; the whole
+     loss's gradient printed, not held to a limit). Then
+     make_view_sharded_train_step, 2 warm-up and 5 timed steps: exactly
+     VS_STEP_LAUNCHES per step (12 P^T dO, 24 stats, 36 forward-with-lse,
+     36 dK/dV and 36 dQ in bf16, 12 of each in fp32 for the ring, counted
+     apart) and no plain
+     launch, a finite loss and grad_norm at every step, the first step's
+     loss (lr 0, the seeded init) within 1e-2 of phase 4's first; prints
+     the median wall ms, the device ms, busy share and P^T dO's device ms
+     per step (torch.profiler over 2 more steps) and the peak memory.
+     Phases 3-6 require 0 probe and baseline launches. The rotation at
+     p > 1 runs over gloo on the CPU (tests/test_torch_seq_parallel.py) and
+     across cards in `ring_check --check train`.
 
-The last two lines are the kernels' JSON summary and
+The last two lines are the kernels' JSON summary (each kernel's launches:
+the counts phases 3-6 read, summed) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -165,9 +187,11 @@ TRAIN_SHAPES = ATTENTION_SHAPES + [
 CSRC = "mapanything_tpu_torch/csrc/"
 NEW_FWD = CSRC + "flash_attn_fwd_sm90.cu"
 NEW_BWD = CSRC + "flash_attn_bwd_sm90.cu"
+NEW_PT_DO = CSRC + "flash_attn_pt_do_sm90.cu"
 # the mma.sync kernels the main path ran before, off it as baselines
 MMA_SOURCE = {NEW_FWD: CSRC + "flash_attn_fwd_mma.cu",
-              NEW_BWD: CSRC + "flash_attn_bwd_mma.cu"}
+              NEW_BWD: CSRC + "flash_attn_bwd_mma.cu",
+              NEW_PT_DO: CSRC + "flash_attn_pt_do_mma.cu"}
 TRAINING_KERNELS = {
     # name: (source, the JAX Pallas kernel it replaces)
     "flash_attn_fwd_lse": (
@@ -187,8 +211,7 @@ RING_KERNELS = {
     "flash_attn_fwd_stats": (
         NEW_FWD, "mapanything_tpu/ops/ring_attention.py:45"),
     "flash_attn_bwd_pt_do": (
-        CSRC + "flash_attn_pt_do.cu",
-        "mapanything_tpu/ops/ring_attention.py:358"),
+        NEW_PT_DO, "mapanything_tpu/ops/ring_attention.py:358"),
     "flash_attn_bwd_dkv_f32": (
         NEW_BWD, "mapanything_tpu/ops/flash_attention_bwd.py:96"),
     "flash_attn_bwd_dq_f32": (
@@ -198,8 +221,9 @@ RING_KERNELS = {
 COUNTER = {"flash_attn_fwd": "fwd", "flash_attn_fwd_lse": "fwd_lse",
            "flash_attn_bwd_dkv": "dkv", "flash_attn_bwd_dq": "dq",
            "flash_attn_fwd_stats": "fwd_stats",
-           "flash_attn_bwd_pt_do": "pt_do", "flash_attn_bwd_dkv_f32": "dkv",
-           "flash_attn_bwd_dq_f32": "dq"}
+           "flash_attn_bwd_pt_do": "pt_do",
+           "flash_attn_bwd_dkv_f32": "dkv_f32",
+           "flash_attn_bwd_dq_f32": "dq_f32"}
 # the ring's shards with p = 1 at 518^2: every view's 1369 patches, no
 # padding (a ragged last 64-key tile)
 RING_SHAPES = [("ring_4view", (1, 4 * 1369, 16, 64)),
@@ -209,7 +233,19 @@ RING_VIEWS = 8
 # one ring step in each of the 12 global layers
 RING_FORWARD_LAUNCHES = {"fwd": 36, "fwd_stats": 12}
 # one RingGlobalBlock forward and backward at p = 1
-RING_BLOCK_LAUNCHES = {"fwd_stats": 2, "pt_do": 1, "dkv": 1, "dq": 1}
+RING_BLOCK_LAUNCHES = {"fwd_stats": 2, "pt_do": 1, "dkv_f32": 1,
+                       "dq_f32": 1}
+# B8 (P^T dO) also where its tiles are ragged: nq != nk, neither a multiple
+# of 64, every seventh q row with lse = +inf (a row that saw no key)
+PT_DO_RAGGED = ("ragged_lse_inf", (2, 1000, 16, 64), 1337)
+# per view-sharded train step at p = 1 (1 x 4 views x 518^2): the 24
+# encoder and 12 frame attentions through FlashAttention (the forward with
+# lse, then dK/dV and dQ); the 12 global layers on the ring, each one stats
+# launch forward and one (V := K) backward, one P^T dO and one fp32 dK/dV
+# and dQ
+VS_STEP_LAUNCHES = {"fwd_lse": 36, "dkv": 36, "dq": 36, "dkv_f32": 12,
+                    "dq_f32": 12, "fwd_stats": 2 * 12, "pt_do": 12}
+VS_WARMUP, VS_STEPS = 2, 5
 
 
 def fail(msg: str) -> int:
@@ -487,7 +523,8 @@ def training_kernels_vs_plain(torch, fa, fp, F):
 
 def ring_kernels_vs_plain(torch, fa, ring, fp, F):
     """Phase 2c: ({kernel name: [row per case]}, the split-and-merge row).
-    Each backward kernel gets the plain stats' global lse and delta."""
+    Each backward kernel gets the plain stats' global lse and delta. P^T dO
+    has its own cases (pt_do_vs_plain)."""
     rows = {name: [] for name in RING_KERNELS}
     merge = None
     f32, bf16 = torch.float32, torch.bfloat16
@@ -518,10 +555,6 @@ def ring_kernels_vs_plain(torch, fa, ring, fp, F):
              lambda: fp.flash_attention_stats_mma(q, k, k),
              bound(F, "fwd_stats", shape, n, v_is_k=True),
              library_fwd_lse_ms(torch, lib[0], lib[1], lib[1])),
-            ("flash_attn_bwd_pt_do", at, ("out",),
-             lambda: ring.flash_attention_pt_do(q, k, dout, lse),
-             lambda: ring.flash_attention_pt_do_plain(q, k, dout, lse),
-             None, bound(F, "pt_do", shape, n), None),
             ("flash_attn_bwd_dkv_f32", at, ("dk", "dv"),
              lambda: fa.flash_attention_dkv(*bwd, out_dtype=f32),
              lambda: fa.flash_attention_dkv_plain(*bwd, out_dtype=f32),
@@ -576,6 +609,63 @@ def ring_kernels_vs_plain(torch, fa, ring, fp, F):
         del q, k, v, dout, lse, delta, bwd, lib, cases
         torch.cuda.empty_cache()
     return rows, merge, None
+
+
+def pt_do_vs_plain(torch, ring, fp, F):
+    """Phase 2c, B8: [row per case]. P^T dO against its plain twin and its
+    mma.sync baseline at the ring's shards and at PT_DO_RAGGED, q and k the
+    views of one fused tensor, lse the plain stats' (q against those
+    keys)."""
+    rows = []
+    cases = ([(at, shape, shape[1], False) for at, shape in RING_SHAPES]
+             + [(*PT_DO_RAGGED, True)])
+    for i, (at, shape, nk, inf_rows) in enumerate(cases):
+        b, nq, h, d = shape
+        gen = torch.Generator(device="cuda").manual_seed(700 + i)
+        qkv = torch.randn((b, max(nq, nk), 3, h, d), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+        q, k = qkv[:, :nq, 0], qkv[:, :nk, 1]
+        dout = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        acc, m, l = ring.flash_attention_stats_plain(q, k, k)
+        lse = (m + torch.log2(l)).transpose(1, 2).contiguous()
+        del acc, m, l
+        if inf_rows:
+            lse[..., ::7] = torch.inf
+
+        def kernel_fn():
+            return ring.flash_attention_pt_do(q, k, dout, lse)
+
+        def plain_fn():
+            return ring.flash_attention_pt_do_plain(q, k, dout, lse)
+
+        def mma_fn():
+            return fp.flash_attention_pt_do_mma(q, k, dout, lse)
+
+        got, ref, base = kernel_fn(), plain_fn(), mma_fn()
+        torch.cuda.synchronize()
+        row = {"at": at, "shape": list(shape), "nk": nk,
+               "lse_inf_rows": "every 7th" if inf_rows else "none",
+               **errors_of({"out": (got, ref)}),
+               **baseline_errors({"out": (base, ref)})}
+        del got, base
+        row["ms"] = kernel_ms(kernel_fn)
+        row["mma_ms"] = kernel_ms(mma_fn)
+        row["speedup_vs_mma"] = row["mma_ms"] / row["ms"]
+        row["plain_ms"] = plain_ms(plain_fn)
+        row["host_us"] = host_us(kernel_fn)
+        flops, _ = F.attention_kernel_work("pt_do", b, nq, nk, h, d)
+        row["tflops"] = flops / row["ms"] / 1e9
+        row.update(bound(F, "pt_do", shape, nk))
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["library_ms"] = None
+        rows.append(row)
+        print_row("flash_attn_bwd_pt_do", at, shape, row)
+        print(f"  {row['speedup_vs_mma']:.2f}x the mma.sync baseline, "
+              f"{row['bound_share']:.3f} of the bound", flush=True)
+        del qkv, q, k, dout, lse, ref
+        torch.cuda.empty_cache()
+    return rows
 
 
 # phase 2d holds every probe case at one shape: the 2-view global layer
@@ -682,33 +772,13 @@ def check_outputs(out, num_views, torch) -> str | None:
     return None
 
 
-def profile_calls(torch, call, wall_ms, calls: int = 3) -> dict:
+def profile_calls(torch, call, wall_ms, calls: int = 3, match=None) -> dict:
     """Device time per `call()` from torch.profiler, and its share of
-    `wall_ms`, the median wall time of the untraced calls."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    `wall_ms`, the median wall time of the untraced calls
+    (perf/timing.py::profile_calls)."""
+    from mapanything_tpu_torch.perf.timing import profile_calls as profile
 
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                call()
-            torch.cuda.synchronize()
-    except RuntimeError as exc:  # a profiler without CUPTI access
-        return {"not_measured": str(exc)[:200]}
-    by_name: dict[str, float] = {}
-    n_ops = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name[:90]  # template instances that share a prefix add up
-            by_name[name] = (by_name.get(name, 0.0)
-                             + e.time_range.elapsed_us() / 1e3 / calls)
-            n_ops += 1
-    device_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return {"device_ms": device_ms, "device_ops": n_ops / calls,
-            "wall_ms": wall_ms, "busy_share": device_ms / wall_ms,
-            "top_ops_ms": dict(top)}
+    return profile(call, wall_ms, calls, match)
 
 
 def run_slice(torch, fa, model, pipe, load_images, folder, num_views,
@@ -772,6 +842,8 @@ def run_training(torch, fa, T, model, make_synthetic_batch, geom_cfg,
         if not (finite(m["loss"], torch) and finite(m["grad_norm"], torch)):
             return res, f"warm-up step {i}: loss {m['loss']} grad_norm " \
                         f"{m['grad_norm']}"
+        if i == 0:  # the seeded init's loss, phase 6's reference
+            res["first_step_loss"] = float(m["loss"])
     torch.cuda.synchronize()
     watched = [p for _, p in model.named_parameters()][::97]
     before = [p.detach().clone() for p in watched]
@@ -856,6 +928,65 @@ def ring_block_gradient(torch, fa, RC, group):
     return res, None
 
 
+def run_view_sharded_training(torch, fa, T, SP, compare_sharded, model,
+                              make_synthetic_batch, geom_cfg, group,
+                              first_step_loss):
+    """Phase 6: the view-sharded train step (train/seq_parallel.py) on
+    `group` at full width, 1 x 4 views x 518^2, on a model with phase 4's
+    seeded init and phase 4's batch. Returns (results, failure or None)."""
+    batch = make_synthetic_batch(1, 4, 518, 518, seed=0)
+    res = {"batch": "1 x 4 views x 518 x 518",
+           "ranks": torch.distributed.get_world_size(group)}
+    # against the unsharded loss and gradient of the same model and batch
+    cmp = compare_sharded(model, batch, group)
+    res["vs_unsharded"] = cmp
+    if not cmp["loss_rel_diff"] <= ERR_LIMIT:
+        return res, f"loss against the unsharded {cmp['loss_rel_diff']:.3e}"
+    if not cmp["grad_rel_l2"] <= GRAD_LIMIT:
+        return res, f"gradient against the unsharded {cmp['grad_rel_l2']:.3e}"
+    state = T.create_train_state(
+        model, T.OptimConfig(warmup_steps=2, total_steps=100))
+    step = SP.make_view_sharded_train_step(model, geom_cfg, group=group)
+    want = dict.fromkeys(fa.KERNELS, 0) | VS_STEP_LAUNCHES
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, norms, launches = [], [], [], dict.fromkeys(fa.KERNELS, 0)
+    for i in range(VS_WARMUP + VS_STEPS):
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = dict(fa.flash_attention.kernel_counts)
+        plain = fa.flash_attention.plain_launches
+        if counts != want or plain != 0:
+            return res, (f"step {i}: kernel launches {counts} and {plain} "
+                         f"plain, expected {want} and 0")
+        launches = {key: launches[key] + counts[key] for key in launches}
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if not (math.isfinite(losses[-1]) and math.isfinite(norms[-1])):
+            return res, f"step {i}: loss {losses[-1]} grad_norm {norms[-1]}"
+        if i >= VS_WARMUP:
+            times.append(wall)
+    # the first step runs at lr 0 on the seeded init: phase 4's first loss
+    res["first_step_loss_rel_diff"] = (abs(losses[0] - first_step_loss)
+                                       / abs(first_step_loss))
+    step_ms = statistics.median(times)
+    res.update({"steps": VS_WARMUP + VS_STEPS, "step_ms": step_ms,
+                "step_ms_all": times, "loss": losses, "grad_norm": norms,
+                "launches": launches,
+                "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+    if not res["first_step_loss_rel_diff"] <= ERR_LIMIT:
+        return res, (f"first step's loss {losses[0]} against phase 4's "
+                     f"{first_step_loss}")
+    res["profile"] = profile_calls(torch, lambda: step(state, batch),
+                                   step_ms, calls=2,
+                                   match={"pt_do": "pt_do_sm90"})
+    res["pt_do_device_ms_per_step"] = res["profile"].get(
+        "matched_ms", {}).get("pt_do")
+    return res, None
+
+
 def flash_vs_math_gradient(torch, model, make_synthetic_batch, compare):
     """Phase 4, first part: train/grad_check.py::compare at 1 view, with
     the loss split into its terms."""
@@ -876,9 +1007,12 @@ def timing(row):
 
 
 def kernels_summary(fp, attn, train_rows, ring_rows, merge, probe_rows,
-                    launches, train, ring_res, block_res) -> list:
+                    phase_counts) -> list:
     """The kernels' JSON rows: each kernel at its main-path shape with its
-    launches in phases 3-5, the baselines and the probes."""
+    launches in phases 3-6 (phase_counts: the kernel counts each of those
+    runs read, reset just before it), the baselines and the probes."""
+    launches = {kname: sum(counts[key] for counts in phase_counts)
+                for kname, key in COUNTER.items()}
     g2 = dict(attn)["global_2view"]
     kernels = [{
         "name": "flash_attn_fwd",
@@ -886,7 +1020,7 @@ def kernels_summary(fp, attn, train_rows, ring_rows, merge, probe_rows,
         "source": NEW_FWD,
         "replaces": "mapanything_tpu/ops/flash_attention.py:147",
         "also_replaces": "mapanything_tpu/ops/flash_attention.py:94",
-        "launches": launches,
+        "launches": launches["flash_attn_fwd"],
         "max_abs_err": max(row["max_abs_err"] for _, row in attn),
         **timing(g2),
         "ms_at": "global_2view",
@@ -902,16 +1036,6 @@ def kernels_summary(fp, attn, train_rows, ring_rows, merge, probe_rows,
         "flash_attn_bwd_pt_do": None,
         "flash_attn_bwd_dkv_f32": alone, "flash_attn_bwd_dq_f32": alone,
     }
-    # launches on the main path: training kernels from phase 4's steps, the
-    # ring's from phase 5 (the fp32 forms are the ring block's dkv and dq)
-    main_launches = {kname: train[f"{COUNTER[kname]}_launches"]
-                     for kname in TRAINING_KERNELS}
-    main_launches["flash_attn_fwd_stats"] = (
-        ring_res["kernel_counts"]["fwd_stats"]
-        + block_res["kernel_counts"]["fwd_stats"])
-    for kname in ("flash_attn_bwd_pt_do", "flash_attn_bwd_dkv_f32",
-                  "flash_attn_bwd_dq_f32"):
-        main_launches[kname] = block_res["kernel_counts"][COUNTER[kname]]
     for kname, (source, replaces) in (TRAINING_KERNELS | RING_KERNELS).items():
         rows = (train_rows | ring_rows)[kname]
         at = {"flash_attn_fwd_stats": "ring_8view"}.get(
@@ -920,7 +1044,7 @@ def kernels_summary(fp, attn, train_rows, ring_rows, merge, probe_rows,
         entry = {
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": main_launches[kname],
+            "launches": launches[kname],
             "max_abs_err": max(val for row in rows for key, val in row.items()
                                if key.endswith("_max_abs_err")),
             **timing(main), "ms_at": at,
@@ -950,14 +1074,14 @@ def kernels_summary(fp, attn, train_rows, ring_rows, merge, probe_rows,
             "ms_at": at, "note": "the baseline, off the main path",
             "ms_per_shape": {key: row["mma_ms"] for key, row in per.items()},
         })
-    # the backward as one call: each of phase 4's backward calls launched
-    # one dK/dV and one dQ
+    # the backward as one call: each bf16 backward call of phases 4 and 6
+    # launched one dK/dV and one dQ
     pair = {row["at"]: row for row in train_rows[PAIR]}
     kernels.append({
         "name": PAIR, "route": "cuda", "source": NEW_BWD,
         "replaces": TRAINING_KERNELS["flash_attn_bwd_dkv"][1],
         "also_replaces": TRAINING_KERNELS["flash_attn_bwd_dq"][1],
-        "launches": train["dq_launches"],
+        "launches": launches["flash_attn_bwd_dq"],
         "max_abs_err": max(val for row in pair.values()
                            for key, val in row.items()
                            if key.endswith("_max_abs_err")),
@@ -1003,8 +1127,12 @@ def main() -> int:
         from mapanything_tpu_torch.parallel import init_distributed
         from mapanything_tpu_torch.parallel import ring_check as RC
         from mapanything_tpu_torch.perf import flash_probes as fp
+        from mapanything_tpu_torch.train import seq_parallel as SP
         from mapanything_tpu_torch.train import step as T
-        from mapanything_tpu_torch.train.grad_check import compare
+        from mapanything_tpu_torch.train.grad_check import (
+            compare,
+            compare_sharded,
+        )
         from mapanything_tpu_torch.utils import flops as F
         from mapanything_tpu_torch.utils.flops import (
             H100_SXM_BF16_DENSE_PEAK_FLOPS,
@@ -1043,13 +1171,15 @@ def main() -> int:
             elif "registers" in line or (
                     "spill" in line and " 0 bytes spill stores" not in line):
                 print(f"    ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
-    # the forward runs on wgmma (HGMMA) and TMA (UTMALDG): its SASS says so
-    # so do the backward's dK/dV and dQ, in both output types
+    # the forward runs on wgmma (HGMMA) and TMA (UTMALDG): its SASS says so;
+    # so do the backward's dK/dV and dQ, in both output types, and P^T dO
     for lib, kernel, count in (("flash_attn_fwd", "flash_fwd_sm90_kernel", 3),
                                ("flash_attn_bwd", "flash_bwd_dkv_sm90_kernel",
                                 2),
                                ("flash_attn_bwd", "flash_bwd_dq_sm90_kernel",
-                                2)):
+                                2),
+                               ("flash_attn_bwd",
+                                "flash_bwd_pt_do_sm90_kernel", 1)):
         sass = {key: val for key, val in
                 _build.sass_counts(built[lib][0]).items() if kernel in key}
         for key, counts in sass.items():
@@ -1091,6 +1221,7 @@ def main() -> int:
     ring_rows, merge, bad = ring_kernels_vs_plain(torch, fa, ring, fp, F)
     if bad:
         return fail(bad)
+    ring_rows["flash_attn_bwd_pt_do"] = pt_do_vs_plain(torch, ring, fp, F)
     for kname, rows in ring_rows.items():
         for row in rows + ([merge] if kname == "flash_attn_fwd_stats"
                            else []):
@@ -1109,7 +1240,7 @@ def main() -> int:
             return fail(f"probe {case} disagrees with its plain version: "
                         f"{row}")
 
-    # phases 3-5 run the main path: no probe and no baseline launch
+    # phases 3-6 run the main path: no probe and no baseline launch
     fp.reset_probe_counts()
 
     # phase 3: serving at full width
@@ -1122,7 +1253,7 @@ def main() -> int:
     print(f"model: {n_params / 1e6:.1f} M parameters, built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    launches = 0
+    serving = dict.fromkeys(fa.KERNELS, 0)
     with tempfile.TemporaryDirectory() as folder:
         for num_views in (1, 2):
             res, bad = run_slice(torch, fa, model, pipe, load_images, folder,
@@ -1130,7 +1261,8 @@ def main() -> int:
             print(f"slice {num_views}-view: {json.dumps(res)}", flush=True)
             if bad:
                 return fail(f"{num_views}-view slice: {bad}")
-            launches += res["kernel_launches"]
+            serving = {key: serving[key] + res["kernel_counts"][key]
+                       for key in serving}
     print(f"peak device memory (serving) "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     bad = untouched_baseline(fp)
@@ -1192,12 +1324,39 @@ def main() -> int:
         bad = untouched_baseline(fp)
         if bad:
             return fail(f"ring: {bad}")
+
+        # phase 6: the view-sharded train step at full width, same group
+        torch.cuda.empty_cache()
+        model = MapAnything(MapAnythingConfig(), generator=torch.Generator(
+            device="cuda").manual_seed(1))
+        vs_train, bad = run_view_sharded_training(
+            torch, fa, T, SP, compare_sharded, model, make_synthetic_batch,
+            images_only_config(), group, train["first_step_loss"])
+        print(f"view-sharded train 1x4v@518: {json.dumps(vs_train)}",
+              flush=True)
+        if bad:
+            return fail(f"view-sharded train step: {bad}")
+        prof = vs_train["profile"]
+        if "device_ms" in prof:
+            print(f"view-sharded step: wall {vs_train['step_ms']:.2f} ms, "
+                  f"device {prof['device_ms']:.2f} ms, busy "
+                  f"{prof['busy_share']:.3f}, peak "
+                  f"{vs_train['peak_memory_gib']:.2f} GiB, P^T dO "
+                  f"{vs_train['pt_do_device_ms_per_step']:.3f} ms per step",
+                  flush=True)
+        bad = untouched_baseline(fp)
+        if bad:
+            return fail(f"view-sharded training: {bad}")
+        del model
     finally:
         torch.distributed.destroy_process_group()
 
+    phase_counts = [serving,
+                    {key: train[f"{key}_launches"] for key in fa.KERNELS},
+                    ring_res["kernel_counts"], block_res["kernel_counts"],
+                    vs_train["launches"]]
     kernels = kernels_summary(fp, attn, train_rows, ring_rows, merge,
-                              probe_rows, launches, train, ring_res,
-                              block_res)
+                              probe_rows, phase_counts)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

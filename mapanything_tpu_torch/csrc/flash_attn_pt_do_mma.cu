@@ -2,12 +2,14 @@
 // arm of the dK/dV pass alone, out_j = sum_i exp2(s'_ij - lse_i) dO_i in
 // fp32, without the dP, dS and dK products.
 //
-// Replaces the Pallas kernel of the JAX package
-//   mapanything_tpu/ops/ring_attention.py::_pt_do_kernel (flash_attn_bwd_pt_do)
-// It is built into the main backward library beside the TMA/wgmma dK/dV and
-// dQ (csrc/flash_attn_bwd_sm90.cu) and still runs on mma.sync: the design
-// of the baseline backward (csrc/flash_attn_bwd_mma.cu), with its building
-// blocks from csrc/flash_attn_common.cuh.
+// The baseline of the main path's TMA/wgmma P^T dO
+// (csrc/flash_attn_pt_do_sm90.cu), which replaced it there: the kernel that
+// replaced the Pallas kernel of the JAX package
+//   mapanything_tpu/ops/ring_attention.py::_pt_do_kernel
+// first, on the design of the mma.sync backward (csrc/flash_attn_bwd_mma.cu)
+// and its building blocks from csrc/flash_attn_common.cuh. Built into the
+// probe library (entry flash_attn_bwd_pt_do_mma); nothing on the main path
+// launches it.
 //
 // Layout: q, dO (B, Nq, H, 64) and k (B, Nk, H, 64) bf16, unit stride along
 // D; out (B, Nk, H, 64) fp32; lse contiguous (B, H, Nq) fp32 (+inf for a row
@@ -100,11 +102,12 @@ __global__ void __launch_bounds__(kThreads)
 // Plain C entry point, bound with ctypes. strides: element strides (batch,
 // token, head) of q, k, dout and out; qscale: the softmax scale times
 // log2(e). Returns the cudaError_t of the launch (0 on success).
-extern "C" int flash_attn_bwd_pt_do(const void* q, const void* k,
-                                    const void* dout, const void* lse,
-                                    void* out, int64_t batch, int64_t heads,
-                                    int64_t nq, int64_t nk, const int64_t* st,
-                                    float qscale, void* stream) {
+extern "C" int flash_attn_bwd_pt_do_mma(const void* q, const void* k,
+                                        const void* dout, const void* lse,
+                                        void* out, int64_t batch,
+                                        int64_t heads, int64_t nq, int64_t nk,
+                                        const int64_t* st, float qscale,
+                                        void* stream) {
   const dim3 grid(static_cast<unsigned>((nk + kTile - 1) / kTile),
                   static_cast<unsigned>(batch * heads));
   flash_bwd_pt_do_kernel<<<grid, kThreads, 0,

@@ -35,14 +35,15 @@ NVCC_FLAGS = (
 
 # library name -> sources under csrc/. The main path's forward and backward
 # (TMA/wgmma; the ring's P^T dO beside the backward) each build in their own
-# nvcc process, and so does the probe library: the forward's tuning variants
-# and the mma.sync forward and backward that the main path ran before, its
-# baselines (perf/flash_probes.py).
+# nvcc process, and so does the probe library: the forward's tuning
+# variants and the mma.sync forward, backward and P^T dO that the main path
+# ran before, its baselines (perf/flash_probes.py).
 LIBRARIES = {
     "flash_attn_fwd": ("flash_attn_fwd_sm90.cu",),
-    "flash_attn_bwd": ("flash_attn_bwd_sm90.cu", "flash_attn_pt_do.cu"),
+    "flash_attn_bwd": ("flash_attn_bwd_sm90.cu", "flash_attn_pt_do_sm90.cu"),
     "flash_attn_probes": ("flash_attn_fwd_probes.cu",
-                          "flash_attn_fwd_mma.cu", "flash_attn_bwd_mma.cu"),
+                          "flash_attn_fwd_mma.cu", "flash_attn_bwd_mma.cu",
+                          "flash_attn_pt_do_mma.cu"),
 }
 
 

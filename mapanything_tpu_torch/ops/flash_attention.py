@@ -48,9 +48,9 @@ the ring backward's per-pair partials (ops/ring_attention.py, which holds
 the ring's own two kernels' wrappers).
 
 Launch counters: ``flash_attention.kernel_counts`` counts the launches of
-each CUDA kernel ("fwd", "fwd_lse", "dkv", "dq", and the ring's
-"fwd_stats" and "pt_do"; the fp32 forms count under "dkv" and "dq"), each
-wrapper adding one where it launches; ``flash_attention.kernel_launches``
+each CUDA kernel ("fwd", "fwd_lse", "dkv", "dq", the fp32 forms "dkv_f32"
+and "dq_f32", and the ring's "fwd_stats" and "pt_do"), each wrapper adding
+one where it launches; ``flash_attention.kernel_launches``
 is their sum and ``flash_attention.plain_launches`` counts the wrappers'
 calls of their plain twins (on CPU tensors). :func:`reset_launch_counts`
 zeroes them.
@@ -65,7 +65,8 @@ import torch
 
 _LOG2E = 1.4426950408889634
 _HEAD_DIM = 64
-KERNELS = ("fwd", "fwd_lse", "dkv", "dq", "fwd_stats", "pt_do")
+KERNELS = ("fwd", "fwd_lse", "dkv", "dq", "dkv_f32", "dq_f32", "fwd_stats",
+           "pt_do")
 
 
 def _kv_eff(k: torch.Tensor, n_valid: int | None) -> int:
@@ -256,11 +257,15 @@ def _strides(*tensors) -> ctypes.Array:
 
 
 def _launch(kernel: str, library: str, entry: str, device, *args) -> None:
+    """Launch `entry` and count it under `kernel`, an fp32-output entry
+    under `kernel` + "_f32"."""
     fn = _kernel_fn(library, entry)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
     _check_err(entry, err)
+    if entry.endswith("_f32"):
+        kernel += "_f32"
     flash_attention.kernel_counts[kernel] += 1
     flash_attention.kernel_launches += 1
 

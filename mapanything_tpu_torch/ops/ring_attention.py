@@ -17,8 +17,9 @@ ops/flash_attention.py's counters):
     ``flash_attn_fwd_stats`` (replaces the Pallas ``_flash_stats_kernel``),
     the forward writing the unnormalised fp32 accumulator and the base-2
     stats m and l;
-  * :func:`flash_attention_pt_do`: ``csrc/flash_attn_pt_do.cu``'s
-    ``flash_attn_bwd_pt_do`` (replaces ``_pt_do_kernel``), P^T dO in fp32;
+  * :func:`flash_attention_pt_do`: ``csrc/flash_attn_pt_do_sm90.cu``'s
+    ``flash_attn_bwd_pt_do`` (replaces ``_pt_do_kernel``), P^T dO in fp32
+    on TMA and wgmma (``csrc/flash_pt_do_sm90.cuh``);
   * the dK/dV and dQ kernels of ops/flash_attention.py in their fp32-output
     form, for the ring backward's per-pair partials (:func:`_pair_bwd`).
 
@@ -37,6 +38,8 @@ Every rank runs the same sequence of collectives.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.distributed as dist
@@ -95,12 +98,9 @@ def flash_attention_stats(q, k, v):
     return acc, m, l
 
 
-def flash_attention_pt_do(q, k, dout, lse):
-    """P^T dO (B, Nk, H, D) fp32: the CUDA kernel (flash_attn_bwd_pt_do) on
-    CUDA tensors, :func:`flash_attention_pt_do_plain` on CPU tensors. lse is
-    a contiguous (B, H, Nq) fp32 tensor, +inf for a row that saw no key."""
-    if not q.is_cuda:
-        return fa._plain(flash_attention_pt_do_plain, q, k, dout, lse)
+def _pt_do_cuda(launch, q, k, dout, lse):
+    """Check the P^T dO arguments, allocate the output, and hand the
+    entry's arguments to `launch(device, *args)`."""
     _check_kernel_args(q, k, k)
     _check_layout("dout", dout)
     b, nq, h, d = q.shape
@@ -113,11 +113,21 @@ def flash_attention_pt_do(q, k, dout, lse):
         raise ValueError(f"flash_attention_pt_do: lse must be a contiguous "
                          f"({b}, {h}, {nq}) float32 tensor on {q.device}")
     out = torch.empty((b, nk, h, d), dtype=torch.float32, device=q.device)
-    fa._launch("pt_do", "flash_attn_bwd", "flash_attn_bwd_pt_do", q.device,
-               q.data_ptr(), k.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-               out.data_ptr(), b, h, nq, nk, fa._strides(q, k, dout, out),
-               d**-0.5 * _LOG2E)
+    launch(q.device, q.data_ptr(), k.data_ptr(), dout.data_ptr(),
+           lse.data_ptr(), out.data_ptr(), b, h, nq, nk,
+           fa._strides(q, k, dout, out), d**-0.5 * _LOG2E)
     return out
+
+
+def flash_attention_pt_do(q, k, dout, lse):
+    """P^T dO (B, Nk, H, D) fp32: the CUDA kernel (flash_attn_bwd_pt_do) on
+    CUDA tensors, :func:`flash_attention_pt_do_plain` on CPU tensors. lse is
+    a contiguous (B, H, Nq) fp32 tensor, +inf for a row that saw no key."""
+    if not q.is_cuda:
+        return fa._plain(flash_attention_pt_do_plain, q, k, dout, lse)
+    return _pt_do_cuda(functools.partial(fa._launch, "pt_do", "flash_attn_bwd",
+                                         "flash_attn_bwd_pt_do"),
+                       q, k, dout, lse)
 
 
 # --- merging partial states -------------------------------------------------
@@ -196,6 +206,31 @@ class AllGather(torch.autograd.Function):
 def all_gather(x, group):
     """Differentiable all-gather: see :class:`AllGather`."""
     return AllGather.apply(x, group)
+
+
+class AllReduce(torch.autograd.Function):
+    """The sum of every rank's x, on every rank. Every rank consumes the
+    sum, so the backward sums the cotangents over the ranks as well (one
+    all_reduce): the semantics of the JAX package's
+    ``psum_grad_correct``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def all_reduce(x, group):
+    """Differentiable all-reduce (sum): see :class:`AllReduce`."""
+    return AllReduce.apply(x, group)
 
 
 def ring_flash_stats(q, k, v, group):
@@ -348,9 +383,11 @@ def ring_flash_attention_with_lse(q, k, v, group):
 
 __all__ = [
     "AllGather",
+    "AllReduce",
     "RingFlashAttention",
     "RingFlashAttentionWithLse",
     "all_gather",
+    "all_reduce",
     "attention_stats",
     "flash_attention_pt_do",
     "flash_attention_pt_do_plain",

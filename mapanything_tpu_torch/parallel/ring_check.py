@@ -22,9 +22,25 @@ LayerScale at 1, as phase 4), and the same synthetic views, then
      parameter and token gradients all-reduced) and compares every
      gradient with the plain Block's on the whole [x; tok], rel-L2 2e-2.
 
+With `--check train` it runs the view-sharded train step instead
+(train/seq_parallel.py), on the model's own seeded init (as chip_smoke.py's
+phase 4) and a synthetic batch of 1 x `--views` views: for each ring size p
+of 2 and the world size that divides it, the ranks split into groups of p
+consecutive ranks, and on each rank
+
+  3. train/grad_check.py::compare_sharded: the view-sharded loss and
+     parameter gradient against the unsharded ones that this rank computes
+     on its own card (loss relative, limit 1e-2; the gradient pulled back
+     from the unsharded path's d loss / d predictions, rel-L2 limit 2e-2,
+     beside its noise floor and the whole loss's gradient, not held to a
+     limit); then the unsharded and the view-sharded step, 2 warm-up and
+     3 timed steps each: wall ms per step, device ms per step and its
+     NCCL share (torch.profiler), peak memory.
+
 Rank 0 prints one JSON line; the exit code is 1 if a check failed. With
 `--device cpu` the group is gloo and the plain kernel twins run.
-chip_smoke.py's phase 5 runs both checks on a one-process group.
+chip_smoke.py's phase 5 runs checks 1-2 on a one-process group, its phase
+6 check 3.
 """
 
 from __future__ import annotations
@@ -39,9 +55,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..models import MapAnything, MapAnythingConfig
+from ..data.synthetic import make_synthetic_batch
+from ..models import MapAnything, MapAnythingConfig, images_only_config
 from ..nn.layers import Block, RingGlobalBlock, init_weights_
 from ..ops.flash_attention import flash_attention, reset_launch_counts
+from ..perf.timing import profile_calls
+from ..train.grad_check import compare_sharded
+from ..train.seq_parallel import make_view_sharded_train_step
+from ..train.step import OptimConfig, create_train_state, make_train_step
 from ..utils.inference import InferencePipeline
 from ..utils.weights import random_normal_
 from .distributed import init_distributed
@@ -166,16 +187,101 @@ def check_block_gradient(dim, heads, n, group, device, dtype) -> dict:
             "worst_grad_rel_l2": max(errs.values()), **launches}
 
 
+def _timed_steps(step, model, batch, device, steps) -> dict:
+    """2 warm-up and `steps` timed calls of step(state, batch) from a fresh
+    TrainState: wall ms per step, the launch counts of the last step, the
+    losses, the peak memory and a profile of one more step."""
+    state = create_train_state(model, OptimConfig(warmup_steps=2,
+                                                  total_steps=100))
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses = []
+
+    def call():
+        nonlocal state
+        reset_launch_counts()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+
+    res = {}
+    res["step_ms"], res["step_ms_all"] = _timed(call, device, steps)
+    res.update(_launches(), loss=losses,
+               finite=bool(np.isfinite(losses).all()))
+    if device.type == "cuda":
+        res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        res["profile"] = profile_calls(call, res["step_ms"], calls=1,
+                                       match={"pt_do": "pt_do_sm90"})
+    return res
+
+
+def check_train_step(model, batch, group, device, steps: int = 3) -> dict:
+    """Check 3 on this rank: compare_sharded, then the unsharded and the
+    view-sharded step timed (_timed_steps), the unsharded first. The
+    weights move in the timed steps."""
+    res = {"ranks": dist.get_world_size(group),
+           "views": batch["views"]["img"].shape[1],
+           "vs_unsharded": compare_sharded(model, batch, group)}
+    res["unsharded"] = _timed_steps(
+        make_train_step(model, images_only_config()), model, batch, device,
+        steps)
+    res.update(_timed_steps(
+        make_view_sharded_train_step(model, images_only_config(),
+                                     group=group), model, batch, device,
+        steps))
+    return res
+
+
+def _build_model(cfg, weights, device):
+    if weights == "init":
+        return MapAnything(cfg, device=device, generator=torch.Generator(
+            device=device).manual_seed(1))
+    return random_normal_(MapAnything(cfg, device=device))
+
+
+def _main_train(args, group, device, cfg, hw, res) -> bool:
+    """Check 3 at each ring size; every rank's results in res["train"]."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    ok = True
+    res["train"] = {}
+    for p in sorted({size for size in (2, world)
+                     if size > 1 and world % size == 0}):
+        # every rank makes every group, in the same order
+        subs = [dist.new_group(list(range(lo, lo + p)))
+                for lo in range(0, world, p)]
+        model = _build_model(cfg, args.weights, device)
+        batch = make_synthetic_batch(1, args.views, hw, hw, seed=0,
+                                     device=device)
+        mine = check_train_step(model, batch, subs[rank // p], device)
+        del model, batch
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        per_rank = [None] * world
+        dist.all_gather_object(per_rank, mine, group=group)
+        res["train"][f"p{p}"] = per_rank
+        for r in per_rank:
+            cmp = r["vs_unsharded"]
+            ok &= (r["finite"] and cmp["loss_rel_diff"] <= ERR_LIMIT
+                   and cmp["grad_rel_l2"] <= GRAD_LIMIT)
+    return ok
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--views", type=int, default=8)
     parser.add_argument("--size", choices=("released", "test"),
                         default="released")
     parser.add_argument("--weights", choices=("normal", "init"),
-                        default="normal")
+                        default=None,
+                        help="normal (the default of --check infer) or init "
+                        "(of --check train)")
     parser.add_argument("--device", default=None,
                         help="cuda (default, NCCL) or cpu (gloo)")
+    parser.add_argument("--check", choices=("infer", "train"),
+                        default="infer",
+                        help="infer: checks 1-2; train: check 3")
     args = parser.parse_args(argv)
+    if args.weights is None:
+        args.weights = "init" if args.check == "train" else "normal"
     group = init_distributed(args.device)
     device = (torch.device("cuda", torch.cuda.current_device())
               if dist.get_backend(group) == "nccl" else torch.device("cpu"))
@@ -186,12 +292,19 @@ def main(argv=None) -> int:
         test = args.size == "test"
         cfg = (MapAnythingConfig(dtype=torch.float32, **_TEST_CFG) if test
                else MapAnythingConfig())
-        if args.weights == "init":
-            model = MapAnything(cfg, device=device, generator=torch.Generator(
-                device=device).manual_seed(1)).eval()
-        else:
-            model = random_normal_(MapAnything(cfg, device=device)).eval()
         hw = 56 if test else 518
+        if args.check == "train":
+            res = {"check": "train", "ranks": dist.get_world_size(group),
+                   "backend": dist.get_backend(group), "views": args.views,
+                   "size": args.size, "weights": args.weights,
+                   "device": (torch.cuda.get_device_name(device)
+                              if device.type == "cuda" else "cpu")}
+            ok = _main_train(args, group, device, cfg, hw, res)
+            res["ok"] = ok
+            if dist.get_rank(group) == 0:
+                print(json.dumps(res), flush=True)
+            return 0 if ok else 1
+        model = _build_model(cfg, args.weights, device).eval()
         rng = np.random.default_rng(0)
         views = [{"img": (0.5 * rng.standard_normal((1, hw, hw, 3))).astype(
             np.float32), "data_norm_type": ["dinov2"]}

@@ -39,9 +39,11 @@ wrappers (:func:`flash_attention_mma`, :func:`flash_attention_fwd_lse_mma`,
 :func:`flash_attention_stats_mma`) launch the mma.sync kernel
 (``csrc/flash_attn_fwd_mma.cu``) that the main path ran before, and
 :func:`flash_attention_dkv_mma` / :func:`flash_attention_dq_mma` the
-mma.sync backward (``csrc/flash_attn_bwd_mma.cu``, bf16 or fp32 outputs);
-all are built into the probe library and nothing on the main path calls
-them. Launches count in :data:`probe_counts`.
+mma.sync backward (``csrc/flash_attn_bwd_mma.cu``, bf16 or fp32 outputs)
+and :func:`flash_attention_pt_do_mma` the mma.sync P^T dO
+(``csrc/flash_attn_pt_do_mma.cu``). All are built into the probe
+library and nothing on the main path calls them. Launches count in
+:data:`probe_counts`.
 
     python -m mapanything_tpu_torch.perf.flash_probes [--out FILE]
 
@@ -139,7 +141,8 @@ REPLACES = {
     "layout_bhnd": _B9 + "qkv_layout_experiment.py:29",
 }
 LAYOUTS = ("as_given", "bhnd")
-BASELINE = ("mma_fwd", "mma_fwd_lse", "mma_fwd_stats", "mma_dkv", "mma_dq")
+BASELINE = ("mma_fwd", "mma_fwd_lse", "mma_fwd_stats", "mma_dkv", "mma_dq",
+            "mma_pt_do")
 
 
 def reset_probe_counts() -> None:
@@ -266,6 +269,17 @@ def flash_attention_dq_mma(q, k, v, dout, lse, delta,
                       n_valid, out_dtype)
     return fa._dq_cuda(_mma_bwd("mma_dq"), q, k, v, dout, lse, delta,
                        n_valid, out_dtype)
+
+
+def flash_attention_pt_do_mma(q, k, dout, lse):
+    """P^T dO of the baseline's ``flash_attn_bwd_pt_do_mma`` on CUDA
+    tensors, arguments as ops/ring_attention.py's
+    :func:`flash_attention_pt_do`; its plain twin on the CPU."""
+    if not q.is_cuda:
+        return _plain(ring.flash_attention_pt_do_plain, q, k, dout, lse)
+    return ring._pt_do_cuda(
+        lambda device, *args: _launch("mma_pt_do", "flash_attn_bwd_pt_do_mma",
+                                      device, *args), q, k, dout, lse)
 
 
 # --- the sweep (one GPU) ----------------------------------------------------
@@ -400,6 +414,7 @@ __all__ = [
     "flash_attention_dq_mma",
     "flash_attention_fwd_lse_mma",
     "flash_attention_mma",
+    "flash_attention_pt_do_mma",
     "flash_attention_stats_mma",
     "flash_noexp_plain",
     "flash_nomax_plain",

@@ -9,7 +9,8 @@ calls without a synchronise between them, then one synchronise outside
 the clock. Python-side launch counters count the captured calls once, at
 capture; counter checks belong to uncaptured calls. :func:`events_ms`
 times calls that allocate gigabytes each (plain versions) by events around
-a run of calls instead.
+a run of calls instead. :func:`profile_calls` reads a call's device time,
+device ops and busy share from torch.profiler.
 """
 
 from __future__ import annotations
@@ -77,4 +78,56 @@ def host_us(fn, reps: int = 20) -> float:
     return (t1 - t0) / reps * 1e6
 
 
-__all__ = ["device_ms", "events_ms", "host_us"]
+def profile_calls(call, wall_ms: float, calls: int = 3, match=None) -> dict:
+    """Device time per `call()` from torch.profiler (the sum of the device
+    events of `calls` calls over `calls`), the device ops per call, the ten
+    device ops that take the most time, the ten host ops that take the
+    most host time of their own (self CPU ms per call), and the busy share:
+    device time over `wall_ms`, the median wall time of the untraced calls.
+    With
+    `match` ({key: substring}), also the device ms per call of the kernels
+    whose names hold each substring. NCCL's kernels count in the device
+    time; across cards they include the wait for the other ranks
+    (`nccl_ms` says how much). A profiler that cannot trace the card
+    returns {"not_measured": reason}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+    except RuntimeError as exc:  # a profiler without CUPTI access
+        return {"not_measured": str(exc)[:200]}
+    by_name: dict[str, float] = {}
+    host: dict[str, float] = {}
+    n_ops = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if e.name.startswith("nccl:"):
+                continue  # NCCL's annotation, spanning its own kernel
+            name = e.name[:90]  # template instances that share a prefix add up
+            by_name[name] = (by_name.get(name, 0.0)
+                             + e.time_range.elapsed_us() / 1e3 / calls)
+            n_ops += 1
+        else:
+            host[e.name[:60]] = (host.get(e.name[:60], 0.0)
+                                 + e.self_cpu_time_total / 1e3 / calls)
+    device = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    top_host = sorted(host.items(), key=lambda kv: -kv[1])[:10]
+    res = {"device_ms": device, "device_ops": n_ops / calls,
+           "wall_ms": wall_ms, "busy_share": device / wall_ms,
+           "nccl_ms": sum(ms for name, ms in by_name.items()
+                          if name.startswith("ncclDevKernel")),
+           "top_ops_ms": dict(top), "top_host_self_ms": dict(top_host)}
+    if match:
+        res["matched_ms"] = {key: sum(ms for name, ms in by_name.items()
+                                      if sub in name)
+                             for key, sub in match.items()}
+    return res
+
+
+__all__ = ["device_ms", "events_ms", "host_us", "profile_calls"]

@@ -1,5 +1,5 @@
-"""Training slice of the PyTorch port: the released loss, AdamW and the
-train step (counterpart of mapanything_tpu/train)."""
+"""Training slice of the PyTorch port: the released loss, AdamW, the train
+step and its view-sharded form (counterpart of mapanything_tpu/train)."""
 
 from . import criteria
 from .criteria import MultiLoss, released_criterion
@@ -19,6 +19,10 @@ from .step import (
     make_optimizer,
     make_train_step,
 )
+from .seq_parallel import (
+    make_view_sharded_train_step,
+    view_sharded_overall_loss,
+)
 
 __all__ = [
     "AdamW",
@@ -34,6 +38,8 @@ __all__ = [
     "criteria",
     "make_optimizer",
     "make_train_step",
+    "make_view_sharded_train_step",
     "overall_loss",
     "released_criterion",
+    "view_sharded_overall_loss",
 ]

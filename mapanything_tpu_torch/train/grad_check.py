@@ -22,6 +22,9 @@ gradient three ways:
     gradient can move by O(1) between two equally valid forwards;
   * the same two readings for each term of the loss (`term_losses`).
 
+`compare_sharded` reads the view-sharded loss and gradient
+(train/seq_parallel.py) against the unsharded ones the same ways.
+
 The command line builds the released MapAnythingConfig() on the GPU with
 the model's own seeded init, as chip_smoke.py's training phase does, and
 reads `compare` on a 1-view 518x518 batch before each of `--steps` train
@@ -88,6 +91,27 @@ def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 NOISE, NOISE_SEED = 1e-3, 5
 
 
+def _noisy(img: torch.Tensor) -> torch.Tensor:
+    """img + N(0, NOISE^2) noise from NOISE_SEED."""
+    gen = torch.Generator(device=img.device).manual_seed(NOISE_SEED)
+    return img + NOISE * torch.randn(img.shape, generator=gen,
+                                     device=img.device)
+
+
+def _float_outputs(preds: Dict) -> list:
+    return [v for _, v in sorted(preds.items()) if v.is_floating_point()]
+
+
+def _flat_grad(outputs, params, cotangents=None,
+               retain_graph: bool = True) -> torch.Tensor:
+    """The gradient of `outputs` (pulled back from `cotangents`) with
+    respect to every parameter, flattened into one vector."""
+    grads = torch.autograd.grad(outputs, params, cotangents,
+                                retain_graph=retain_graph, allow_unused=True)
+    return torch.cat([(torch.zeros_like(p) if g is None else g).flatten()
+                      for g, p in zip(grads, params)])
+
+
 def compare(model, batch: Dict) -> Dict:
     """The readings of the module docstring for one batch ("views" with
     "img", and "gt"), with the model's current parameters."""
@@ -97,24 +121,16 @@ def compare(model, batch: Dict) -> Dict:
 
     def forward(impl, noise=False):
         img = batch["views"]["img"]
-        if noise:
-            gen = torch.Generator(device=img.device).manual_seed(NOISE_SEED)
-            img = img + NOISE * torch.randn(img.shape, generator=gen,
-                                            device=img.device)
         model.set_attn_impl(impl)
         try:
-            preds = model({"img": img})
+            preds = model({"img": _noisy(img) if noise else img})
         finally:
             model.set_attn_impl("auto")
         loss, details = overall_loss(batch["gt"], preds)
-        outs = [v for _, v in sorted(preds.items()) if v.is_floating_point()]
-        return loss, details, outs
+        return loss, details, _float_outputs(preds)
 
     def flat(outputs, cotangents=None):
-        grads = torch.autograd.grad(outputs, params, cotangents,
-                                    retain_graph=True, allow_unused=True)
-        return torch.cat([(torch.zeros_like(p) if g is None else g).flatten()
-                          for g, p in zip(grads, params)])
+        return _flat_grad(outputs, params, cotangents)
 
     loss_m, det_m, outs_m = forward("math")
     loss_a, det_a, outs_a = forward("auto")
@@ -157,6 +173,79 @@ def compare(model, batch: Dict) -> Dict:
     res["full_loss_grad_noise_floor"] = (
         res["terms"]["total"]["noise_floor_rel_l2"])
     return res
+
+
+def compare_sharded(model, batch: Dict, group,
+                    cfg: OverallLossConfig = OverallLossConfig()) -> Dict:
+    """The view-sharded loss and parameter gradient (train/seq_parallel.py,
+    over the ranks of `group`) against the unsharded ones, on the same
+    model and batch ("views" with "img", and "gt"):
+
+      * `loss_unsharded`, `loss_sharded` and `loss_rel_diff`;
+      * `grad_rel_l2`: the sharded forward's parameter gradient pulled back
+        from the unsharded path's d loss / d predictions (each rank its
+        views' slice of it, the replicated metric scale's at 1/p, summed
+        over the ranks) against the unsharded forward's pulled back from
+        the same cotangent; beside it `grad_noise_floor_rel_l2`, the
+        unsharded forward on the image perturbed by N(0, 1e-3^2) from seed
+        5 against it;
+      * `full_loss_grad_rel_l2`: the gradient of the sharded loss (every
+        rank's share, summed) against the unsharded loss's, beside
+        `full_loss_grad_noise_floor` (the perturbed image's loss's); the
+        released loss's branches flip under bf16-level changes (module
+        docstring), so these are read, not held to a limit.
+
+    Each forward's graph is freed before the next one is built. Every rank
+    returns the same numbers."""
+    import torch.distributed as dist
+
+    from .seq_parallel import shard_views, view_sharded_overall_loss
+
+    params = [p for _, p in model.named_parameters()]
+    p = dist.get_world_size(group)
+    img = batch["views"]["img"]
+    n_views = img.shape[1]
+
+    def unsharded(image):
+        preds = model({"img": image})
+        loss, _ = overall_loss(batch["gt"], preds, cfg)
+        return loss, _float_outputs(preds)
+
+    loss_u, outs = unsharded(img)
+    cot = [torch.zeros_like(o) if c is None else c for c, o in zip(
+        torch.autograd.grad(loss_u, outs, retain_graph=True,
+                            allow_unused=True), outs)]
+    vjp_u = _flat_grad(outs, params, cot)
+    full_u = _flat_grad(loss_u, params, retain_graph=False)
+    del outs
+    loss_n, outs = unsharded(_noisy(img))
+    vjp_n = _flat_grad(outs, params, cot)
+    full_n = _flat_grad(loss_n, params, retain_graph=False)
+    del outs, loss_n
+
+    views, gt = shard_views(batch, group)
+    lo = dist.get_rank(group) * (n_views // p)
+    preds = model(views, seq_group=group)
+    total, details = view_sharded_overall_loss(gt, preds, cfg, group)
+    share = details["_share"]
+    outs = _float_outputs(preds)
+    # this rank's part of the shared cotangent: its views of each per-view
+    # output, the replicated metric scale's at 1/p
+    local_cot = [c[:, lo:lo + o.shape[1]] if c.dim() >= 2 else c / p
+                 for c, o in zip(cot, outs)]
+    vjp_s = _flat_grad(outs, params, local_cot)
+    full_s = _flat_grad(share, params, retain_graph=False)
+    del outs, preds, share, details
+    for vec in (vjp_s, full_s):
+        dist.all_reduce(vec, group=group)
+    lu, ls = loss_u.item(), total.item()
+    return {"views": n_views, "ranks": p, "loss_unsharded": lu,
+            "loss_sharded": ls,
+            "loss_rel_diff": abs(ls - lu) / max(abs(lu), 1e-30),
+            "grad_rel_l2": _rel_l2(vjp_s, vjp_u),
+            "grad_noise_floor_rel_l2": _rel_l2(vjp_n, vjp_u),
+            "full_loss_grad_rel_l2": _rel_l2(full_s, full_u),
+            "full_loss_grad_noise_floor": _rel_l2(full_n, full_u)}
 
 
 def main(argv=None) -> int:

@@ -252,6 +252,28 @@ def test_cpu_backward_baseline_wrappers_run_plain(out_dtype):
     assert not any(fp.probe_counts[key] for key in fp.BASELINE)
 
 
+def test_cpu_pt_do_baseline_runs_plain():
+    """P^T dO's mma.sync baseline runs the plain P^T dO on the CPU and
+    launches nothing."""
+    from mapanything_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd_lse_plain,
+    )
+    from mapanything_tpu_torch.ops.ring_attention import (
+        flash_attention_pt_do_plain,
+    )
+
+    q, k, _ = _torch(*_inputs(10, (1, 96, 2, 64)))
+    dout = _torch(*_inputs(11, (1, 96, 2, 64)))[0]
+    lse = flash_attention_fwd_lse_plain(q, k[:, :70], k[:, :70])[1]
+    fp.reset_probe_counts()
+    got = fp.flash_attention_pt_do_mma(q, k[:, :70], dout, lse)
+    torch.testing.assert_close(
+        got, flash_attention_pt_do_plain(q, k[:, :70], dout, lse),
+        rtol=0, atol=0)
+    assert fp.probe_counts["plain"] == 1
+    assert sum(fp.probe_counts.values()) == 1
+
+
 def test_probe_plain_formulas():
     """nomax equals the softmax for small scores; noexp is s' V; and the
     (B, H, N, D) layout copy changes nothing on the CPU."""

@@ -8,11 +8,16 @@ the training kernels): the kernels keep fp32 scores, round P and dS to bf16
 for the tensor-core products and their outputs once to bf16.
 """
 
+import contextlib
+import types
+
 import numpy as np
 import pytest
 import torch
 
+from mapanything_tpu_torch.ops import flash_attention as fa_module
 from mapanything_tpu_torch.ops.flash_attention import (
+    KERNELS,
     attention_delta,
     flash_attention,
     flash_attention_bwd_plain,
@@ -32,6 +37,11 @@ from mapanything_tpu_torch.ops.ring_attention import (
     flash_attention_stats_plain,
     merge_stats,
 )
+
+
+def _counts(**launched):
+    """flash_attention.kernel_counts with `launched` and zeros elsewhere."""
+    return dict.fromkeys(KERNELS, 0) | launched
 
 
 @pytest.fixture
@@ -66,6 +76,26 @@ class TestDispatch:
         assert flash_attention.plain_launches == 2  # and the backward
         assert flash_attention.kernel_launches == 0
         assert all(x.grad is not None for x in (q, k, v))
+        reset_launch_counts()
+
+    @pytest.mark.parametrize("entry,key", [
+        ("flash_attn_bwd_dkv", "dkv"), ("flash_attn_bwd_dkv_f32", "dkv_f32"),
+        ("flash_attn_bwd_dq", "dq"), ("flash_attn_bwd_dq_f32", "dq_f32")])
+    def test_fp32_entries_count_apart(self, monkeypatch, entry, key):
+        """A launch of an fp32-output entry counts under its own key, so a
+        run's bf16 and fp32 launches of one kernel are read apart."""
+        monkeypatch.setattr(fa_module, "_kernel_fn",
+                            lambda library, name: lambda *args: 0)
+        monkeypatch.setattr(torch.cuda, "device",
+                            lambda device: contextlib.nullcontext())
+        monkeypatch.setattr(torch.cuda, "current_stream",
+                            lambda device: types.SimpleNamespace(
+                                cuda_stream=0))
+        reset_launch_counts()
+        fa_module._launch(key.removesuffix("_f32"), "flash_attn_bwd", entry,
+                          None)
+        assert flash_attention.kernel_counts == _counts(**{key: 1})
+        assert flash_attention.kernel_launches == 1
         reset_launch_counts()
 
     def test_fully_masked_rows_are_zero(self):
@@ -194,9 +224,7 @@ def test_cuda_training_kernels_match_plain(cuda_device, shape, n_valid,
     out = flash_attention(q, k, v, n_valid=n_valid)
     out.backward(dout)
     torch.cuda.synchronize()
-    assert flash_attention.kernel_counts == {"fwd": 0, "fwd_lse": 1,
-                                             "dkv": 1, "dq": 1,
-                                             "fwd_stats": 0, "pt_do": 0}
+    assert flash_attention.kernel_counts == _counts(fwd_lse=1, dkv=1, dq=1)
     assert flash_attention.plain_launches == 0
 
     qd, kd, vd = (x.detach() for x in (q, k, v))
@@ -261,9 +289,8 @@ def test_cuda_ring_kernels_match_plain(cuda_device, shape):
             assert a.dtype == torch.float32
             assert max(_err(a, r)) <= 1e-2
     torch.cuda.synchronize()
-    assert flash_attention.kernel_counts == {"fwd": 0, "fwd_lse": 0,
-                                             "dkv": 1, "dq": 1,
-                                             "fwd_stats": 2, "pt_do": 1}
+    assert flash_attention.kernel_counts == _counts(
+        dkv_f32=1, dq_f32=1, fwd_stats=2, pt_do=1)
     assert flash_attention.plain_launches == 0
 
     n = shape[1]
@@ -318,9 +345,8 @@ def test_cuda_forward_tiling_matches_plain(cuda_device, shape, n_valid):
     refs = [flash_attention_stats_plain(q, kk, vv),
             flash_attention_stats_plain(q, kk, kk)]
     torch.cuda.synchronize()
-    assert flash_attention.kernel_counts == {"fwd": 1, "fwd_lse": 1, "dkv": 0,
-                                             "dq": 0, "fwd_stats": 2,
-                                             "pt_do": 0}
+    assert flash_attention.kernel_counts == _counts(fwd=1, fwd_lse=1,
+                                                    fwd_stats=2)
     if real == 0:
         assert not out.any() and not out_l.any() and torch.isinf(lse).all()
         for acc, m, l in stats:
@@ -366,9 +392,9 @@ def test_cuda_backward_tiling_matches_plain(cuda_device, shape, n_valid,
     _nan_filled_pool(q.shape, out_dtype, cuda_device, count=1)
     dq = flash_attention_dq(*args, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    assert flash_attention.kernel_counts == {"fwd": 0, "fwd_lse": 0,
-                                             "dkv": 1, "dq": 1,
-                                             "fwd_stats": 0, "pt_do": 0}
+    suffix = "_f32" if out_dtype == torch.float32 else ""
+    assert flash_attention.kernel_counts == _counts(
+        **{"dkv" + suffix: 1, "dq" + suffix: 1})
     refs = (*flash_attention_dkv_plain(*args, out_dtype=out_dtype),
             flash_attention_dq_plain(*args, out_dtype=out_dtype))
     for name, got, ref in zip(("dk", "dv", "dq"), (dk, dv, dq), refs):
@@ -386,6 +412,60 @@ def test_cuda_backward_tiling_matches_plain(cuda_device, shape, n_valid,
         assert (max(_err(got, ref)) <= 1e-2
                 or real == 1 and name in ("dk", "dq")
                 and got.abs().max() <= 1e-5), name
+
+
+# P^T dO where the tiles are ragged: nq != nk, neither a multiple of the
+# 64-row tiles or of the 128- and 192-key blocks, several heads and
+# batches; and the ring's 4-view shard
+_PT_DO_CASES = [
+    ((2, 300, 2, 64), 173),
+    ((1, 77, 4, 64), 200),
+    ((3, 129, 2, 64), 1),
+    ((1, 5476, 16, 64), 5476),
+]
+
+
+def _pt_do_inputs(shape, nk, device):
+    """q, dO (B, Nq, H, 64) and k (B, nk, H, 64) bf16 on the fused-qkv
+    layout, the lse of q against those keys (B, H, Nq), and every seventh
+    q row with lse = +inf (a row that saw no key: it adds nothing)."""
+    b, nq, h, d = shape
+    q = _cuda_qkv(shape, None, "fused_qkv", device)[0]
+    k = _cuda_qkv((b, nk, h, d), None, "fused_qkv", device)[1]
+    gen = torch.Generator(device=device).manual_seed(3)
+    dout = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+    lse = flash_attention_fwd_lse_plain(q, k, k)[1]
+    lse[..., ::7] = torch.inf
+    return q, k, dout, lse.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,nk", _PT_DO_CASES)
+def test_cuda_pt_do_matches_plain(cuda_device, shape, nk):
+    """The TMA/wgmma P^T dO (csrc/flash_pt_do_sm90.cuh) against its plain
+    twin, its output allocated over NaN-filled memory (every row below nk
+    is written, the rows of lse = +inf add nothing)."""
+    q, k, dout, lse = _pt_do_inputs(shape, nk, cuda_device)
+    reset_launch_counts()
+    _nan_filled_pool((shape[0], nk, shape[2], 64), torch.float32,
+                     cuda_device)
+    out = flash_attention_pt_do(q, k, dout, lse)
+    torch.cuda.synchronize()
+    assert flash_attention.kernel_counts == _counts(pt_do=1)
+    ref = flash_attention_pt_do_plain(q, k, dout, lse)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert torch.isfinite(out).all()
+    assert max(_err(out, ref)) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_pt_do_without_q_rows_writes_zeros(cuda_device):
+    q, k, dout, lse = _pt_do_inputs((1, 100, 2, 64), 150, cuda_device)
+    _nan_filled_pool((1, 150, 2, 64), torch.float32, cuda_device)
+    out = flash_attention_pt_do(q[:, :0], k, dout[:, :0],
+                                lse[..., :0].contiguous())
+    torch.cuda.synchronize()
+    assert out.shape == (1, 150, 2, 64) and not out.any()
 
 
 def _probe_inputs(layout, device):
@@ -437,8 +517,8 @@ def test_cuda_probe_variants_match_their_plain(cuda_device, name):
 @pytest.mark.cuda
 def test_cuda_baseline_matches_plain_and_stays_off_the_main_path(cuda_device):
     """The mma.sync baselines' entries (the forward's three, the backward's
-    dK/dV and dQ in bf16 and fp32) against their plain versions; the main
-    path's wrappers never launch them."""
+    dK/dV and dQ in bf16 and fp32, P^T dO) against their plain versions;
+    the main path's wrappers never launch them."""
     from mapanything_tpu_torch.perf import flash_probes as fp
 
     q, k, v = _cuda_qkv((1, 2816, 16, 64), 2739, "fused_qkv", cuda_device)
@@ -453,6 +533,8 @@ def test_cuda_baseline_matches_plain_and_stays_off_the_main_path(cuda_device):
     for out_dtype in (None, torch.float32):
         flash_attention_dkv(*bwd, out_dtype=out_dtype)
         flash_attention_dq(*bwd, out_dtype=out_dtype)
+    pt_do_args = (q, k[:, :2739], dout, ref_lse)
+    flash_attention_pt_do(*pt_do_args)
     torch.cuda.synchronize()
     assert not any(fp.probe_counts.values())
     out = fp.flash_attention_mma(q, k, v, 2739)
@@ -461,10 +543,12 @@ def test_cuda_baseline_matches_plain_and_stays_off_the_main_path(cuda_device):
     grads = {out_dtype: (*fp.flash_attention_dkv_mma(*bwd, out_dtype=out_dtype),
                          fp.flash_attention_dq_mma(*bwd, out_dtype=out_dtype))
              for out_dtype in (torch.bfloat16, torch.float32)}
+    pt_do = fp.flash_attention_pt_do_mma(*pt_do_args)
     torch.cuda.synchronize()
     assert {key: fp.probe_counts[key] for key in fp.BASELINE} == {
         "mma_fwd": 1, "mma_fwd_lse": 1, "mma_fwd_stats": 1, "mma_dkv": 2,
-        "mma_dq": 2}
+        "mma_dq": 2, "mma_pt_do": 1}
+    assert max(_err(pt_do, flash_attention_pt_do_plain(*pt_do_args))) <= 1e-2
     for got in (out, out_l):
         assert max(_err(got[:, :2739], ref[:, :2739])) <= 1e-2
     assert max(_err(lse[..., :2739], ref_lse[..., :2739])) <= 1e-2

@@ -121,6 +121,32 @@ def test_loss_and_gradients_match_jax(setup):
         _assert_close_max(g.numpy(), ref_grads[name], 1e-4, f"d {name}")
 
 
+def _own_copies(arrays, names):
+    """Tensors holding copies of `arrays[name]`, sharing no memory with
+    them."""
+    return [torch.from_numpy(np.array(arrays[n], order="C"))
+            for n in names]
+
+
+def test_optimizer_gradients_do_not_alias_the_jax_inputs(setup):
+    """The optimizer test's gradients share no memory with the numpy arrays
+    handed to JAX: JAX's CPU client reads an argument's buffer after the
+    jitted call has returned, and the port's in-place clip would change
+    it under JAX (the cause of an intermittent optimizer mismatch)."""
+    _, params, _ = setup
+    port = _port_model(params)
+    grads = jax.tree.map(np.asarray, params)
+    leaves = jax.tree_util.tree_leaves(grads)
+    converted = from_jax_params(grads, port)
+    names = [n for n, _ in port.named_parameters()]
+    # from_jax_params hands back views where the layout allows ...
+    assert any(np.shares_memory(converted[n], leaf)
+               for n in names for leaf in leaves)
+    # ... and the copies share nothing
+    for t in _own_copies(converted, names):
+        assert not any(np.shares_memory(t.numpy(), leaf) for leaf in leaves)
+
+
 @pytest.mark.parametrize("accum_steps", [1, 2])
 def test_optimizer_matches_optax_on_same_gradients(setup, accum_steps):
     _, params, _ = setup
@@ -143,9 +169,10 @@ def test_optimizer_matches_optax_on_same_gradients(setup, accum_steps):
             lambda x: (scale * rng.standard_normal(x.shape)).astype(
                 np.float32), params)
         ref, opt_state = optax_step(grads, opt_state, ref)
-        pgrads = from_jax_params(grads, port)
-        opt.step([torch.from_numpy(np.ascontiguousarray(pgrads[n]))
-                  for n in opt.names])
+        # the port clips its gradients in place (AdamW.step's contract), so
+        # it gets copies: from_jax_params returns views of `grads`, which
+        # the jitted optax step may still be reading after it returns
+        opt.step(_own_copies(from_jax_params(grads, port), opt.names))
         want = from_jax_params(jax.tree.map(np.asarray, ref), port)
         for name, p in zip(opt.names, opt.params):
             _assert_close_max(p.detach().numpy(), want[name], 1e-6,
