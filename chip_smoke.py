@@ -148,8 +148,34 @@ Phases, in order (any failure exits non-zero and prints no result line):
      p > 1 runs over gloo on the CPU (tests/test_torch_seq_parallel.py) and
      across cards in `ring_check --check train`.
 
+  7. The rest of the serving API at full width, a model with phase 3's
+     weights, synthetic 518^2 PNGs through load_images:
+     7a, BASELINE config 3: 4 views with intrinsics, 4x4 camera poses
+     (seeded random unit quaternions and translations) and the metric
+     flag; finite outputs of the expected shapes, exactly 48 forward
+     launches per call, nothing else; the features the forward fed the
+     fusion LayerNorm against the same fusion in fp32 on the CPU from the
+     card's own encoder output (the six encoders copied there; limit 1e-4
+     of max-abs), with the priors' share of them; the call with math
+     attention (pts3d and depth rel-L2, limit 1e-2); median of 5 wall
+     times after 2 warm-ups, device ms and busy share (profiler).
+     7b, config 4: 32 views, the confidence mask at the 10th percentile,
+     "auto" (unchunked on 80 GB) and memory_efficient_inference=True, each
+     1 warm-up and 3 timed calls (median wall, views/s, peak GiB, 48
+     forward launches per call) and a profiled call; the two programs'
+     pts3d and depth within rel-L2 1e-2. 7c, config 5: 100 views, the
+     chunked program then "auto", the same readings; demo_colmap's export
+     of the chunked call's outputs into a temporary directory, read back
+     with utils/colmap_io.py: 100 cameras, 100 images, points, unit
+     quaternions whose rotations are the predicted poses' (1e-4). After
+     each, B2 at the many-view global shape ((1, 43904, 16, 64) / 43809
+     and (1, 136960, 16, 64) / 136901) against its plain version on the
+     first and the last 192 real rows (limit 1e-2, as phase 2), its device
+     time, bound, flash SDPA's time and host µs. 0 probe and baseline
+     launches.
+
 The last two lines are the kernels' JSON summary (each kernel's launches:
-the counts phases 3-6 read, summed) and
+the counts phases 3-7 read, summed) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -246,6 +272,14 @@ PT_DO_RAGGED = ("ragged_lse_inf", (2, 1000, 16, 64), 1337)
 VS_STEP_LAUNCHES = {"fwd_lse": 36, "dkv": 36, "dq": 36, "dkv_f32": 12,
                     "dq_f32": 12, "fwd_stats": 2 * 12, "pt_do": 12}
 VS_WARMUP, VS_STEPS = 2, 5
+# phase 7: BASELINE configs 3 (4 views with intrinsics and poses), 4 (32
+# views, confidence mask) and 5 (100 views, memory-efficient), at 518^2
+PRIOR_VIEWS, PRIOR_CALLS = 4, 5
+MANY_VIEWS = {32: 3, 100: 3}  # views: timed calls per program
+CONF_PERCENTILE = 10.0
+FUSION_LIMIT = 1e-4  # the card's fused features against the CPU's, fp32
+SAMPLE_ROWS = 192  # B2 at the many-view shapes: first and last real rows
+PATCHES = 37 * 37  # per view at 518^2
 
 
 def fail(msg: str) -> int:
@@ -1000,6 +1034,317 @@ def flash_vs_math_gradient(torch, model, make_synthetic_batch, compare):
     return res, None
 
 
+def many_view_shape(views: int):
+    """(B, N, H, D) and n_valid of the trunk's global layer at `views`
+    views of 518^2: every view's patches and the scale token, padded to a
+    multiple of 128."""
+    n_valid = views * PATCHES + 1
+    return (1, -(-n_valid // 128) * 128, 16, 64), n_valid
+
+
+def b2_sampled(torch, fa, F, views: int):
+    """B2 (the online-softmax forward) at the global shape of `views` views:
+    the kernel over every row against its plain version on the first and
+    the last SAMPLE_ROWS real rows, each against all keys (the plain
+    version of all rows would hold a (1, 16, N, N) fp32 score matrix); its
+    device time, bound, flash SDPA's time and host µs."""
+    shape, n_valid = many_view_shape(views)
+    q, k, v = attention_inputs(torch, shape, n_valid, seed=300 + views)
+    rows = torch.cat([torch.arange(SAMPLE_ROWS),
+                      torch.arange(n_valid - SAMPLE_ROWS, n_valid)]).cuda()
+    out = fa.flash_attention(q, k, v, n_valid)
+    q_rows = q[:, rows]
+    ref = fa.flash_attention_plain(q_rows, k, v, n_valid).float()
+    got = out[:, rows].float()
+    torch.cuda.synchronize()
+    row = {"at": f"global_{views}view", "shape": list(shape),
+           "n_valid": n_valid, "sampled_rows": 2 * SAMPLE_ROWS,
+           "max_abs_err": float((got - ref).abs().max()),
+           "rel_l2": rel_l2(got, ref),
+           "ms": kernel_ms(lambda: fa.flash_attention(q, k, v, n_valid)),
+           "plain_ms": plain_ms(
+               lambda: fa.flash_attention_plain(q_rows, k, v, n_valid)),
+           "plain_ms_of": f"the {2 * SAMPLE_ROWS} sampled rows only",
+           "host_us": host_us(
+               lambda: fa._fwd_cuda(q, k, v, n_valid, with_lse=False))}
+    flops = fa.attention_flops(shape[0], shape[1], n_valid, shape[2],
+                               shape[3])
+    row["tflops"] = flops / row["ms"] / 1e9
+    row.update(bound(F, "fwd", shape, n_valid))
+    row["library_ms"] = library_fwd_ms(torch, *sdpa_layout(q, k, v, n_valid))
+    print(f"B2 {row['at']} {tuple(shape)} n_valid={n_valid}: max_abs="
+          f"{row['max_abs_err']:.3e} rel_l2={row['rel_l2']:.3e} on "
+          f"{2 * SAMPLE_ROWS} rows; kernel {row['ms']:.4f} ms "
+          f"({row['tflops']:.1f} TFLOP/s) bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}) flash SDPA {row['library_ms']:.4f} ms plain "
+          f"(sampled rows) {row['plain_ms']:.4f} ms host "
+          f"{row['host_us']:.1f} us", flush=True)
+    del q, k, v, out, q_rows, ref, got
+    torch.cuda.empty_cache()
+    bad = (None if row["max_abs_err"] <= ERR_LIMIT
+           and row["rel_l2"] <= ERR_LIMIT
+           else f"B2 disagrees with plain at {row['at']}: {row}")
+    return row, bad
+
+
+def with_priors(torch, G, views):
+    """BASELINE config 3's user inputs on load_images' views: intrinsics
+    (focal 0.8-1.2 x the width, centred), a camera-to-world 4x4 from a
+    seeded random unit quaternion and normal translation, metric scale."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    out = []
+    for view in views:
+        h, w = view["img"].shape[1:3]
+        f = rng.uniform(0.8, 1.2) * w
+        k = np.array([[[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]]], np.float32)
+        quat = rng.standard_normal(4).astype(np.float32)
+        pose = G.pose_quats_trans_to_matrix(
+            torch.from_numpy(quat / np.linalg.norm(quat)),
+            torch.from_numpy(rng.standard_normal(3).astype(np.float32)))
+        out.append(dict(view, intrinsics=k, camera_poses=pose[None].numpy(),
+                        is_metric_scale=True))
+    return out
+
+
+def timed_infer(torch, fa, pipe, views, calls, **kw):
+    """`calls` timed infer calls after one warm-up: median wall ms, the
+    launches they made (counts zeroed just before), peak memory, and a
+    torch.profiler trace of one more call. Returns (res, last outputs,
+    failure or None)."""
+    pipe.infer(views, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    times, out = [], None
+    for _ in range(calls):
+        out = None  # the peak is one call's, not two calls' outputs
+        t0 = time.perf_counter()
+        out = pipe.infer(views, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = dict(fa.flash_attention.kernel_counts)
+    plain = fa.flash_attention.plain_launches
+    wall = statistics.median(times)
+    res = {"views": len(views), "calls": calls, "wall_ms": wall,
+           "wall_ms_all": times, "views_per_s": len(views) / wall * 1e3,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "kernel_counts": counts, "plain_launches": plain}
+    bad = check_outputs(out, len(views), torch)
+    want = dict.fromkeys(fa.KERNELS, 0) | {"fwd": FORWARD_LAUNCHES * calls}
+    if not bad and (counts != want or plain != 0):
+        bad = (f"kernel launches {counts} and {plain} plain in {calls} "
+               f"forwards, expected {want} and 0")
+    if not bad:
+        res["profile"] = profile_calls(torch, lambda: pipe.infer(views, **kw),
+                                       wall, calls=1)
+    return res, out, bad
+
+
+def outputs_rel_l2(a, b, torch) -> dict:
+    """pts3d and depth_along_ray rel-L2 over every view of two infer
+    results."""
+    return {f"{key}_rel_l2": rel_l2(torch.stack([x[key] for x in a]),
+                                    torch.stack([y[key] for y in b]))
+            for key in ("pts3d", "depth_along_ray")}
+
+
+def fusion_check(torch, model, pipe, views, MapAnything, MapAnythingConfig,
+                 PI, PRIOR_ENCODERS):
+    """The features the card's forward fed the fusion LayerNorm against the
+    same fusion in fp32 on the CPU (the six encoders copied there), from the
+    card's own encoder output: fails if the priors were dropped or fused
+    wrongly. Also the priors' share: |fused - encoder| over |encoder|."""
+    import copy
+
+    seen = {}
+    hooks = [model.encoder.register_forward_hook(
+                 lambda mod, args, out: seen.__setitem__("enc", out)),
+             model.fusion_norm.register_forward_pre_hook(
+                 lambda mod, args: seen.__setitem__("fused", args[0]))]
+    try:
+        pipe.infer(views, apply_mask=False)
+    finally:
+        for h in hooks:
+            h.remove()
+    cpu_views = PI.stack_views(PI.preprocess_input_views_for_inference(views))
+    cpu = MapAnything(MapAnythingConfig(), device="meta")
+    for name in PRIOR_ENCODERS:
+        setattr(cpu, name, copy.deepcopy(getattr(model, name)).cpu())
+    got = seen["fused"].float().cpu()
+    enc = seen["enc"].float().cpu().reshape(got.shape)
+    with torch.inference_mode():
+        ref = cpu.fuse_geometric_priors(enc, cpu_views,
+                                        PI.geometric_input_config(cpu_views))
+    res = {"fused_max_abs_rel": max_abs_rel(got, ref),
+           "fused_rel_l2": rel_l2(got, ref),
+           "encoder_norm": float(enc.norm()),
+           "prior_norm": float((ref - enc).norm())}
+    res["prior_share"] = res["prior_norm"] / res["encoder_norm"]
+    if not res["fused_max_abs_rel"] <= FUSION_LIMIT:
+        return res, (f"fused features on the card against the CPU's: "
+                     f"{res['fused_max_abs_rel']:.3e}")
+    if not res["prior_share"] >= 1e-2:
+        return res, f"the priors barely reach the features: {res}"
+    return res, None
+
+
+def run_priors(torch, fa, model, pipe, views, fusion):
+    """Phase 7a, BASELINE config 3: 4 views with intrinsics, 4x4 poses and
+    the metric flag."""
+    res, out, bad = timed_infer(torch, fa, pipe, views, PRIOR_CALLS,
+                                apply_mask=True, mask_edges=True)
+    if bad:
+        return res, bad
+    res["fusion"], bad = fusion()
+    if bad:
+        return res, bad
+    flash = pipe.infer(views, apply_mask=False)
+    model.set_attn_impl("math")
+    try:
+        math_out = pipe.infer(views, apply_mask=False)
+    finally:
+        model.set_attn_impl("auto")
+    res["vs_math"] = outputs_rel_l2(flash, math_out, torch)
+    bad = {k: v for k, v in res["vs_math"].items() if not v <= ERR_LIMIT}
+    return res, (f"flash against math attention: {bad}" if bad else None)
+
+
+def run_many_views(torch, fa, pipe, views, calls, programs):
+    """Phase 7b/7c: each program ("auto", True) timed with the confidence
+    mask; returns ({program: res}, {program: last outputs}, failure)."""
+    res, outs = {}, {}
+    for prog in programs:
+        res[str(prog)], outs[prog], bad = timed_infer(
+            torch, fa, pipe, views, calls, memory_efficient_inference=prog,
+            apply_confidence_mask=True, confidence_percentile=CONF_PERCENTILE)
+        kept = sum(int(o["mask"].sum()) for o in outs[prog])
+        res[str(prog)]["mask_share"] = kept / (len(views) * 518 * 518)
+        print(f"  {len(views)} views, memory_efficient_inference={prog!r}: "
+              f"{json.dumps(res[str(prog)])}", flush=True)
+        if bad:
+            return res, outs, f"memory_efficient_inference={prog!r}: {bad}"
+    return res, outs, None
+
+
+def colmap_export_check(torch, out, views, demo_colmap, colmap_io):
+    """demo_colmap's export of `out` into a temporary directory, read back:
+    one camera and one image per view, points, orthonormal rotations."""
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as folder:
+        t0 = time.perf_counter()
+        exp = demo_colmap.export_predictions(
+            out, demo_colmap.view_names(views), folder)
+        sparse = exp["sparse_dir"]
+        cams = colmap_io.read_cameras_bin(os.path.join(sparse, "cameras.bin"))
+        imgs = colmap_io.read_images_bin(os.path.join(sparse, "images.bin"))
+        pts, _ = colmap_io.read_points3d_bin(
+            os.path.join(sparse, "points3D.bin"))
+        secs = time.perf_counter() - t0
+    # each stored rotation: a unit quaternion whose matrix is orthonormal
+    # and is the transpose of the predicted camera-to-world rotation
+    unit = max(abs(float(np.linalg.norm(im["qvec"])) - 1) for im in imgs)
+    rots = [colmap_io.quaternion_wxyz_to_matrix_np(im["qvec"]) for im in imgs]
+    ortho = max(float(np.abs(r @ r.T - np.eye(3)).max()) for r in rots)
+    vs_pred = max(float(np.abs(
+        r.T - o["camera_poses"][0, :3, :3].double().cpu().numpy()).max())
+        for r, o in zip(rots, out))
+    res = {"cameras": len(cams), "images": len(imgs), "points": len(pts),
+           "quaternion_unit_err": unit, "rotation_orthonormal_err": ortho,
+           "rotation_vs_prediction_err": vs_pred, "seconds": secs}
+    n = len(views)
+    if (len(cams), len(imgs)) != (n, n) or not 0 < len(pts) == exp["points"]:
+        return res, f"COLMAP model read back: {res}"
+    if not (max(unit, ortho, vs_pred) <= 1e-4 and np.isfinite(pts).all()):
+        return res, f"COLMAP poses or points: {res}"
+    return res, None
+
+
+def serving_api(torch, fa, F, fp, model, load_images):
+    """Phase 7: BASELINE configs 3, 4 and 5 through InferencePipeline.infer
+    on `model`. Returns (the kernel counts of each timed run, the B2 rows
+    at 32 and 100 views, failure or None)."""
+    from mapanything_tpu_torch import demo_colmap
+    from mapanything_tpu_torch import geometry as G
+    from mapanything_tpu_torch.models import MapAnything, MapAnythingConfig
+    from mapanything_tpu_torch.models.mapanything import PRIOR_ENCODERS
+    from mapanything_tpu_torch.utils import colmap_io
+    from mapanything_tpu_torch.utils import inference as PI
+
+    pipe = PI.InferencePipeline(model)
+    counts = []
+    with tempfile.TemporaryDirectory() as folder:
+        # 7a, config 3: intrinsics, 4x4 poses, metric scale on 4 views
+        views = with_priors(torch, G, load_images(write_images(folder,
+                                                               PRIOR_VIEWS)))
+        priors, bad = run_priors(
+            torch, fa, model, pipe, views,
+            lambda: fusion_check(torch, model, pipe, views, MapAnything,
+                                 MapAnythingConfig, PI, PRIOR_ENCODERS))
+        print(f"config 3, {PRIOR_VIEWS} views with intrinsics and poses: "
+              f"{json.dumps(priors)}", flush=True)
+        if bad:
+            return counts, [], f"config 3: {bad}"
+        counts.append(priors["kernel_counts"])
+
+        many, b2_rows = {}, []
+        for num_views, calls in MANY_VIEWS.items():
+            # 7b, config 4 (32 views): "auto" (unchunked at 80 GB) against
+            # the chunked program; 7c, config 5 (100 views): chunked, then
+            # "auto"
+            views = load_images(write_images(folder, num_views))
+            programs = ("auto", True) if num_views == 32 else (True, "auto")
+            res, outs, bad = run_many_views(torch, fa, pipe, views, calls,
+                                            programs)
+            many[num_views] = res
+            if bad:
+                return counts, b2_rows, f"{num_views} views: {bad}"
+            counts += [res[str(prog)]["kernel_counts"] for prog in programs]
+            if num_views == 32:
+                res["auto_vs_memory_efficient"] = outputs_rel_l2(
+                    pipe.infer(views, apply_mask=False),
+                    pipe.infer(views, apply_mask=False,
+                               memory_efficient_inference=True), torch)
+                print(f"  32 views, auto against memory_efficient: "
+                      f"{json.dumps(res['auto_vs_memory_efficient'])}",
+                      flush=True)
+                bad = {k: v for k, v in res["auto_vs_memory_efficient"].items()
+                       if not v <= ERR_LIMIT}
+                if bad:
+                    return counts, b2_rows, (f"32 views, auto against "
+                                             f"chunked: {bad}")
+            else:
+                res["colmap"], bad = colmap_export_check(
+                    torch, outs[True], views, demo_colmap, colmap_io)
+                print(f"  100 views, COLMAP export of the chunked call: "
+                      f"{json.dumps(res['colmap'])}", flush=True)
+                if bad:
+                    return counts, b2_rows, f"100 views: {bad}"
+            del outs, views
+            torch.cuda.empty_cache()
+            row, bad = b2_sampled(torch, fa, F, num_views)
+            if bad:
+                return counts, b2_rows, bad
+            row["launches_per_infer"] = 12
+            b2_rows.append((row["at"], row))
+    bad = untouched_baseline(fp)
+    if bad:
+        return counts, b2_rows, f"configs 3-5: {bad}"
+    for num_views, res in many.items():
+        for prog in ("auto", "True"):
+            r = res[prog]
+            prof = r.get("profile", {})
+            print(f"config {4 if num_views == 32 else 5}, {num_views} views, "
+                  f"memory_efficient_inference={prog}: wall {r['wall_ms']:.2f}"
+                  f" ms ({r['views_per_s']:.2f} views/s), device "
+                  f"{prof.get('device_ms', float('nan')):.2f} ms, busy "
+                  f"{prof.get('busy_share', float('nan')):.3f}, peak "
+                  f"{r['peak_memory_gib']:.2f} GiB", flush=True)
+    return counts, b2_rows, None
+
+
 def timing(row):
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms", "mma_ms",
@@ -1155,7 +1500,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # phase 1: every library, one nvcc each, in parallel
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     try:
         built = _build.build_all()
     except RuntimeError as exc:
@@ -1351,12 +1696,30 @@ def main() -> int:
     finally:
         torch.distributed.destroy_process_group()
 
+    # phase 7: the rest of the serving API at full width, phase 3's weights
+    t7 = time.perf_counter()
+    torch.cuda.empty_cache()
+    model = MapAnything(MapAnythingConfig())
+    random_normal_(model)
+    model.eval()
+    phase7_counts, b2_rows, bad = serving_api(torch, fa, F, fp, model,
+                                              load_images)
+    if bad:
+        return fail(bad)
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 7 (configs 3-5) took {time.perf_counter() - t7:.1f} s",
+          flush=True)
+    attn = attn + b2_rows  # the flash_attn_fwd row's shapes
+
     phase_counts = [serving,
                     {key: train[f"{key}_launches"] for key in fa.KERNELS},
                     ring_res["kernel_counts"], block_res["kernel_counts"],
-                    vs_train["launches"]]
+                    vs_train["launches"]] + phase7_counts
     kernels = kernels_summary(fp, attn, train_rows, ring_rows, merge,
                               probe_rows, phase_counts)
+    print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

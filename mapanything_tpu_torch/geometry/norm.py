@@ -1,6 +1,8 @@
-"""Norms and pointcloud normalisation of the losses; counterpart of
-mapanything_tpu/geometry/norm.py (safe_norm, normalize_multiple_pointclouds,
-apply_log_to_norm), on stacked views (B, V, ...)."""
+"""Norms and normalisations of the losses and the geometric priors;
+counterpart of mapanything_tpu/geometry/norm.py (safe_norm,
+normalize_depth_using_non_zero_pixels, normalize_pose_translations,
+normalize_multiple_pointclouds, apply_log_to_norm), on stacked views
+(B, V, ...)."""
 
 from __future__ import annotations
 
@@ -18,6 +20,33 @@ def safe_norm(x: torch.Tensor, dim: int = -1,
     sq = (x * x).sum(dim=dim, keepdim=keepdim)
     zero = sq == 0
     return torch.where(zero, 0.0, torch.sqrt(torch.where(zero, 1.0, sq)))
+
+
+def normalize_depth_using_non_zero_pixels(depth: torch.Tensor,
+                                          return_norm_factor: bool = False):
+    """Divide depth (..., H, W, 1) by the mean of its non-zero pixels.
+
+    The factor (...) is clamped to >= 1e-8, so an all-zero map stays zero.
+    """
+    assert depth.shape[-1] == 1
+    valid = depth > 0
+    valid_sum = (depth * valid).sum(dim=(-3, -2, -1))
+    valid_count = valid.sum(dim=(-3, -2, -1))
+    norm_factor = (valid_sum / (valid_count + 1e-8)).clamp_min(1e-8)
+    normalized = depth / norm_factor[..., None, None, None]
+    return (normalized, norm_factor) if return_norm_factor else normalized
+
+
+def normalize_pose_translations(pose_translations: torch.Tensor,
+                                return_norm_factor: bool = False):
+    """Divide translations (..., V, 3) by the mean norm of the non-zero
+    ones; the factor (...) is clamped to >= 1e-8."""
+    assert pose_translations.shape[-1] == 3
+    dis = safe_norm(pose_translations)  # (..., V)
+    nonzero = dis > 0
+    norm_factor = (dis.sum(-1) / (nonzero.sum(-1) + 1e-8)).clamp_min(1e-8)
+    normalized = pose_translations / norm_factor[..., None, None]
+    return (normalized, norm_factor) if return_norm_factor else normalized
 
 
 def normalize_multiple_pointclouds(pts: torch.Tensor,

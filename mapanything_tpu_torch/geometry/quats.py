@@ -21,6 +21,44 @@ def quaternion_to_rotation_matrix(quat: torch.Tensor) -> torch.Tensor:
     return rot.reshape(quat.shape[:-1] + (3, 3))
 
 
+def standardize_quaternion(quat: torch.Tensor) -> torch.Tensor:
+    """Flip the sign of (..., 4) xyzw quaternions so that w >= 0."""
+    return torch.where(quat[..., 3:4] < 0, -quat, quat)
+
+
+def _sqrt_positive_part(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(max(0, x)) with a zero subgradient at x == 0."""
+    positive = x > 0
+    return torch.where(positive, torch.sqrt(torch.where(positive, x, 1.0)),
+                       0.0)
+
+
+def rotation_matrix_to_quaternion(matrix: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (..., 3, 3) -> standardised xyzw quaternions
+    (..., 4): of the four candidate quaternions, the one divided by the
+    largest of |w|, |x|, |y|, |z| (branch-free, as the JAX package)."""
+    if matrix.shape[-2:] != (3, 3):
+        raise ValueError(f"Invalid rotation matrix shape {tuple(matrix.shape)}.")
+    m00, m01, m02, m10, m11, m12, m20, m21, m22 = matrix.reshape(
+        matrix.shape[:-2] + (9,)).unbind(-1)
+    q_abs = _sqrt_positive_part(torch.stack([
+        1.0 + m00 + m11 + m22, 1.0 + m00 - m11 - m22,
+        1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], dim=-1))
+    # candidates in wxyz, row i scaled by component i of (w, x, y, z)
+    quat_by_rijk = torch.stack([
+        torch.stack([q_abs[..., 0] ** 2, m21 - m12, m02 - m20, m10 - m01], -1),
+        torch.stack([m21 - m12, q_abs[..., 1] ** 2, m10 + m01, m02 + m20], -1),
+        torch.stack([m02 - m20, m10 + m01, q_abs[..., 2] ** 2, m12 + m21], -1),
+        torch.stack([m10 - m01, m20 + m02, m21 + m12, q_abs[..., 3] ** 2], -1),
+    ], dim=-2)
+    candidates = quat_by_rijk / (2.0 * q_abs[..., None].clamp_min(0.1))
+    best = q_abs.argmax(dim=-1)
+    out = torch.take_along_dim(
+        candidates, best[..., None, None].expand(best.shape + (1, 4)),
+        dim=-2)[..., 0, :]
+    return standardize_quaternion(out[..., [1, 2, 3, 0]])  # wxyz -> xyzw
+
+
 def pose_quats_trans_to_matrix(quats: torch.Tensor,
                                trans: torch.Tensor) -> torch.Tensor:
     """(..., 4) quats + (..., 3) trans -> (..., 4, 4) SE3 matrices."""

@@ -1,6 +1,7 @@
 """Pixel-grid, ray and intrinsics math; counterpart of
 mapanything_tpu/geometry/rays.py (depthmap_to_camera_frame,
 depthmap_to_world_frame, get_rays_in_camera_frame,
+depth_along_ray_from_z_depth_and_rays,
 recover_pinhole_intrinsics_from_ray_directions).
 """
 
@@ -59,6 +60,15 @@ def get_rays_in_camera_frame(intrinsics: torch.Tensor, height: int,
     origins = torch.zeros(intrinsics.shape[:-2] + (height, width, 3),
                           dtype=intrinsics.dtype, device=intrinsics.device)
     return origins, dirs
+
+
+def depth_along_ray_from_z_depth_and_rays(
+        depth_z: torch.Tensor, ray_directions: torch.Tensor) -> torch.Tensor:
+    """Z-depth (..., H, W, 1) and unit rays (..., H, W, 3) -> the depth
+    along each ray (..., H, W, 1): the rays scaled to the z = 1 plane,
+    times the z-depth, and the length of that point."""
+    pts3d_cam = depth_z * (ray_directions / ray_directions[..., 2:3])
+    return torch.linalg.vector_norm(pts3d_cam, dim=-1, keepdim=True)
 
 
 def recover_pinhole_intrinsics_from_ray_directions(

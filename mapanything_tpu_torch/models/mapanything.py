@@ -1,23 +1,41 @@
-"""MapAnything model, images-only; counterpart of
-mapanything_tpu/models/mapanything.py.
+"""MapAnything model; counterpart of mapanything_tpu/models/mapanything.py.
 
 The forward runs the released architecture on (B, V, H, W, 3) normalised
-NHWC images:
+NHWC images and the optional geometric priors:
 
   1. DINOv2 encoder over all B*V views;
-  2. the fp32 fusion LayerNorm (no geometric priors in this slice);
+  2. the geometric priors fused into the encoder features in fp32
+     (`fuse_geometric_priors`), then the fp32 fusion LayerNorm;
   3. the metric-scale token;
   4. the alternating frame/global trunk;
   5. the DPT dense head on [fused encoder features, IFR taps, final];
   6. the pose head on the final features and the scale MLP on the token;
   7. the released adaptors and the factored recombination into pointmaps.
 
+Input views (all but img optional):
+  img                (B, V, H, W, 3)  normalised images
+  ray_directions_cam (B, V, H, W, 3)  unit ray directions
+  depth_along_ray    (B, V, H, W, 1)
+  camera_pose_quats  (B, V, 4)        cam2world xyzw
+  camera_pose_trans  (B, V, 3)
+  is_metric_scale    (B, V) bool
+  ray_dirs_valid / depth_valid / pose_valid  (B, V) bool, which samples
+      provide each prior (all, when absent)
+
 `MapAnythingConfig` has the JAX package's fields and defaults. Values the
-slice does not run raise NotImplementedError naming their ROADMAP item.
+port does not run raise NotImplementedError naming their ROADMAP item.
+Only deterministic `GeometricInputConfig`s run (probabilities in {0, 1},
+folded to constant masks); the sparse-depth pixel draw takes an explicit
+torch.Generator.
+
+`memory_efficient=True` runs the MLPs in `mlp_token_chunk`-row slices and
+the dense head `dense_head_chunk` views at a time; `resolve_memory_policy`
+picks those knobs from the shape and the card's memory before the call.
 
 With a process group, `forward(views, seq_group=group)` runs the rank's
 share of the views sequence-parallel (the trunk's global layers as ring
-attention); parallel/inference.py::view_sharded_forward drives it.
+attention); parallel/inference.py::view_sharded_forward drives it. Priors
+do not run there yet.
 """
 
 from __future__ import annotations
@@ -26,10 +44,15 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..geometry import (
+    apply_log_to_norm,
     convert_ray_dirs_depth_along_ray_pose_trans_quats_to_pointmap,
+    normalize_depth_using_non_zero_pixels,
+    normalize_pose_translations,
+    transform_pose_using_quats_and_trans_2_to_1,
 )
 from ..nn.adaptors import (
     confidence_adaptor,
@@ -41,6 +64,7 @@ from ..nn.adaptors import (
 )
 from ..nn.dinov2 import DinoViT
 from ..nn.dpt import DPTFeature, DPTRegressionProcessor
+from ..nn.encoders import DenseRepEncoder, GlobalRepEncoder
 from ..nn.heads import MLPHead, PoseHead
 from ..nn.layers import Attention, FusedLayerNorm, init_weights_
 from ..nn.trunk import AlternatingAttentionTrunk
@@ -48,9 +72,18 @@ from ..utils.device import resolve_device
 
 RELEASED_SCENE_REP = "raydirs+depth+pose+confidence+mask"
 
-# view keys that carry geometric priors (inputs of _fuse_geometric_priors)
+# view keys that carry geometric priors (inputs of fuse_geometric_priors)
 PRIOR_VIEW_KEYS = ("ray_directions_cam", "depth_along_ray",
                    "camera_pose_quats", "camera_pose_trans")
+# the six prior encoders (the reference checkpoint's names)
+PRIOR_ENCODERS = ("ray_dirs_encoder", "depth_encoder", "depth_scale_encoder",
+                  "cam_rot_encoder", "cam_trans_encoder",
+                  "cam_trans_scale_encoder")
+# ROADMAP items of what the priors do not run yet
+TRAIN_PRIORS_ITEM = ("ROADMAP queue A item 13 (training with geometric "
+                     "priors)")
+SHARDED_PRIORS_ITEM = ("ROADMAP queue A item 14 (geometric priors on the "
+                       "view-sharded path)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,10 +111,14 @@ class GeometricInputConfig:
 
 def images_only_config() -> GeometricInputConfig:
     """configs/model/task/images_only.yaml."""
-    return GeometricInputConfig(
-        overall_prob=0.0, dropout_prob=1.0, ray_dirs_prob=0.0, depth_prob=0.0,
-        cam_prob=0.0, sparse_depth_prob=0.0,
-        sparsification_removal_percent=0.0)
+    from .tasks import task_config
+    return task_config("images_only")
+
+
+def aug_training_config() -> GeometricInputConfig:
+    """configs/model/task/aug_training.yaml, the stochastic training mix."""
+    from .tasks import task_config
+    return task_config("aug_training")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,6 +199,44 @@ class MapAnythingConfig:
                 "layers as a plain loop (ROADMAP queue A, do-not-port list)")
 
 
+@dataclasses.dataclass(frozen=True)
+class MemoryPolicy:
+    """The memory knobs resolved for one (batch, views, resolution)."""
+
+    memory_efficient: bool
+    cfg: MapAnythingConfig
+    # postprocess_outputs(view_chunk=...) of the same call
+    post_view_chunk: Optional[int]
+
+
+def resolve_memory_policy(cfg: MapAnythingConfig, batch: int,
+                          num_views: int, height: int, width: int,
+                          hbm_gb: float = 16.0) -> MemoryPolicy:
+    """Choose the chunking from the shape and the device memory, before the
+    call (the JAX package's thresholds). The images count in 518^2-pixel
+    units, pro-rated to a 16 GB device: up to 48 such units run unchunked;
+    up to 128 chunk the dense head (16 views) and the postprocess; beyond,
+    the dense head by 8 views, the MLPs by `cfg.mlp_token_chunk` rows."""
+    imgs = batch * num_views * (height * width) / float(518 * 518)
+    budget = imgs * 16.0 / max(hbm_gb, 1e-6)
+    if budget <= 48:
+        return MemoryPolicy(False, cfg, None)
+    if budget <= 128:
+        new = dataclasses.replace(cfg, dense_head_chunk=16,
+                                  mlp_token_chunk=None)
+        return MemoryPolicy(True, new, 16)
+    return MemoryPolicy(True, dataclasses.replace(cfg, dense_head_chunk=8), 8)
+
+
+def sparsify_depth(depth: torch.Tensor, removal: float,
+                   generator: torch.Generator) -> torch.Tensor:
+    """Zero each pixel of `depth` with probability `removal`: a uniform draw
+    per pixel from `generator`, kept where it is >= removal (the JAX
+    package's per-pixel Bernoulli; its draw itself cannot be matched)."""
+    draw = torch.rand(depth.shape, generator=generator, device=depth.device)
+    return depth * (draw >= removal)
+
+
 class _DenseHead(nn.Module):
     """DPT feature + regression tail."""
 
@@ -184,7 +259,10 @@ class _DenseHead(nn.Module):
 
 
 class MapAnything(nn.Module):
-    """The multi-view metric 3D reconstruction model (images-only slice).
+    """The multi-view metric 3D reconstruction model.
+
+    It always holds the six geometric-prior encoders, as the reference
+    checkpoint does, whether or not a call feeds priors.
 
     Args:
         cfg: the architecture.
@@ -224,6 +302,16 @@ class MapAnything(nn.Module):
         self.scale_head = MLPHead(input_feature_dim=cfg.trunk_dim,
                                   output_dim=1, dtype=torch.float32,
                                   device=device)
+        # the prior encoders, fp32, registered last: a seeded init draws the
+        # other parameters as it did before they existed
+        p = cfg.patch_size
+        self.ray_dirs_encoder = DenseRepEncoder(3, enc_dim, p, device=device)
+        self.depth_encoder = DenseRepEncoder(1, enc_dim, p, device=device)
+        self.depth_scale_encoder = GlobalRepEncoder(1, enc_dim, device=device)
+        self.cam_rot_encoder = GlobalRepEncoder(4, enc_dim, device=device)
+        self.cam_trans_encoder = GlobalRepEncoder(3, enc_dim, device=device)
+        self.cam_trans_scale_encoder = GlobalRepEncoder(1, enc_dim,
+                                                        device=device)
         if generator is not None:
             init_weights_(self, generator)
 
@@ -235,34 +323,66 @@ class MapAnything(nn.Module):
                 mod.attn_impl = impl
 
     def forward(self, views: Dict[str, torch.Tensor],
-                seq_group=None) -> Dict[str, torch.Tensor]:
-        """views["img"]: (B, V, H, W, 3) normalised images. Returns the
-        released outputs, all (B, V, ...) but metric_scaling_factor (B,).
+                geom_cfg: GeometricInputConfig = images_only_config(),
+                generator: Optional[torch.Generator] = None,
+                memory_efficient: bool = False, seq_group=None,
+                chunking: Optional[MapAnythingConfig] = None,
+                ) -> Dict[str, torch.Tensor]:
+        """views: see the module docstring. Returns the released outputs,
+        all (B, V, ...) but metric_scaling_factor (B,).
 
-        With `seq_group`, views hold this rank's V/p views in global order
-        and the outputs are this rank's; metric_scaling_factor is the same
-        on every rank."""
-        present = [k for k in PRIOR_VIEW_KEYS if k in views]
-        if present:
-            raise NotImplementedError(
-                f"geometric priors {present} are not ported yet: ROADMAP "
-                "queue A item 8 (multimodal priors)")
+        Args:
+            geom_cfg: which priors the call uses; deterministic only.
+            generator: the sparse-depth pixel draw's (sparse presets).
+            memory_efficient: chunk the MLPs and the dense head.
+            seq_group: a process group: views hold this rank's V/p views in
+                global order and the outputs are this rank's;
+                metric_scaling_factor is the same on every rank. No priors.
+            chunking: the config whose dense_head_chunk and mlp_token_chunk
+                a memory-efficient call reads (MemoryPolicy.cfg); the
+                model's own by default.
+        """
+        if seq_group is not None:
+            present = [k for k in PRIOR_VIEW_KEYS if k in views]
+            if present:
+                raise NotImplementedError(
+                    f"geometric priors {present} with a process group: "
+                    f"{SHARDED_PRIORS_ITEM}")
         cfg = self.cfg
+        chunks = chunking or cfg
+        mlp_chunk = chunks.mlp_token_chunk if memory_efficient else None
         imgs = views["img"]
         b, v, h, w, _ = imgs.shape
         gh, gw = h // cfg.patch_size, w // cfg.patch_size
 
-        enc = self.encoder(imgs.reshape(b * v, h, w, 3))
+        enc = self.encoder(imgs.reshape(b * v, h, w, 3), mlp_chunk)
         enc_dim = enc.shape[-1]
-        fused = self.fusion_norm(enc.reshape(b, v, gh, gw, enc_dim).float())
+        fused = self.fuse_geometric_priors(
+            enc.reshape(b, v, gh, gw, enc_dim).float(), views, geom_cfg,
+            generator)
+        fused = self.fusion_norm(fused)
         tok = self.scale_token[None, None, :].expand(b, 1, enc_dim)
         final, intermediates, tok_out = self.info_sharing(
-            fused.to(cfg.dtype), tok, seq_group)
+            fused.to(cfg.dtype), tok, seq_group, mlp_chunk)
 
         # hook 0 is the fused, normed encoder features
         hooks = [fused.to(cfg.dtype)] + intermediates + [final]
         hooks = [x.reshape(b * v, gh, gw, x.shape[-1]) for x in hooks]
-        raw_dense = self.dense_head(hooks, (h, w))  # (B*V, H, W, 6) fp32
+        n, chunk = b * v, chunks.dense_head_chunk
+        if memory_efficient and n > chunk:
+            # the same head `chunk` views at a time; the last chunk is
+            # zero-padded to `chunk` views, its pad rows sliced off
+            parts = []
+            for i in range(0, n, chunk):
+                part = [x[i:i + chunk] for x in hooks]
+                m = part[0].shape[0]
+                part = [F.pad(x, (0, 0, 0, 0, 0, 0, 0, chunk - m))
+                        for x in part]
+                parts.append(self.dense_head(part, (h, w))[:m])
+            raw_dense = torch.cat(parts)
+            del parts
+        else:
+            raw_dense = self.dense_head(hooks, (h, w))  # (B*V, H, W, 6) fp32
         raw_pose = self.pose_head(hooks[-1])  # (B*V, 7) fp32
         raw_scale = self.scale_head(tok_out[:, 0, :].float())  # (B, 1)
 
@@ -287,3 +407,104 @@ class MapAnything(nn.Module):
             "non_ambiguous_mask": mask["mask"][..., 0] > 0.5,
             "non_ambiguous_mask_logits": mask["logits"][..., 0],
         }
+
+    def fuse_geometric_priors(self, fused: torch.Tensor,
+                              views: Dict[str, torch.Tensor],
+                              geom_cfg: GeometricInputConfig,
+                              generator: Optional[torch.Generator] = None
+                              ) -> torch.Tensor:
+        """The encoder features (B, V, gh, gw, C) fp32 plus each prior's
+        encoding where its mask holds, in fp32 (the JAX package's
+        _fuse_geometric_priors with probabilities in {0, 1}).
+
+        A prior's key being absent folds its branch away; present, its
+        encoding is multiplied by its mask: the per-sample modality mask
+        and its `*_valid` key. Depth enters as log-normalised depth and, for
+        metric samples, its log scale; poses relative to view 0, the
+        translations normalised by their mean norm and, for metric samples,
+        that norm's log.
+        """
+        if not geom_cfg.deterministic():
+            raise NotImplementedError(
+                f"a stochastic GeometricInputConfig ({geom_cfg}): "
+                f"{TRAIN_PRIORS_ITEM}")
+        if geom_cfg.sparse_depth_prob > 0.0 and generator is None:
+            raise ValueError(
+                "sparse_depth_prob > 0 needs a torch.Generator: the pixels "
+                "it drops are drawn at random even at probability 1.0")
+        if not any(key in views for key in PRIOR_VIEW_KEYS):
+            return fused  # images only: every branch folds away
+        b, v = fused.shape[:2]
+        h, w = views["img"].shape[2:4]
+        dev = fused.device
+
+        def const(p: float, shape) -> torch.Tensor:  # p in {0, 1}
+            return torch.full(shape, p == 1.0, dtype=torch.bool, device=dev)
+
+        def encode(encoder, x):  # (B, V, ...) -> (B, V, ...) per view
+            out = encoder(x.reshape((b * v,) + x.shape[2:]))
+            return out.reshape((b, v) + out.shape[1:])
+
+        per_sample = (const(1.0 - geom_cfg.dropout_prob, (b, v))
+                      & const(geom_cfg.overall_prob, (b, 1)))
+        masks = {}
+        for name, key, prob, valid in (
+                ("ray", "ray_directions_cam", geom_cfg.ray_dirs_prob,
+                 "ray_dirs_valid"),
+                ("depth", "depth_along_ray", geom_cfg.depth_prob,
+                 "depth_valid"),
+                ("cam", "camera_pose_quats", geom_cfg.cam_prob,
+                 "pose_valid")):
+            mask = const(prob, (b, 1)) & per_sample
+            if valid in views:
+                mask = mask & views[valid]
+            masks[name] = mask
+        is_metric = views.get("is_metric_scale")
+        if is_metric is None:
+            is_metric = torch.zeros((b, v), dtype=torch.bool, device=dev)
+
+        if "ray_directions_cam" in views:
+            m = masks["ray"][..., None, None, None]
+            rays = views["ray_directions_cam"].float() * m
+            fused = fused + encode(self.ray_dirs_encoder, rays) * m
+
+        if "depth_along_ray" in views:
+            mask = masks["depth"]
+            depth = views["depth_along_ray"].float() * mask[..., None, None,
+                                                            None]
+            if geom_cfg.sparse_depth_prob > 0.0:  # 1.0: always sparsified
+                depth = sparsify_depth(
+                    depth, geom_cfg.sparsification_removal_percent, generator)
+            scaled, depth_norm = normalize_depth_using_non_zero_pixels(
+                depth, return_norm_factor=True)  # (B, V, H, W, 1), (B, V)
+            fused = fused + (encode(self.depth_encoder,
+                                    apply_log_to_norm(scaled))
+                             * mask[..., None, None, None])
+            # the scale only for metric samples, unless normalised away
+            metric = (mask & is_metric
+                      & ~const(geom_cfg.depth_scale_norm_all_prob, (b, v)))
+            scale = encode(self.depth_scale_encoder,
+                           torch.log(depth_norm + 1e-8)[..., None])
+            fused = fused + (scale * metric[..., None])[:, :, None, None, :]
+
+        if "camera_pose_quats" in views and "camera_pose_trans" in views:
+            mask = masks["cam"][..., None]
+            quats = views["camera_pose_quats"].float()
+            trans = views["camera_pose_trans"].float()
+            rel_q, rel_t = transform_pose_using_quats_and_trans_2_to_1(
+                quats[:, :1].expand_as(quats), trans[:, :1].expand_as(trans),
+                quats, trans)
+            rel_q = torch.where(mask, rel_q,
+                                rel_q.new_tensor([0.0, 0.0, 0.0, 1.0]))
+            rel_t = torch.where(mask, rel_t, 0.0)
+            scaled_t, t_norm = normalize_pose_translations(
+                rel_t, return_norm_factor=True)  # (B, V, 3), (B,)
+            metric = (is_metric
+                      & ~const(geom_cfg.pose_scale_norm_all_prob, (b, v)))
+            log_t = torch.log(t_norm + 1e-8)[:, None, None].expand(b, v, 1)
+            pose_feat = (encode(self.cam_rot_encoder, rel_q) * mask
+                         + encode(self.cam_trans_encoder, scaled_t) * mask
+                         + encode(self.cam_trans_scale_encoder, log_t) * mask
+                         * metric[..., None])
+            fused = fused + pose_feat[:, :, None, None, :]
+        return fused

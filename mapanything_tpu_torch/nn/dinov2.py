@@ -127,7 +127,10 @@ class DinoViT(nn.Module):
             for _ in range(cfg["depth"]))
         self.norm = FusedLayerNorm(dim, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                mlp_chunk: Optional[int] = None) -> torch.Tensor:
+        """x (B, H, W, 3) -> (B, H/p, W/p, C); `mlp_chunk` bounds the rows
+        each MLP runs at once (layers.py::Mlp)."""
         b, h, w, _ = x.shape
         p = self.patch_size
         gh, gw = h // p, w // p
@@ -149,6 +152,6 @@ class DinoViT(nn.Module):
                 x = F.pad(x, (0, 0, 0, n_pad - n_tok))
                 n_valid = n_tok
         for blk in self.blocks:
-            x = blk(x, n_valid)
+            x = blk(x, n_valid, mlp_chunk)
         x = self.norm(x)
         return x[:, 1:1 + gh * gw].reshape(b, gh, gw, dim)

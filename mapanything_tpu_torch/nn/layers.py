@@ -112,7 +112,11 @@ class LayerScale(nn.Module):
 
 class Mlp(nn.Module):
     """Linear -> GELU -> Linear. GELU is tanh-approximate in bf16 and exact
-    (erf) otherwise, as in the JAX package."""
+    (erf) otherwise, as in the JAX package.
+
+    With `token_chunk`, the rows run `token_chunk` at a time, so the
+    (rows, hidden) GELU transient exists only at chunk size (the
+    memory-efficient path); each row's result is computed as without it."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -121,8 +125,16 @@ class Mlp(nn.Module):
         self.fc2 = Dense(hidden_dim, out_dim, dtype=dtype, device=device)
         self.approximate = "tanh" if dtype == torch.bfloat16 else "none"
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+    def forward(self, x: torch.Tensor,
+                token_chunk: Optional[int] = None) -> torch.Tensor:
+        rows = x[..., 0].numel()
+        if token_chunk is None or rows <= token_chunk:
+            return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+        flat = x.reshape(rows, x.shape[-1])
+        out = torch.cat([
+            self.fc2(F.gelu(self.fc1(part), approximate=self.approximate))
+            for part in flat.split(token_chunk)])
+        return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
 class Attention(nn.Module):
@@ -171,13 +183,13 @@ class Block(nn.Module):
         else:
             self.ls1 = self.ls2 = None
 
-    def forward(self, x: torch.Tensor,
-                n_valid: Optional[int] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, n_valid: Optional[int] = None,
+                mlp_chunk: Optional[int] = None) -> torch.Tensor:
         h = self.attn(self.norm1(x), n_valid=n_valid)
         if self.ls1 is not None:
             h = self.ls1(h)
         x = x + h
-        h = self.mlp(self.norm2(x))
+        h = self.mlp(self.norm2(x), mlp_chunk)
         if self.ls2 is not None:
             h = self.ls2(h)
         return x + h
@@ -259,14 +271,15 @@ class RingGlobalBlock(nn.Module):
         self.block = block
         self.attn = _RingAttention(block.attn)
 
-    def forward(self, x: torch.Tensor, tok: torch.Tensor, group):
+    def forward(self, x: torch.Tensor, tok: torch.Tensor, group,
+                mlp_chunk: Optional[int] = None):
         """x (B, N_local, C), tok (B, T, C) -> the same two shapes."""
         blk = self.block
         hx, ht = self.attn(blk.norm1(x), blk.norm1(tok), group)
         if blk.ls1 is not None:
             hx, ht = blk.ls1(hx), blk.ls1(ht)
         x, tok = x + hx, tok + ht
-        hx, ht = blk.mlp(blk.norm2(x)), blk.mlp(blk.norm2(tok))
+        hx, ht = blk.mlp(blk.norm2(x), mlp_chunk), blk.mlp(blk.norm2(tok))
         if blk.ls2 is not None:
             hx, ht = blk.ls2(hx), blk.ls2(ht)
         return x + hx, tok + ht

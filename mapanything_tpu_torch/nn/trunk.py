@@ -54,12 +54,13 @@ class AlternatingAttentionTrunk(nn.Module):
         self.norm = FusedLayerNorm(dim, dtype=dtype, device=device)
 
     def forward(self, features: torch.Tensor, extra_tokens: torch.Tensor,
-                seq_group=None):
+                seq_group=None, mlp_chunk: Optional[int] = None):
         """features (B, V, gh, gw, C_in), extra_tokens (B, T, C_in) ->
         (final (B, V, gh, gw, dim), [tap (B, V, gh, gw, dim)], tok (B, T, dim))
 
         With `seq_group`, V counts this rank's views (see the module
-        docstring); the token is the same on every rank.
+        docstring); the token is the same on every rank. `mlp_chunk` bounds
+        the rows each MLP runs at once (layers.py::Mlp).
         """
         b, v, gh, gw, _ = features.shape
         p = gh * gw
@@ -78,7 +79,7 @@ class AlternatingAttentionTrunk(nn.Module):
         for i, blk in enumerate(self.layers):
             if i % 2 and seq_group is not None:  # global, view-sharded
                 x, tok = RingGlobalBlock(blk)(x.reshape(b, v * p, dim), tok,
-                                              seq_group)
+                                              seq_group, mlp_chunk)
                 x = x.reshape(b, v, p, dim)
             elif i % 2:  # global: [all views' patches | extra tokens | pad]
                 n_tot = v * p + tok.shape[1]
@@ -89,11 +90,12 @@ class AlternatingAttentionTrunk(nn.Module):
                     if n_pad != n_tot:
                         flat = F.pad(flat, (0, 0, 0, n_pad - n_tot))
                         n_valid = n_tot
-                flat = blk(flat, n_valid)
+                flat = blk(flat, n_valid, mlp_chunk)
                 x = flat[:, :v * p].reshape(b, v, p, dim)
                 tok = flat[:, v * p:n_tot]
             else:  # frame: each view on its own
-                x = blk(x.reshape(b * v, p, dim)).reshape(b, v, p, dim)
+                x = blk(x.reshape(b * v, p, dim), None,
+                        mlp_chunk).reshape(b, v, p, dim)
             if i in self.indices:
                 feat = getattr(self, f"norm_intermediate_{i}")(x)
                 intermediates.append(feat.reshape(b, v, gh, gw, dim))

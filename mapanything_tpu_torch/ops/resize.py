@@ -12,12 +12,33 @@ import torch
 import torch.nn.functional as F
 
 
+# CUDA's bilinear upsample indexes its output in 32 bits: a call may write
+# at most this many elements (the 100-view dense head's (100, 256, 296,
+# 296) and (100, 128, 518, 518) exceed it)
+MAX_OUTPUT_ELEMENTS = 2**31 - 1
+
+
 def bilinear_resize_nchw(x: torch.Tensor, out_hw: tuple[int, int],
                          align_corners: bool = True) -> torch.Tensor:
+    """Resize (N, C, H, W) to (N, C, h, w), in batch slices small enough
+    for one upsample call each."""
     if tuple(x.shape[-2:]) == tuple(out_hw):
         return x
-    return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
-                         align_corners=align_corners)
+    h, w = out_hw
+    step = max(1, MAX_OUTPUT_ELEMENTS // (x.shape[1] * h * w))
+    if x.shape[0] <= step:
+        return F.interpolate(x, size=(h, w), mode="bilinear",
+                             align_corners=align_corners)
+    fmt = (torch.channels_last
+           if x.is_contiguous(memory_format=torch.channels_last)
+           else torch.contiguous_format)
+    out = torch.empty((x.shape[0], x.shape[1], h, w), dtype=x.dtype,
+                      device=x.device, memory_format=fmt)
+    for i in range(0, x.shape[0], step):
+        out[i:i + step] = F.interpolate(x[i:i + step], size=(h, w),
+                                        mode="bilinear",
+                                        align_corners=align_corners)
+    return out
 
 
 def bilinear_resize(x: torch.Tensor, out_hw: tuple[int, int],

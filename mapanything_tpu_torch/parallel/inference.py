@@ -16,12 +16,14 @@ import torch
 import torch.distributed as dist
 
 
-def view_sharded_forward(model, views: Dict[str, torch.Tensor],
-                         group) -> Dict[str, torch.Tensor]:
+def view_sharded_forward(model, views: Dict[str, torch.Tensor], group,
+                         memory_efficient: bool = False, chunking=None
+                         ) -> Dict[str, torch.Tensor]:
     """`model(views)` with the views sharded over the ranks of `group`.
 
-    Images only, as `MapAnything.forward`: the JAX function's `geom_cfg`
-    comes with the geometric priors (ROADMAP queue A item 8).
+    Images only: the JAX function's `geom_cfg` waits for the priors on this
+    path (ROADMAP queue A item 14); views with priors raise
+    NotImplementedError in `MapAnything.forward`.
 
     Args:
         model: a MapAnything, the same weights on every rank.
@@ -29,6 +31,8 @@ def view_sharded_forward(model, views: Dict[str, torch.Tensor],
             be a multiple of the group size (pad with duplicate views and
             slice the outputs if it is not).
         group: the torch.distributed process group of the ring.
+        memory_efficient, chunking: as `MapAnything.forward`: chunk each
+            rank's MLPs and dense head.
 
     Returns:
         The same dict as `model(views)`, on every rank: each rank runs its
@@ -43,7 +47,8 @@ def view_sharded_forward(model, views: Dict[str, torch.Tensor],
     lo = dist.get_rank(group) * (v // p)
     local = {key: t[:, lo:lo + v // p] if t.dim() >= 2 and t.shape[1] == v
              else t for key, t in views.items()}
-    out = model(local, seq_group=group)
+    out = model(local, seq_group=group, memory_efficient=memory_efficient,
+                chunking=chunking)
     return {key: _gather_views(t, group) if t.dim() >= 2 else t
             for key, t in out.items()}
 

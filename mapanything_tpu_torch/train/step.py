@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from ..models import GeometricInputConfig, MapAnything, images_only_config
+from ..models.mapanything import TRAIN_PRIORS_ITEM
 from .losses import OverallLossConfig, overall_loss
 
 
@@ -169,8 +170,8 @@ def create_train_state(model: MapAnything,
 def _check_images_only(geom_cfg: GeometricInputConfig) -> None:
     if geom_cfg != images_only_config():
         raise NotImplementedError(
-            "training with geometric inputs is not ported yet: ROADMAP queue "
-            "A item 8 (multimodal priors); use images_only_config()")
+            f"training with geometric inputs is not ported yet: "
+            f"{TRAIN_PRIORS_ITEM}; use images_only_config()")
 
 
 def make_loss_fn(model: MapAnything, geom_cfg: GeometricInputConfig,

@@ -1,17 +1,22 @@
 """User-facing inference: validation, preprocessing, postprocessing and
-`InferencePipeline.infer`; counterpart of mapanything_tpu/utils/inference.py
-for images-only input.
+`InferencePipeline.infer`; counterpart of mapanything_tpu/utils/inference.py.
 
-The user API is a list of per-view dicts; `stack_views` turns it into the
-batched (B, V, ...) tensors the model takes, on the model's device, and
-`unstack_views` turns the outputs back into one dict per view. With a
-process group the forward runs view-sharded
-(parallel/inference.py::view_sharded_forward) and the postprocess runs on
-the gathered outputs.
+The user API is a list of per-view dicts; `preprocess_input_views_for_inference`
+turns the geometric priors into the model's inputs (intrinsics into unit
+rays, z-depth into depth along the ray, 4x4 poses into quaternion and
+translation), `stack_views` batches them into (B, V, ...) tensors on the
+model's device, zero-filled with a validity mask where a view lacks a prior,
+and `unstack_views` turns the outputs back into one dict per view. The
+memory policy (models/mapanything.py::resolve_memory_policy) is decided from
+the shapes and the device's memory before the call; nothing retries a call
+that ran out of memory. With a process group the forward runs view-sharded
+(parallel/inference.py::view_sharded_forward), images only, and the
+postprocess runs on the gathered outputs.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -19,7 +24,14 @@ import torch
 
 from .. import geometry as G
 from ..data.image import IMAGE_NORMALIZATION_DICT
-from ..models.mapanything import MapAnything
+from ..models.mapanything import (
+    PRIOR_VIEW_KEYS,
+    SHARDED_PRIORS_ITEM,
+    GeometricInputConfig,
+    MapAnything,
+    resolve_memory_policy,
+)
+from ..models.tasks import task_config
 from ..ops.quantile import quantile_threshold
 from ..parallel.inference import view_sharded_forward
 
@@ -29,15 +41,8 @@ ALLOWED_VIEW_KEYS = {
 }
 REQUIRED_KEYS = {"img", "data_norm_type"}
 CONFLICTING_KEYS = [("intrinsics", "ray_directions")]
-
-# user-facing prior inputs -> the flag of `infer` that ignores each
-_PRIOR_KEYS = {
-    "intrinsics": "ignore_calibration_inputs",
-    "ray_directions": "ignore_calibration_inputs",
-    "depth_z": "ignore_depth_inputs",
-    "camera_poses": "ignore_pose_inputs",
-}
-_PRIORS_ITEM = "ROADMAP queue A item 8 (multimodal priors)"
+# the batched validity masks of the priors (stack_views)
+_VALID_KEYS = ("ray_dirs_valid", "depth_valid", "pose_valid")
 
 
 def validate_input_views_for_inference(
@@ -71,26 +76,64 @@ def validate_input_views_for_inference(
     return views
 
 
-def preprocess_input_views_for_inference(
-    views: List[Dict[str, Any]],
-) -> List[Dict[str, Any]]:
-    """Canonicalise the inputs: default is_metric_scale=True per sample.
+def _f32(x, device=None) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
 
-    Geometric priors (intrinsics, ray_directions, depth_z, camera_poses) are
-    not ported yet and raise NotImplementedError."""
+
+def preprocess_input_views_for_inference(
+    views: List[Dict[str, Any]], device=None,
+) -> List[Dict[str, Any]]:
+    """Canonicalise the optional inputs, each as fp32 on `device` (where
+    the input lies when None): intrinsics -> unit rays, ray_directions
+    normalised, depth_z -> depth_along_ray, camera_poses ((quats, trans)
+    or (B, 4, 4)) -> camera_pose_quats + camera_pose_trans, rays renamed
+    ray_directions_cam; is_metric_scale defaults to True per sample."""
     processed = []
     for i, view in enumerate(views):
-        present = sorted(k for k in _PRIOR_KEYS if k in view)
-        if present:
-            raise NotImplementedError(
-                f"view {i}: geometric priors {present} are not ported yet: "
-                f"{_PRIORS_ITEM}")
         out = dict(view)
-        bsz = np.shape(view["img"])[0]
+        shape = np.shape(view["img"])
+        bsz = shape[0]
+        if shape[1] == 3 and shape[-1] != 3:  # NCHW
+            h, w = shape[-2], shape[-1]
+        else:  # NHWC
+            h, w = shape[-3], shape[-2]
+
+        if "intrinsics" in view:
+            _, out["ray_directions"] = G.get_rays_in_camera_frame(
+                _f32(view["intrinsics"], device), h, w,
+                normalize_to_unit_sphere=True)
+            del out["intrinsics"]
+        elif "ray_directions" in view:
+            rays = _f32(view["ray_directions"], device)
+            out["ray_directions"] = rays / (
+                torch.linalg.vector_norm(rays, dim=-1, keepdim=True) + 1e-8)
+
+        if "depth_z" in view:
+            out["depth_along_ray"] = G.depth_along_ray_from_z_depth_and_rays(
+                _f32(view["depth_z"], device), out["ray_directions"])
+            del out["depth_z"]
+
+        if "camera_poses" in view:
+            poses = view["camera_poses"]
+            if isinstance(poses, tuple) and len(poses) == 2:
+                quats, trans = (_f32(p, device) for p in poses)
+            else:
+                poses = _f32(poses, device)
+                if poses.shape[-2:] != (4, 4):
+                    raise ValueError(f"view {i}: camera_poses must be "
+                                     f"(quats, trans) or (B, 4, 4)")
+                quats = G.rotation_matrix_to_quaternion(poses[:, :3, :3])
+                trans = poses[:, :3, 3]
+            out["camera_pose_quats"] = quats
+            out["camera_pose_trans"] = trans
+            del out["camera_poses"]
+
         ims = out.get("is_metric_scale", True)
         if isinstance(ims, bool):
             ims = np.full((bsz,), ims)
         out["is_metric_scale"] = np.asarray(ims, dtype=bool).reshape(bsz)
+        if "ray_directions" in out:
+            out["ray_directions_cam"] = out.pop("ray_directions")
         processed.append(out)
     return processed
 
@@ -98,15 +141,40 @@ def preprocess_input_views_for_inference(
 def stack_views(views: List[Dict[str, Any]],
                 device=None) -> Dict[str, torch.Tensor]:
     """Per-view dicts (each (B, ...)) -> batched (B, V, ...) tensors on
-    `device`. Images may be NHWC or NCHW; they leave NHWC float32."""
+    `device`. Images may be NHWC or NCHW; they leave NHWC float32. A prior
+    that some views lack is zero-filled there, with a False entry in its
+    validity mask (ray_dirs_valid, depth_valid, pose_valid), and an
+    identity quaternion where the pose is absent."""
     imgs = torch.stack([torch.as_tensor(np.asarray(v["img"]),
                                         dtype=torch.float32) for v in views],
                        dim=1)
     if imgs.shape[-1] != 3:  # NCHW input
         imgs = imgs.movedim(-3, -1)
     batched = {"img": imgs.to(device)}
+    b, _, h, w, _ = imgs.shape
+
+    def gather(key, shape, mask_key):
+        if not any(key in v for v in views):
+            return
+        vals = [_f32(v[key], device) if key in v
+                else torch.zeros((b,) + shape, device=device) for v in views]
+        batched[key] = torch.stack(vals, dim=1)
+        batched[mask_key] = torch.stack([
+            torch.full((b,), key in v, dtype=torch.bool, device=device)
+            for v in views], dim=1)
+
+    gather("ray_directions_cam", (h, w, 3), "ray_dirs_valid")
+    gather("depth_along_ray", (h, w, 1), "depth_valid")
+    gather("camera_pose_quats", (4,), "pose_valid")
+    if "camera_pose_quats" in batched:
+        batched["camera_pose_trans"] = torch.stack([
+            _f32(v["camera_pose_trans"], device) if "camera_pose_trans" in v
+            else torch.zeros((b, 3), device=device) for v in views], dim=1)
+        identity = torch.tensor([0.0, 0.0, 0.0, 1.0], device=device)
+        batched["camera_pose_quats"] = torch.where(
+            batched["pose_valid"][..., None], batched["camera_pose_quats"],
+            identity)
     if any("is_metric_scale" in v for v in views):
-        b = imgs.shape[0]
         batched["is_metric_scale"] = torch.stack([
             torch.as_tensor(np.asarray(v.get("is_metric_scale",
                                              np.ones((b,), bool)),
@@ -125,6 +193,13 @@ def unstack_views(batched: Dict[str, torch.Tensor],
     ]
 
 
+def _largest_divisor_leq(n: int, target: int) -> int:
+    for c in range(min(n, target), 0, -1):
+        if n % c == 0:
+            return c
+    return 1
+
+
 def postprocess_outputs(
     preds: Dict[str, torch.Tensor],
     imgs: torch.Tensor,
@@ -135,10 +210,38 @@ def postprocess_outputs(
     edge_depth_threshold: float = 0.03,
     apply_confidence_mask: bool = False,
     confidence_percentile: float = 10.0,
+    view_chunk: Optional[int] = None,
 ) -> Dict[str, torch.Tensor]:
     """Derived fields and the combined mask, on the device of `preds`:
     de-normalised images, depth_z, intrinsics recovered from the rays,
-    camera pose matrices, the confidence-percentile and edge masks."""
+    camera pose matrices, the confidence-percentile and edge masks.
+
+    Every step is per view (the confidence quantile too), so `view_chunk`
+    runs the views in chunks of the largest divisor of V not above it,
+    bounding the fp32 intermediates to chunk width; each view's result is
+    the same as without it."""
+    kw = dict(data_norm_type=data_norm_type, apply_mask=apply_mask,
+              mask_edges=mask_edges,
+              edge_normal_threshold=edge_normal_threshold,
+              edge_depth_threshold=edge_depth_threshold,
+              apply_confidence_mask=apply_confidence_mask,
+              confidence_percentile=confidence_percentile)
+    b, v = imgs.shape[:2]
+    c = v if view_chunk is None else _largest_divisor_leq(v, view_chunk)
+    if c < v:
+        per_view = [key for key, t in preds.items()
+                    if t.dim() >= 2 and t.shape[:2] == (b, v)]
+        out = {key: t for key, t in preds.items() if key not in per_view}
+        for i in range(0, v, c):
+            part = postprocess_outputs(
+                {key: preds[key][:, i:i + c] for key in per_view},
+                imgs[:, i:i + c], **kw)
+            for key, t in part.items():
+                if key not in out:
+                    out[key] = t.new_empty((b, v) + t.shape[2:])
+                out[key][:, i:i + c] = t
+        return out
+
     out = dict(preds)
     mean, std = IMAGE_NORMALIZATION_DICT[data_norm_type]
     out["img_no_norm"] = (imgs * torch.as_tensor(std, dtype=imgs.dtype,
@@ -176,6 +279,55 @@ def postprocess_outputs(
     return out
 
 
+def geometric_input_config(
+    batched: Dict[str, torch.Tensor], task: Optional[str] = None,
+    ignore_calibration_inputs: bool = False,
+    ignore_depth_inputs: bool = False, ignore_pose_inputs: bool = False,
+    ignore_depth_scale_inputs: bool = False,
+    ignore_pose_scale_inputs: bool = False,
+) -> GeometricInputConfig:
+    """The geometric config of an `infer` call on `batched`: each prior
+    present and not ignored at probability 1; with `task`, the preset
+    intersected with the priors present (a stochastic preset raises
+    ValueError)."""
+    has_ray = ("ray_directions_cam" in batched
+               and not ignore_calibration_inputs)
+    has_depth = "depth_along_ray" in batched and not ignore_depth_inputs
+    has_pose = "camera_pose_quats" in batched and not ignore_pose_inputs
+    if task is not None:
+        preset = task_config(task)
+        geom_cfg = dataclasses.replace(
+            preset,
+            ray_dirs_prob=preset.ray_dirs_prob if has_ray else 0.0,
+            depth_prob=preset.depth_prob if has_depth else 0.0,
+            cam_prob=preset.cam_prob if has_pose else 0.0,
+            sparse_depth_prob=(preset.sparse_depth_prob if has_depth
+                               else 0.0))
+        if not geom_cfg.deterministic():
+            raise ValueError(
+                f"task preset {task!r} is a stochastic training mix; "
+                "inference needs probabilities in {0, 1}")
+        return geom_cfg
+    any_prior = has_ray or has_depth or has_pose
+    return GeometricInputConfig(
+        overall_prob=1.0 if any_prior else 0.0,
+        dropout_prob=0.0 if any_prior else 1.0,
+        ray_dirs_prob=1.0 if has_ray else 0.0,
+        depth_prob=1.0 if has_depth else 0.0,
+        cam_prob=1.0 if has_pose else 0.0,
+        sparse_depth_prob=0.0,
+        depth_scale_norm_all_prob=1.0 if ignore_depth_scale_inputs else 0.0,
+        pose_scale_norm_all_prob=1.0 if ignore_pose_scale_inputs else 0.0)
+
+
+def _device_memory_gb(device: torch.device) -> float:
+    """The memory `resolve_memory_policy` plans for: the card's total
+    memory in GiB; 16.0 (the JAX package's default) on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory / 2**30
+    return 16.0
+
+
 class InferencePipeline:
     """Runs `MapAnything` behind the reference's `.infer()` API.
 
@@ -184,7 +336,8 @@ class InferencePipeline:
         view_shard_group: optional torch.distributed process group: every
             forward then runs view-sharded over its ranks (sequence-parallel
             ring attention), and every rank returns all views. The view
-            count must be a multiple of the group size.
+            count must be a multiple of the group size. Images only: priors
+            the call does not ignore raise NotImplementedError.
     """
 
     def __init__(self, model: MapAnything, view_shard_group=None):
@@ -210,41 +363,63 @@ class InferencePipeline:
         data_norm_type: str = "dinov2",
         task: Optional[str] = None,
     ) -> List[Dict[str, torch.Tensor]]:
-        """Reference-compatible entry point, images-only.
+        """Reference-compatible entry point.
 
-        Prior inputs whose `ignore_*` flag is set are dropped (the model
-        then sees exactly what the JAX package feeds it with those priors
-        masked out); any other prior, a task preset other than
-        "images_only", and memory_efficient_inference=True raise
-        NotImplementedError. "auto" runs the unchunked program.
+        The geometric config follows the priors present and the `ignore_*`
+        flags, or the `task` preset intersected with the priors present; a
+        stochastic preset raises ValueError. The sparse presets draw their
+        pixels from a torch.Generator seeded 0 on the model's device.
+        `memory_efficient_inference`: "auto" resolves the memory policy
+        for this shape and the device's memory; True chunks the model and
+        the postprocess (8 views); False runs unchunked.
         """
-        if task not in (None, "images_only"):
-            raise NotImplementedError(
-                f"task preset {task!r} uses geometric priors: {_PRIORS_ITEM}")
-        if memory_efficient_inference is True:
-            raise NotImplementedError(
-                "memory_efficient_inference=True: ROADMAP queue A item 7 "
-                "(many-view memory path)")
         views = validate_input_views_for_inference(views)
-        flags = dict(ignore_calibration_inputs=ignore_calibration_inputs,
-                     ignore_depth_inputs=ignore_depth_inputs,
-                     ignore_pose_inputs=ignore_pose_inputs)
-        views = [{k: x for k, x in v.items()
-                  if not flags.get(_PRIOR_KEYS.get(k), False)}
-                 for v in views]
-        views = preprocess_input_views_for_inference(views)
         device = next(self.model.parameters()).device
+        views = preprocess_input_views_for_inference(views, device)
         batched = stack_views(views, device)
-        if self.view_shard_group is None:
-            preds = self.model(batched)
+
+        geom_cfg = geometric_input_config(
+            batched, task, ignore_calibration_inputs=ignore_calibration_inputs,
+            ignore_depth_inputs=ignore_depth_inputs,
+            ignore_pose_inputs=ignore_pose_inputs,
+            ignore_depth_scale_inputs=ignore_depth_scale_inputs,
+            ignore_pose_scale_inputs=ignore_pose_scale_inputs)
+
+        bsz, nv, ih, iw = batched["img"].shape[:4]
+        if memory_efficient_inference == "auto":
+            pol = resolve_memory_policy(self.model.cfg, bsz, nv, ih, iw,
+                                        hbm_gb=_device_memory_gb(device))
+            mem_eff, post_chunk = pol.memory_efficient, pol.post_view_chunk
+            chunking = pol.cfg
         else:
-            preds = view_sharded_forward(self.model, batched,
-                                         self.view_shard_group)
+            mem_eff = bool(memory_efficient_inference)
+            post_chunk = 8 if mem_eff else None
+            chunking = None
+
+        if self.view_shard_group is None:
+            generator = (torch.Generator(device=device).manual_seed(0)
+                         if geom_cfg.sparse_depth_prob > 0.0 else None)
+            preds = self.model(batched, geom_cfg, generator, mem_eff,
+                               chunking=chunking)
+        else:
+            if geom_cfg.overall_prob > 0.0 and max(
+                    geom_cfg.ray_dirs_prob, geom_cfg.depth_prob,
+                    geom_cfg.cam_prob) > 0.0:
+                raise NotImplementedError(
+                    f"geometric priors on a view-sharded pipeline: "
+                    f"{SHARDED_PRIORS_ITEM}")
+            images = {key: t for key, t in batched.items()
+                      if key not in PRIOR_VIEW_KEYS + _VALID_KEYS}
+            preds = view_sharded_forward(self.model, images,
+                                         self.view_shard_group,
+                                         memory_efficient=mem_eff,
+                                         chunking=chunking)
         out = postprocess_outputs(
             preds, batched["img"], data_norm_type=data_norm_type,
             apply_mask=apply_mask, mask_edges=mask_edges,
             edge_normal_threshold=edge_normal_threshold,
             edge_depth_threshold=edge_depth_threshold,
             apply_confidence_mask=apply_confidence_mask,
-            confidence_percentile=confidence_percentile)
-        return unstack_views(out, len(views))
+            confidence_percentile=confidence_percentile,
+            view_chunk=post_chunk)
+        return unstack_views(out, nv)

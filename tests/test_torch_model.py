@@ -19,7 +19,6 @@ import torch
 from mapanything_tpu.data.image import load_images as jax_load_images
 from mapanything_tpu.models import MapAnything as JaxMapAnything
 from mapanything_tpu.models import MapAnythingConfig as JaxConfig
-from mapanything_tpu.models import images_only_config, jit_init
 from mapanything_tpu.nn import dinov2 as JD
 from mapanything_tpu.nn import dpt as JDPT
 from mapanything_tpu.nn import heads as JH
@@ -37,6 +36,7 @@ from mapanything_tpu_torch.ops.flash_attention import (
 )
 from mapanything_tpu_torch.utils.inference import InferencePipeline
 from mapanything_tpu_torch.utils.weights import load_jax_params
+from torch_jax_init import init_params
 
 HIGHEST = "highest"
 H, W = 70, 84  # 5 x 6 patches of 14
@@ -183,11 +183,7 @@ _SLICE_KEYS = ("pts3d", "depth_along_ray", "ray_directions", "intrinsics",
 @pytest.fixture(scope="module")
 def slice_models():
     jax_model = JaxMapAnything(cfg=JaxConfig(dtype=jnp.float32, **_SLICE_CFG))
-    views = {"img": jnp.zeros((1, 1, H, W, 3), jnp.float32)}
-    with jax.default_matmul_precision(HIGHEST):
-        params = jit_init(jax_model, jax.random.PRNGKey(0), views,
-                          images_only_config())
-    params = _perturb(params, 11)
+    params = _perturb(init_params(jax_model, H, W), 11)
     port = MapAnything(MapAnythingConfig(dtype=torch.float32, **_SLICE_CFG),
                        device="cpu")
     load_jax_params(port, params)
@@ -214,16 +210,15 @@ def test_slice_matches_jax(slice_models, num_views):
         assert agree >= 0.999, f"mask agreement {agree}"
 
 
-def test_slice_rejects_priors(slice_models):
+def test_slice_ignored_priors_and_stochastic_presets(slice_models):
+    """What stays of the refusals: an ignored prior gives the images-only
+    result, and a stochastic task preset raises."""
     _, port_pipe = slice_models
     view = {"img": _rand(30, 1, H, W, 3), "data_norm_type": ["dinov2"],
-            "intrinsics": np.eye(3, dtype=np.float32)[None]}
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        port_pipe.infer([view])
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        port_pipe.infer([{k: view[k] for k in ("img", "data_norm_type")}],
-                        memory_efficient_inference=True)
-    # an ignored prior is dropped: the same result as images only
+            "intrinsics": np.array([[[60.0, 0, 42], [0, 60.0, 35], [0, 0, 1]]],
+                                   np.float32)}
     plain = port_pipe.infer([{k: view[k] for k in ("img", "data_norm_type")}])
     ignored = port_pipe.infer([view], ignore_calibration_inputs=True)
     torch.testing.assert_close(ignored[0]["pts3d"], plain[0]["pts3d"])
+    with pytest.raises(ValueError, match="stochastic"):
+        port_pipe.infer([view], task="aug_training")

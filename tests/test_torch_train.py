@@ -29,7 +29,6 @@ from mapanything_tpu.data.synthetic import make_synthetic_batch as jax_batch
 from mapanything_tpu.models import MapAnything as JaxMapAnything
 from mapanything_tpu.models import MapAnythingConfig as JaxConfig
 from mapanything_tpu.models import images_only_config as jax_images_only
-from mapanything_tpu.models import jit_init
 from mapanything_tpu.train import losses as JL
 from mapanything_tpu.train import step as JS
 from mapanything_tpu.utils import flops as JF
@@ -47,6 +46,7 @@ from mapanything_tpu_torch.ops.flash_attention import (
 from mapanything_tpu_torch.train import step as PS
 from mapanything_tpu_torch.utils import flops as PF
 from mapanything_tpu_torch.utils.weights import from_jax_params, load_jax_params
+from torch_jax_init import init_params
 
 HIGHEST = "highest"
 H, W = 28, 42  # 2 x 3 patches of 14
@@ -65,10 +65,10 @@ def _perturb(params, seed, scale=0.02):
 @pytest.fixture(scope="module")
 def setup():
     jax_model = JaxMapAnything(cfg=JaxConfig(dtype=jnp.float32, **_SLICE_CFG))
-    views = {"img": jnp.zeros((1, 1, H, W, 3), jnp.float32)}
+    # the tree holds the six prior encoders, which images-only steps leave
+    # at zero gradient
+    params = init_params(jax_model, H, W)
     with jax.default_matmul_precision(HIGHEST):
-        params = jit_init(jax_model, jax.random.PRNGKey(0), views,
-                          jax_images_only())
         jbatch = jax_batch(1, 2, H, W, seed=0)
     # both models get the images only
     jbatch = {"views": {"img": jbatch["views"]["img"]}, "gt": jbatch["gt"]}
@@ -222,7 +222,7 @@ def test_three_steps_match_jax(setup):
 
 def test_step_rejects_geometric_inputs(setup):
     port = _port_model(setup[1])
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
+    with pytest.raises(NotImplementedError, match="queue A item 13"):
         PS.make_train_step(port, GeometricInputConfig())
 
 

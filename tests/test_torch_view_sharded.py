@@ -107,16 +107,16 @@ def slice_run(tmp_path_factory):
 
     from mapanything_tpu.models import MapAnything as JaxMapAnything
     from mapanything_tpu.models import MapAnythingConfig as JaxConfig
-    from mapanything_tpu.models import images_only_config, jit_init
+    from mapanything_tpu.models import images_only_config
     from mapanything_tpu_torch.utils.weights import from_jax_params
+    from torch_jax_init import init_params
 
     folder = str(tmp_path_factory.mktemp("slice"))
     rng = np.random.default_rng(40)
     img = (0.3 * rng.standard_normal((1, V, HW, HW, 3))).astype(np.float32)
     jax_model = JaxMapAnything(cfg=JaxConfig(dtype=jnp.float32, **CFG))
     with jax.default_matmul_precision("highest"):
-        params = jit_init(jax_model, jax.random.PRNGKey(0),
-                          {"img": jnp.asarray(img)}, images_only_config())
+        params = init_params(jax_model, HW, HW)
         params = jax.tree.map(lambda a: (np.asarray(a) + 0.02 * rng.standard_normal(
             a.shape)).astype(np.float32), params)
         ref = jax.jit(lambda p, vw: jax_model.apply(

@@ -14,6 +14,7 @@ import torch
 from mapanything_tpu.models import MapAnything as JaxMapAnything
 from mapanything_tpu.models import MapAnythingConfig as JaxConfig
 from mapanything_tpu.models import images_only_config, jit_init
+from torch_jax_init import prior_views
 from mapanything_tpu_torch.models import MapAnything, MapAnythingConfig
 from mapanything_tpu_torch.utils.weights import from_jax_params
 
@@ -24,7 +25,7 @@ _SMALL = dict(encoder_size="test", trunk_dim=128, trunk_depth=4,
 
 def _jax_param_shapes(**cfg):
     model = JaxMapAnything(cfg=JaxConfig(**cfg))
-    views = {"img": jnp.zeros((1, 1, 28, 28, 3), jnp.float32)}
+    views = prior_views(1, 1, 28, 28)  # a tree with the six prior encoders
     return jax.eval_shape(
         lambda: jit_init(model, jax.random.PRNGKey(0), views,
                          images_only_config()))
@@ -77,8 +78,8 @@ def test_mismatches_fail_loudly(small_params):
     model = MapAnything(MapAnythingConfig(dtype=torch.float32, **_SMALL),
                         device="meta")
     inner = dict(small_params["params"])
-    extra = dict(inner, ray_dirs_encoder={"kernel": np.zeros((3, 3))})
-    with pytest.raises(KeyError, match="ray_dirs_encoder"):
+    extra = dict(inner, normal_encoder={"kernel": np.zeros((3, 3))})
+    with pytest.raises(KeyError, match="normal_encoder"):
         from_jax_params(extra, model)
     missing = {k: v for k, v in inner.items() if k != "scale_token"}
     with pytest.raises(KeyError, match="scale_token"):
