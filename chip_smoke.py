@@ -173,14 +173,51 @@ Phases, in order (any failure exits non-zero and prints no result line):
      first and the last 192 real rows (limit 1e-2, as phase 2), its device
      time, bound, flash SDPA's time and host µs. 0 probe and baseline
      launches.
+  8. Training with geometric priors at full width and depth, on phase 4's
+     seeded init (the released config, bf16 compute, fp32 parameters),
+     every batch from make_synthetic_batch with every prior:
+     8a, the `aug_training` step (models/tasks.py) at 1 x 4 views x 518^2,
+     its masks from a CUDA generator: 2 warm-up and 10 timed steps,
+     exactly 48 forward-with-lse, 48 dK/dV and 48 dQ launches a step and
+     nothing else; how often each mask was on (the draws replayed from
+     the generator states), wall, device ms, busy share, peak GiB; then
+     grad_check.compare with every prior on (`pass_through`) on phase 4's
+     1-view batch, gated as phase 4 (loss 1e-2, gradients rel-L2 2e-2),
+     the noise floor beside it.
+     8b, encoder and trunk gradient checkpointing: one forward and
+     backward at 1 x 4 views with and without it from the same state and
+     generator seed, twice each as training runs them (wall and peak GiB
+     of the second, the two calls' run-to-run gradient rel-L2), then once
+     each under torch.use_deterministic_algorithms, held to loss 1e-5
+     relative and gradient rel-L2 1e-3 (the upsample backward's atomics
+     leave two identical passes ~1e-3 apart otherwise); 48 forward-with-lse
+     launches more with it (CKPT_LAUNCHES: each attention's forward runs
+     again in the recompute). Then the checkpointed `aug_training` step at
+     1 x 24 views (the stage-2 recipe; global attention (1, 32896, 16, 64)
+     / 32857): 1 warm-up and 2 timed steps, wall and peak GiB.
+     8c, train/loop.py::train at full width on 1 x 2-view batches, 2
+     epochs of 2 batches and a validation loader, in a temporary
+     directory (free disk printed first; too little fails the phase):
+     uninterrupted, and killed at (epoch 1, iter 1) then resumed from
+     checkpoint-last, both under deterministic algorithms: the same step
+     counts, the parameters within rel-L2 1e-3; each checkpoint's GiB and
+     save and load seconds (5 writes, 1 load).
+     8d, at p = 1 on a one-process NCCL group: config 3 (intrinsics, 4x4
+     poses, the metric flag) through InferencePipeline(view_shard_group=)
+     against the unsharded call (phase 5's limits and launch counts, with
+     phase 3's weights); the view-sharded `aug_training` step against the
+     unsharded one with the same generator seed
+     (grad_check.compare_sharded: loss 1e-2, gradient 2e-2) and 5 steps
+     with phase 6's VS_STEP_LAUNCHES each. 0 probe and baseline launches.
 
 The last two lines are the kernels' JSON summary (each kernel's launches:
-the counts phases 3-7 read, summed) and
+the counts phases 3-8 read, summed) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -926,7 +963,7 @@ def run_ring_slice(torch, fa, RC, model, group, InferencePipeline, views):
     on 8 views, held to this script's launch counts, with a trace of the
     view-sharded call."""
     res, out = RC.check_inference(model, group, views, torch.device("cuda"))
-    bad = check_outputs(out, RING_VIEWS, torch)
+    bad = check_outputs(out, len(views), torch)
     if bad:
         return res, bad
     want = dict.fromkeys(fa.KERNELS, 0) | {
@@ -1085,27 +1122,6 @@ def b2_sampled(torch, fa, F, views: int):
            and row["rel_l2"] <= ERR_LIMIT
            else f"B2 disagrees with plain at {row['at']}: {row}")
     return row, bad
-
-
-def with_priors(torch, G, views):
-    """BASELINE config 3's user inputs on load_images' views: intrinsics
-    (focal 0.8-1.2 x the width, centred), a camera-to-world 4x4 from a
-    seeded random unit quaternion and normal translation, metric scale."""
-    import numpy as np
-
-    rng = np.random.default_rng(7)
-    out = []
-    for view in views:
-        h, w = view["img"].shape[1:3]
-        f = rng.uniform(0.8, 1.2) * w
-        k = np.array([[[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]]], np.float32)
-        quat = rng.standard_normal(4).astype(np.float32)
-        pose = G.pose_quats_trans_to_matrix(
-            torch.from_numpy(quat / np.linalg.norm(quat)),
-            torch.from_numpy(rng.standard_normal(3).astype(np.float32)))
-        out.append(dict(view, intrinsics=k, camera_poses=pose[None].numpy(),
-                        is_metric_scale=True))
-    return out
 
 
 def timed_infer(torch, fa, pipe, views, calls, **kw):
@@ -1267,9 +1283,9 @@ def serving_api(torch, fa, F, fp, model, load_images):
     on `model`. Returns (the kernel counts of each timed run, the B2 rows
     at 32 and 100 views, failure or None)."""
     from mapanything_tpu_torch import demo_colmap
-    from mapanything_tpu_torch import geometry as G
     from mapanything_tpu_torch.models import MapAnything, MapAnythingConfig
     from mapanything_tpu_torch.models.mapanything import PRIOR_ENCODERS
+    from mapanything_tpu_torch.parallel import ring_check as RC
     from mapanything_tpu_torch.utils import colmap_io
     from mapanything_tpu_torch.utils import inference as PI
 
@@ -1277,8 +1293,8 @@ def serving_api(torch, fa, F, fp, model, load_images):
     counts = []
     with tempfile.TemporaryDirectory() as folder:
         # 7a, config 3: intrinsics, 4x4 poses, metric scale on 4 views
-        views = with_priors(torch, G, load_images(write_images(folder,
-                                                               PRIOR_VIEWS)))
+        views = RC.config3_views(load_images(write_images(folder,
+                                                          PRIOR_VIEWS)))
         priors, bad = run_priors(
             torch, fa, model, pipe, views,
             lambda: fusion_check(torch, model, pipe, views, MapAnything,
@@ -1345,6 +1361,509 @@ def serving_api(torch, fa, F, fp, model, load_images):
     return counts, b2_rows, None
 
 
+# phase 8: training with geometric priors, at full width and depth
+TRAIN_LAUNCHES = {"fwd_lse": FORWARD_LAUNCHES, "dkv": FORWARD_LAUNCHES,
+                  "dq": FORWARD_LAUNCHES}
+# with encoder and trunk checkpointing each of the 48 attentions launches
+# its forward with lse again in the backward's recompute
+CKPT_LAUNCHES = {"fwd_lse": 2 * FORWARD_LAUNCHES, "dkv": FORWARD_LAUNCHES,
+                 "dq": FORWARD_LAUNCHES}
+STAGE2_VIEWS = 24  # the stage-2 recipe's views per sample (BASELINE.md)
+CKPT_LOSS_LIMIT, CKPT_GRAD_LIMIT = 1e-5, 1e-3
+RESUME_LIMIT = 1e-3
+MASK_SEED = 8  # the generator of phase 8's stochastic steps
+CHECKPOINT_WRITES = 5
+
+
+def seeded_model(torch, MapAnything, MapAnythingConfig, **flags):
+    """Phase 4's model: the released config, its own init from seed 1."""
+    return MapAnything(MapAnythingConfig(**flags), generator=torch.Generator(
+        device="cuda").manual_seed(1))
+
+
+def launches_of(fa) -> dict:
+    return dict(fa.flash_attention.kernel_counts)
+
+
+def expect_launches(fa, want: dict, what: str) -> str | None:
+    counts, plain = launches_of(fa), fa.flash_attention.plain_launches
+    full = dict.fromkeys(fa.KERNELS, 0) | want
+    if counts != full or plain != 0:
+        return (f"{what}: kernel launches {counts} and {plain} plain, "
+                f"expected {full} and 0")
+    return None
+
+
+def add_counts(total: dict, counts: dict) -> dict:
+    return {key: total.get(key, 0) + val for key, val in counts.items()}
+
+
+def mask_shares(torch, draw_prior_masks, geom_cfg, states, views) -> dict:
+    """How often each mask of `geom_cfg` was on over the steps whose
+    generator states (before the step) are `states`: the draws replayed."""
+    gen = torch.Generator(device="cuda")
+    shares = {}
+    for state in states:
+        gen.set_state(state)
+        masks = draw_prior_masks(geom_cfg, 1, views, "cuda", gen, (518, 518))
+        for key, m in masks.items():
+            shares.setdefault(key, []).append(float(m.float().mean()))
+    return {key: sum(vals) / len(vals) for key, vals in shares.items()}
+
+
+def aug_training_steps(torch, fa, T, model, batch, geom_cfg, draw_prior_masks,
+                       warmup: int = 2, steps: int = TRAIN_STEPS):
+    """Phase 8a: the aug_training step at 1 x 4 views, its masks from a
+    CUDA generator. Returns (results, launches, failure or None)."""
+    state = T.create_train_state(
+        model, T.OptimConfig(warmup_steps=2, total_steps=100))
+    step = T.make_train_step(model, geom_cfg)
+    gen = torch.Generator(device="cuda").manual_seed(MASK_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    res, launches = {"batch": "1 x 4 views x 518 x 518, every prior"}, {}
+    times, losses, states = [], [], []
+    for i in range(warmup + steps):
+        states.append(gen.get_state())
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        bad = expect_launches(fa, TRAIN_LAUNCHES, f"aug_training step {i}")
+        if bad:
+            return res, launches, bad
+        launches = add_counts(launches, launches_of(fa))
+        losses.append(float(m["loss"]))
+        if not (math.isfinite(losses[-1])
+                and finite(m["grad_norm"], torch)):
+            return res, launches, f"step {i}: loss {losses[-1]}"
+        if i >= warmup:
+            times.append(wall)
+    step_ms = statistics.median(times)
+    res.update({"steps": warmup + steps, "step_ms": step_ms,
+                "step_ms_all": times, "loss": losses,
+                "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "mask_on_share": mask_shares(torch, draw_prior_masks,
+                                             geom_cfg, states, 4)})
+    res["profile"] = profile_calls(torch, lambda: step(state, batch, gen),
+                                   step_ms, calls=2)
+    return res, launches, None
+
+
+def preset_gradient(torch, model, make_synthetic_batch, compare, task_config):
+    """Phase 8a, second part: grad_check.compare with every prior on
+    (pass_through), phase 4's 1-view batch, flash against math, gated as
+    phase 4 (two views' three math-attention graphs do not fit in 80 GB
+    beside each other)."""
+    batch = make_synthetic_batch(1, 1, 518, 518, seed=1)
+    res = compare(model, batch, geom_cfg=task_config("pass_through"))
+    res = {key: val for key, val in res.items() if key != "terms"}
+    if not res["loss_rel_diff"] <= ERR_LIMIT:
+        return res, f"pass_through loss flash vs math {res['loss_rel_diff']}"
+    for key in ("grad_rel_l2", "qkv_grad_rel_l2"):
+        if not res[key] <= GRAD_LIMIT:
+            return res, f"pass_through {key} {res[key]:.3e}"
+    return res, None
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """torch.use_deterministic_algorithms inside the block (main() sets
+    CUBLAS_WORKSPACE_CONFIG before the first GEMM): the atomics of the
+    bilinear upsample's backward otherwise leave two identical backward
+    passes ~1e-3 apart in rel-L2 (phase 8b prints that run-to-run
+    reading beside the gate)."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def checkpointing_check(torch, fa, T, make_model, batch, geom_cfg):
+    """Phase 8b, first part: one forward and backward (loss_and_grads) of
+    the model with and without encoder and trunk checkpointing, the same
+    state and generator seed: each twice as training runs them (the second
+    timed, with its peak memory; the two plain calls' gradients give the
+    run-to-run floor), then once each with deterministic algorithms, held
+    to the limits. Returns (results, launches, failure or None)."""
+    plain = make_model()
+    ckpt = make_model(encoder_gradient_checkpointing=True,
+                      trunk_gradient_checkpointing=True)
+    ckpt.load_state_dict(plain.state_dict())
+    models = {"plain": (plain, TRAIN_LAUNCHES),
+              "checkpointed": (ckpt, CKPT_LAUNCHES)}
+    res, launches = {}, {}
+
+    def call(name):
+        """(loss, flat gradient, wall ms) of one forward and backward."""
+        nonlocal launches
+        model, want = models[name]
+        params = list(model.parameters())
+        gen = torch.Generator(device="cuda").manual_seed(MASK_SEED)
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, _, grads = T.loss_and_grads(T.make_loss_fn(model, geom_cfg),
+                                          params, batch, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        bad = expect_launches(fa, want, f"{name} forward and backward")
+        launches = add_counts(launches, launches_of(fa))
+        flat = torch.cat([g.flatten() for g in grads])
+        for p in params:
+            p.grad = None
+        return loss, flat, wall, bad
+
+    for name in models:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        flats = []
+        for _ in range(2):
+            loss, flat, wall, bad = call(name)
+            if bad:
+                return res, launches, bad
+            flats.append(flat)
+            del flat
+        res[name] = {"wall_ms": wall, "loss": float(loss),
+                     "peak_memory_gib":
+                     torch.cuda.max_memory_allocated() / 2**30,
+                     "grad_run_to_run_rel_l2": rel_l2(flats[1], flats[0])}
+        del flats
+    with deterministic(torch):
+        (loss_p, grad_p, _, bad_p), (loss_c, grad_c, _, bad_c) = (
+            call("plain"), call("checkpointed"))
+    if bad_p or bad_c:
+        return res, launches, bad_p or bad_c
+    res["loss_rel_diff"] = float((loss_c - loss_p).abs() / loss_p.abs())
+    res["grad_rel_l2"] = rel_l2(grad_c, grad_p)
+    del grad_p, grad_c, models, plain, ckpt
+    torch.cuda.empty_cache()
+    if not res["loss_rel_diff"] <= CKPT_LOSS_LIMIT:
+        return res, launches, f"checkpointed loss {res['loss_rel_diff']:.3e}"
+    if not res["grad_rel_l2"] <= CKPT_GRAD_LIMIT:
+        return res, launches, (f"checkpointed gradient rel-L2 "
+                               f"{res['grad_rel_l2']:.3e}")
+    return res, launches, None
+
+
+def stage2_steps(torch, fa, T, make_model, make_synthetic_batch, geom_cfg,
+                 F):
+    """Phase 8b, second part: the aug_training step at 1 x 24 views x 518^2
+    with encoder and trunk checkpointing: 1 warm-up and 2 timed steps.
+    Returns (results, launches, failure or None)."""
+    model = make_model(encoder_gradient_checkpointing=True,
+                       trunk_gradient_checkpointing=True)
+    batch = make_synthetic_batch(1, STAGE2_VIEWS, 518, 518, seed=3)
+    state = T.create_train_state(
+        model, T.OptimConfig(warmup_steps=2, total_steps=100))
+    step = T.make_train_step(model, geom_cfg)
+    gen = torch.Generator(device="cuda").manual_seed(MASK_SEED)
+    n, n_valid = many_view_shape(STAGE2_VIEWS)
+    res = {"batch": f"1 x {STAGE2_VIEWS} views x 518 x 518",
+           "global_attention": [list(n), n_valid]}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times, launches = [], {}
+    for i in range(3):
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        bad = expect_launches(fa, CKPT_LAUNCHES, f"{STAGE2_VIEWS}-view step")
+        if bad:
+            return res, launches, bad
+        launches = add_counts(launches, launches_of(fa))
+        if not math.isfinite(float(m["loss"])):
+            return res, launches, f"{STAGE2_VIEWS}-view step {i}: loss"
+    res.update({"step_ms_all": times[1:],
+                "step_ms": statistics.median(times[1:]),
+                "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "train_step_flops": F.train_step_flops(518, STAGE2_VIEWS)})
+    return res, launches, None
+
+
+class TrainLoader:
+    """1 x 2-view synthetic batches on the card; raises Killed at
+    (epoch, iter) == kill_at."""
+
+    class Killed(RuntimeError):
+        pass
+
+    def __init__(self, make_synthetic_batch, seeds, kill_at=None):
+        self.batches = [make_synthetic_batch(1, 2, 518, 518, seed=s)
+                        for s in seeds]
+        self.kill_at, self.epoch = kill_at, 0
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        for i, batch in enumerate(self.batches):
+            if self.kill_at == (self.epoch, i):
+                raise self.Killed(f"killed at epoch {self.epoch} iter {i}")
+            yield batch
+
+
+def trainer_check(torch, fa, T, L, make_model, make_synthetic_batch):
+    """Phase 8c: train() at full width, 2 epochs of 2 batches and a
+    validation loader, uninterrupted and killed at (epoch 1, iter 1) then
+    resumed, in a temporary directory; each checkpoint's size and its save
+    and load seconds (at most CHECKPOINT_WRITES writes). Returns (results,
+    launches, failure or None)."""
+    import shutil
+
+    res, timing = {}, {"save": [], "load": []}
+    save, load = L.save_train_state, L.load_train_state
+
+    def timed(kind, fn):
+        def call(path, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(path, *args, **kw)
+            torch.cuda.synchronize()
+            timing[kind].append({"file": os.path.basename(path),
+                                 "seconds": time.perf_counter() - t0,
+                                 "gib": os.path.getsize(path) / 2**30})
+            return out
+        return call
+
+    model = make_model()
+    n_params = sum(p.numel() for p in model.parameters())
+    need = 3 * 3 * 4 * n_params  # params + m + v, three files at once
+    launches = {}
+    with tempfile.TemporaryDirectory() as folder:
+        free = shutil.disk_usage(folder).free
+        res.update({"params": n_params, "disk_free_gib": free / 2**30,
+                    "disk_needed_gib": need / 2**30})
+        print(f"phase 8c: {free / 2**30:.1f} GiB free for checkpoints in "
+              f"{folder}, {need / 2**30:.1f} GiB needed", flush=True)
+        if free < need:
+            return res, launches, (
+                f"phase 8c needs {need / 2**30:.1f} GiB of free disk for "
+                f"its checkpoints and {folder} has {free / 2**30:.1f} GiB")
+        seeds, val = (100, 101), TrainLoader(make_synthetic_batch, (200,))
+        optim = T.OptimConfig(warmup_steps=2, total_steps=100)
+        L.save_train_state = timed("save", save)
+        L.load_train_state = timed("load", load)
+        try:
+            def run(out, loader, model, save_freq):
+                cfg = L.TrainLoopConfig(output_dir=os.path.join(folder, out),
+                                        epochs=2, print_freq=1,
+                                        save_freq=save_freq, eval_freq=2,
+                                        seed=0)
+                return L.train(model, loader, cfg, optim,
+                               test_loaders={"val": val})
+
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            # the uninterrupted run writes checkpoint-best (epoch 0) and
+            # checkpoint-last once, at its end; deterministic algorithms
+            # make the two runs' trajectories comparable bit for bit
+            with deterministic(torch):
+                state_a = run("a", TrainLoader(make_synthetic_batch, seeds),
+                              model, save_freq=2)
+            res["uninterrupted_s"] = time.perf_counter() - t0
+            launches = add_counts(launches, launches_of(fa))
+            final_a = torch.cat([p.detach().flatten()
+                                 for p in state_a.model.parameters()])
+            step_a = (state_a.step, state_a.optimizer.count)
+            del state_a, model
+            shutil.rmtree(os.path.join(folder, "a"))
+            torch.cuda.empty_cache()
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                with deterministic(torch):
+                    run("b", TrainLoader(make_synthetic_batch, seeds,
+                                         kill_at=(1, 1)), make_model(), 1)
+                return res, launches, "the killed run was not killed"
+            except TrainLoader.Killed:
+                pass
+            torch.cuda.empty_cache()
+            with deterministic(torch):
+                state_b = run("b", TrainLoader(make_synthetic_batch, seeds),
+                              make_model(), 1)
+            res["killed_and_resumed_s"] = time.perf_counter() - t0
+            launches = add_counts(launches, launches_of(fa))
+        finally:
+            L.save_train_state, L.load_train_state = save, load
+        final_b = torch.cat([p.detach().flatten()
+                             for p in state_b.model.parameters()])
+        step_b = (state_b.step, state_b.optimizer.count)
+        del state_b
+    res.update({"steps": [step_a, step_b],
+                "resumed_vs_uninterrupted_rel_l2": rel_l2(final_b, final_a),
+                "checkpoints": timing})
+    del final_a, final_b
+    torch.cuda.empty_cache()
+    if step_a != step_b or step_a[0] != 4:
+        return res, launches, f"step counts {step_a} and {step_b}"
+    if not res["resumed_vs_uninterrupted_rel_l2"] <= RESUME_LIMIT:
+        return res, launches, (f"resumed parameters rel-L2 "
+                               f"{res['resumed_vs_uninterrupted_rel_l2']}")
+    if len(timing["save"]) > CHECKPOINT_WRITES or len(timing["load"]) != 1:
+        return res, launches, f"checkpoint writes and loads: {timing}"
+    return res, launches, None
+
+
+def sharded_with_priors(torch, fa, T, SP, RC, compare_sharded, make_model,
+                        make_synthetic_batch, geom_cfg, group, views,
+                        MapAnything, MapAnythingConfig, random_normal_,
+                        InferencePipeline):
+    """Phase 8d, at p = 1: config 3 through the view-sharded pipeline
+    against the unsharded call, then the view-sharded aug_training step
+    against the unsharded one with the same generator seed, and its launch
+    counts. Returns (results, launches, failure or None)."""
+    model = MapAnything(MapAnythingConfig())
+    random_normal_(model)
+    model.eval()
+    res, launches = {}, {}
+    infer, bad = run_ring_slice(torch, fa, RC, model, group,
+                                InferencePipeline, views)
+    res["config3"] = infer
+    if bad:
+        return res, launches, f"view-sharded config 3: {bad}"
+    launches = add_counts(launches, infer["kernel_counts"])
+    del model
+    torch.cuda.empty_cache()
+
+    model = make_model()
+    batch = make_synthetic_batch(1, 4, 518, 518, seed=0)
+    cmp = compare_sharded(model, batch, group, geom_cfg=geom_cfg,
+                          seed=MASK_SEED)
+    res["step_vs_unsharded"] = cmp
+    if not cmp["loss_rel_diff"] <= ERR_LIMIT:
+        return res, launches, (f"aug_training loss against the unsharded "
+                               f"{cmp['loss_rel_diff']:.3e}")
+    if not cmp["grad_rel_l2"] <= GRAD_LIMIT:
+        return res, launches, (f"aug_training gradient against the "
+                               f"unsharded {cmp['grad_rel_l2']:.3e}")
+    state = T.create_train_state(
+        model, T.OptimConfig(warmup_steps=2, total_steps=100))
+    step = SP.make_view_sharded_train_step(model, geom_cfg, group=group)
+    gen = torch.Generator(device="cuda").manual_seed(MASK_SEED)
+    times = []
+    for i in range(VS_WARMUP + 3):
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        bad = expect_launches(fa, VS_STEP_LAUNCHES,
+                              f"view-sharded aug_training step {i}")
+        if bad:
+            return res, launches, bad
+        launches = add_counts(launches, launches_of(fa))
+        if not math.isfinite(float(m["loss"])):
+            return res, launches, f"view-sharded step {i}: loss"
+    res["step_ms_all"] = times[VS_WARMUP:]
+    res["step_ms"] = statistics.median(times[VS_WARMUP:])
+    return res, launches, None
+
+
+def training_with_priors(torch, fa, fp, F, load_images):
+    """Phase 8 (8a-8d). Returns (the kernel counts of its runs, failure or
+    None)."""
+    from mapanything_tpu_torch.data.synthetic import make_synthetic_batch
+    from mapanything_tpu_torch.models import (
+        MapAnything,
+        MapAnythingConfig,
+        aug_training_config,
+    )
+    from mapanything_tpu_torch.models.mapanything import draw_prior_masks
+    from mapanything_tpu_torch.models.tasks import task_config
+    from mapanything_tpu_torch.parallel import init_distributed
+    from mapanything_tpu_torch.parallel import ring_check as RC
+    from mapanything_tpu_torch.train import loop as L
+    from mapanything_tpu_torch.train import seq_parallel as SP
+    from mapanything_tpu_torch.train import step as T
+    from mapanything_tpu_torch.train.grad_check import (
+        compare,
+        compare_sharded,
+    )
+    from mapanything_tpu_torch.utils.inference import InferencePipeline
+    from mapanything_tpu_torch.utils.weights import random_normal_
+
+    def make_model(**flags):
+        return seeded_model(torch, MapAnything, MapAnythingConfig, **flags)
+
+    aug = aug_training_config()
+    counts = []
+
+    def report(name, t0, res, launches, bad):
+        print(f"phase {name} ({time.perf_counter() - t0:.1f} s): "
+              f"{json.dumps(res)}", flush=True)
+        if launches:
+            counts.append(launches)
+        return f"phase {name}: {bad}" if bad else None
+
+    t0 = time.perf_counter()
+    model = make_model()
+    batch = make_synthetic_batch(1, 4, 518, 518, seed=0)
+    res, launches, bad = aug_training_steps(torch, fa, T, model, batch, aug,
+                                            draw_prior_masks)
+    bad = report("8a, aug_training step 1x4v@518", t0, res, launches, bad)
+    if bad:
+        return counts, bad
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res, bad = preset_gradient(torch, make_model(), make_synthetic_batch,
+                               compare, task_config)
+    bad = report("8a, pass_through flash vs math, seeded init", t0, res, {},
+                 bad)
+    if bad:
+        return counts, bad
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res, launches, bad = checkpointing_check(torch, fa, T, make_model, batch,
+                                             aug)
+    bad = report("8b, checkpointing 1x4v@518", t0, res, launches, bad)
+    if bad:
+        return counts, bad
+    del batch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res, launches, bad = stage2_steps(torch, fa, T, make_model,
+                                      make_synthetic_batch, aug, F)
+    bad = report(f"8b, checkpointed step 1x{STAGE2_VIEWS}v@518", t0, res,
+                 launches, bad)
+    if bad:
+        return counts, bad
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res, launches, bad = trainer_check(torch, fa, T, L, make_model,
+                                       make_synthetic_batch)
+    bad = report("8c, train() with kill and resume", t0, res, launches, bad)
+    if bad:
+        return counts, bad
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as folder:
+        views = RC.config3_views(load_images(write_images(folder,
+                                                          PRIOR_VIEWS)))
+    group = init_distributed()
+    try:
+        res, launches, bad = sharded_with_priors(
+            torch, fa, T, SP, RC, compare_sharded, make_model,
+            make_synthetic_batch, aug, group, views, MapAnything,
+            MapAnythingConfig, random_normal_, InferencePipeline)
+    finally:
+        torch.distributed.destroy_process_group()
+    bad = report("8d, view-sharded with priors, p = 1", t0, res, launches,
+                 bad)
+    if bad:
+        return counts, bad
+    return counts, untouched_baseline(fp)
+
+
 def timing(row):
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms", "mma_ms",
@@ -1354,7 +1873,7 @@ def timing(row):
 def kernels_summary(fp, attn, train_rows, ring_rows, merge, probe_rows,
                     phase_counts) -> list:
     """The kernels' JSON rows: each kernel at its main-path shape with its
-    launches in phases 3-6 (phase_counts: the kernel counts each of those
+    launches in phases 3-8 (phase_counts: the kernel counts each of those
     runs read, reset just before it), the baselines and the probes."""
     launches = {kname: sum(counts[key] for counts in phase_counts)
                 for kname, key in COUNTER.items()}
@@ -1451,6 +1970,9 @@ def kernels_summary(fp, attn, train_rows, ring_rows, merge, probe_rows,
 
 
 def main() -> int:
+    # deterministic cuBLAS where phase 8 asks for deterministic algorithms;
+    # read when the first cuBLAS handle is made
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -1585,7 +2107,7 @@ def main() -> int:
             return fail(f"probe {case} disagrees with its plain version: "
                         f"{row}")
 
-    # phases 3-6 run the main path: no probe and no baseline launch
+    # phases 3-8 run the main path: no probe and no baseline launch
     fp.reset_probe_counts()
 
     # phase 3: serving at full width
@@ -1712,10 +2234,18 @@ def main() -> int:
           flush=True)
     attn = attn + b2_rows  # the flash_attn_fwd row's shapes
 
+    # phase 8: training with geometric priors, at full width and depth
+    t8 = time.perf_counter()
+    phase8_counts, bad = training_with_priors(torch, fa, fp, F, load_images)
+    if bad:
+        return fail(bad)
+    print(f"phase 8 (training with priors) took "
+          f"{time.perf_counter() - t8:.1f} s", flush=True)
+
     phase_counts = [serving,
                     {key: train[f"{key}_launches"] for key in fa.KERNELS},
                     ring_res["kernel_counts"], block_res["kernel_counts"],
-                    vs_train["launches"]] + phase7_counts
+                    vs_train["launches"]] + phase7_counts + phase8_counts
     kernels = kernels_summary(fp, attn, train_rows, ring_rows, merge,
                               probe_rows, phase_counts)
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s",

@@ -24,9 +24,13 @@ Input views (all but img optional):
 
 `MapAnythingConfig` has the JAX package's fields and defaults. Values the
 port does not run raise NotImplementedError naming their ROADMAP item.
-Only deterministic `GeometricInputConfig`s run (probabilities in {0, 1},
-folded to constant masks); the sparse-depth pixel draw takes an explicit
-torch.Generator.
+`encoder_/trunk_gradient_checkpointing` recompute each block's activations
+in the backward (torch.utils.checkpoint).
+
+A `GeometricInputConfig` with probabilities in {0, 1} folds to constant
+masks; any other (the `aug_training` mix) draws its Bernoulli masks from
+the torch.Generator passed to `forward` (`draw_prior_masks`), as does the
+sparse-depth pixel draw.
 
 `memory_efficient=True` runs the MLPs in `mlp_token_chunk`-row slices and
 the dense head `dense_head_chunk` views at a time; `resolve_memory_policy`
@@ -34,8 +38,11 @@ picks those knobs from the shape and the card's memory before the call.
 
 With a process group, `forward(views, seq_group=group)` runs the rank's
 share of the views sequence-parallel (the trunk's global layers as ring
-attention); parallel/inference.py::view_sharded_forward drives it. Priors
-do not run there yet.
+attention); parallel/inference.py::view_sharded_forward drives it. The
+priors run there too: the view-0 pose is gathered from rank 0, the mean
+translation norm reduced over the ranks, and every rank draws the masks of
+all the views from the same generator state and keeps its own views', so
+p ranks compute what one does with the same generator.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -52,6 +60,7 @@ from ..geometry import (
     convert_ray_dirs_depth_along_ray_pose_trans_quats_to_pointmap,
     normalize_depth_using_non_zero_pixels,
     normalize_pose_translations,
+    safe_norm,
     transform_pose_using_quats_and_trans_2_to_1,
 )
 from ..nn.adaptors import (
@@ -68,6 +77,7 @@ from ..nn.encoders import DenseRepEncoder, GlobalRepEncoder
 from ..nn.heads import MLPHead, PoseHead
 from ..nn.layers import Attention, FusedLayerNorm, init_weights_
 from ..nn.trunk import AlternatingAttentionTrunk
+from ..ops.ring_attention import all_gather, all_reduce
 from ..utils.device import resolve_device
 
 RELEASED_SCENE_REP = "raydirs+depth+pose+confidence+mask"
@@ -79,11 +89,8 @@ PRIOR_VIEW_KEYS = ("ray_directions_cam", "depth_along_ray",
 PRIOR_ENCODERS = ("ray_dirs_encoder", "depth_encoder", "depth_scale_encoder",
                   "cam_rot_encoder", "cam_trans_encoder",
                   "cam_trans_scale_encoder")
-# ROADMAP items of what the priors do not run yet
-TRAIN_PRIORS_ITEM = ("ROADMAP queue A item 13 (training with geometric "
-                     "priors)")
-SHARDED_PRIORS_ITEM = ("ROADMAP queue A item 14 (geometric priors on the "
-                       "view-sharded path)")
+# the masks of draw_prior_masks with a view axis (the rest are (B, 1))
+PER_VIEW_MASKS = ("keep", "depth_norm_all", "pose_norm_all", "keep_px")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,10 +183,6 @@ class MapAnythingConfig:
             "use_scale_token": "ROADMAP queue A item 10 (ablations)",
             "scene_rep_type": "ROADMAP queue A item 4 (other scene reps)",
             "fold_layerscale": "ROADMAP queue A item 2 (fold_layerscale)",
-            "encoder_gradient_checkpointing": (
-                "ROADMAP queue A item 9 (gradient checkpointing)"),
-            "trunk_gradient_checkpointing": (
-                "ROADMAP queue A item 9 (gradient checkpointing)"),
         }
         for field, item in unsupported.items():
             if getattr(self, field) != getattr(default, field):
@@ -228,13 +231,70 @@ def resolve_memory_policy(cfg: MapAnythingConfig, batch: int,
     return MemoryPolicy(True, dataclasses.replace(cfg, dense_head_chunk=8), 8)
 
 
-def sparsify_depth(depth: torch.Tensor, removal: float,
-                   generator: torch.Generator) -> torch.Tensor:
-    """Zero each pixel of `depth` with probability `removal`: a uniform draw
-    per pixel from `generator`, kept where it is >= removal (the JAX
-    package's per-pixel Bernoulli; its draw itself cannot be matched)."""
-    draw = torch.rand(depth.shape, generator=generator, device=depth.device)
-    return depth * (draw >= removal)
+def check_generator(geom_cfg: GeometricInputConfig,
+                    generator: Optional[torch.Generator],
+                    device: torch.device) -> None:
+    """Raise ValueError where `geom_cfg` draws at random and `generator`
+    cannot: a stochastic config or a sparse-depth share without one (JAX
+    raises without an rng), or one on another device than the model."""
+    if generator is None:
+        if not geom_cfg.deterministic():
+            raise ValueError(
+                "a stochastic GeometricInputConfig needs a torch.Generator "
+                "on the model's device (forward(..., generator=...)): its "
+                "masks are drawn from it")
+        if geom_cfg.sparse_depth_prob > 0.0:
+            raise ValueError(
+                "sparse_depth_prob > 0 needs a torch.Generator: the pixels "
+                "it drops are drawn at random even at probability 1.0")
+    elif generator.device.type != torch.device(device).type:
+        raise ValueError(
+            f"the generator lives on {generator.device}, the model on "
+            f"{device}: make it with torch.Generator(device=...)")
+
+
+def draw_prior_masks(geom_cfg: GeometricInputConfig, batch: int, views: int,
+                     device, generator: Optional[torch.Generator] = None,
+                     pixels: Optional[tuple] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """The Bernoulli masks of `fuse_geometric_priors` for `views` views,
+    bool, in this order of draws from `generator`:
+
+      overall (B, 1), keep (B, V) (not dropped, 1 - dropout_prob), ray,
+      depth, cam (B, 1) (the modality masks), sparse (B, 1) (the
+      sparse-depth gate), depth_norm_all, pose_norm_all (B, V), and with
+      `pixels` = (H, W) and sparse_depth_prob > 0, keep_px (B, V, H, W, 1)
+      (a pixel kept: its uniform draw >= sparsification_removal_percent).
+
+    A probability of 0 or 1 is a constant mask and draws nothing, so a
+    deterministic config draws only the pixels. The JAX package draws each
+    mask from its own split of one key and its sparse gate once per batch;
+    here one generator state fixes every draw, whatever the view sharding
+    (ROADMAP, pinned divergences)."""
+    cfg = geom_cfg
+
+    def bernoulli(p: float, shape) -> torch.Tensor:
+        if p in (0.0, 1.0):
+            return torch.full(shape, p == 1.0, dtype=torch.bool,
+                              device=device)
+        return torch.rand(shape, generator=generator, device=device) < p
+
+    b, v = batch, views
+    masks = {
+        "overall": bernoulli(cfg.overall_prob, (b, 1)),
+        "keep": bernoulli(1.0 - cfg.dropout_prob, (b, v)),
+        "ray": bernoulli(cfg.ray_dirs_prob, (b, 1)),
+        "depth": bernoulli(cfg.depth_prob, (b, 1)),
+        "cam": bernoulli(cfg.cam_prob, (b, 1)),
+        "sparse": bernoulli(cfg.sparse_depth_prob, (b, 1)),
+        "depth_norm_all": bernoulli(cfg.depth_scale_norm_all_prob, (b, v)),
+        "pose_norm_all": bernoulli(cfg.pose_scale_norm_all_prob, (b, v)),
+    }
+    if pixels is not None and cfg.sparse_depth_prob > 0.0:
+        draw = torch.rand((b, v, *pixels, 1), generator=generator,
+                          device=device)
+        masks["keep_px"] = draw >= cfg.sparsification_removal_percent
+    return masks
 
 
 class _DenseHead(nn.Module):
@@ -283,6 +343,7 @@ class MapAnything(nn.Module):
         self.encoder = DinoViT(
             size=cfg.encoder_size, patch_size=cfg.patch_size, dtype=dt,
             pad_tokens_to=cfg.encoder_pad_tokens_to,
+            gradient_checkpointing=cfg.encoder_gradient_checkpointing,
             device=device)
         enc_dim = self.encoder.embed_dim
         self.fusion_norm = FusedLayerNorm(enc_dim, dtype=torch.float32,
@@ -293,7 +354,9 @@ class MapAnything(nn.Module):
             num_heads=cfg.trunk_num_heads, indices=tuple(cfg.trunk_indices),
             distinguish_ref_and_non_ref_views=(
                 cfg.distinguish_ref_and_non_ref_views),
-            dtype=dt, pad_tokens_to=cfg.trunk_pad_tokens_to, device=device)
+            dtype=dt, pad_tokens_to=cfg.trunk_pad_tokens_to,
+            gradient_checkpointing=cfg.trunk_gradient_checkpointing,
+            device=device)
         self.dense_head = _DenseHead(cfg, enc_dim, device=device)
         self.pose_head = PoseHead(
             input_feature_dim=cfg.trunk_dim,
@@ -332,22 +395,20 @@ class MapAnything(nn.Module):
         all (B, V, ...) but metric_scaling_factor (B,).
 
         Args:
-            geom_cfg: which priors the call uses; deterministic only.
-            generator: the sparse-depth pixel draw's (sparse presets).
+            geom_cfg: which priors the call uses, with what probability.
+            generator: a torch.Generator on the model's device, which the
+                masks of a stochastic config and the sparse-depth pixels
+                are drawn from (draw_prior_masks); ValueError when such a
+                config comes without one.
             memory_efficient: chunk the MLPs and the dense head.
             seq_group: a process group: views hold this rank's V/p views in
                 global order and the outputs are this rank's;
-                metric_scaling_factor is the same on every rank. No priors.
+                metric_scaling_factor is the same on every rank. Every rank
+                passes a generator in the same state.
             chunking: the config whose dense_head_chunk and mlp_token_chunk
                 a memory-efficient call reads (MemoryPolicy.cfg); the
                 model's own by default.
         """
-        if seq_group is not None:
-            present = [k for k in PRIOR_VIEW_KEYS if k in views]
-            if present:
-                raise NotImplementedError(
-                    f"geometric priors {present} with a process group: "
-                    f"{SHARDED_PRIORS_ITEM}")
         cfg = self.cfg
         chunks = chunking or cfg
         mlp_chunk = chunks.mlp_token_chunk if memory_efficient else None
@@ -359,7 +420,7 @@ class MapAnything(nn.Module):
         enc_dim = enc.shape[-1]
         fused = self.fuse_geometric_priors(
             enc.reshape(b, v, gh, gw, enc_dim).float(), views, geom_cfg,
-            generator)
+            generator, seq_group)
         fused = self.fusion_norm(fused)
         tok = self.scale_token[None, None, :].expand(b, 1, enc_dim)
         final, intermediates, tok_out = self.info_sharing(
@@ -411,96 +472,106 @@ class MapAnything(nn.Module):
     def fuse_geometric_priors(self, fused: torch.Tensor,
                               views: Dict[str, torch.Tensor],
                               geom_cfg: GeometricInputConfig,
-                              generator: Optional[torch.Generator] = None
-                              ) -> torch.Tensor:
+                              generator: Optional[torch.Generator] = None,
+                              seq_group=None) -> torch.Tensor:
         """The encoder features (B, V, gh, gw, C) fp32 plus each prior's
         encoding where its mask holds, in fp32 (the JAX package's
-        _fuse_geometric_priors with probabilities in {0, 1}).
+        _fuse_geometric_priors).
 
-        A prior's key being absent folds its branch away; present, its
-        encoding is multiplied by its mask: the per-sample modality mask
-        and its `*_valid` key. Depth enters as log-normalised depth and, for
-        metric samples, its log scale; poses relative to view 0, the
-        translations normalised by their mean norm and, for metric samples,
-        that norm's log.
+        A prior's key being absent, or its mask being constant 0 under
+        `geom_cfg`, folds its branch away; otherwise its encoding is
+        multiplied by its mask: the per-sample modality mask, the view not
+        dropped, and its `*_valid` key (draw_prior_masks). Depth enters as
+        log-normalised depth (sparsified where the gate holds) and, for
+        metric samples not normalised away, its log scale; poses relative
+        to view 0, the translations normalised by their mean norm and, for
+        metric samples, that norm's log.
+
+        With `seq_group`, views holds this rank's V/p views: view 0's pose
+        comes from rank 0, the norm's sum and count are reduced over the
+        ranks (differentiably), and the masks are drawn for all the views
+        and sliced.
         """
-        if not geom_cfg.deterministic():
-            raise NotImplementedError(
-                f"a stochastic GeometricInputConfig ({geom_cfg}): "
-                f"{TRAIN_PRIORS_ITEM}")
-        if geom_cfg.sparse_depth_prob > 0.0 and generator is None:
-            raise ValueError(
-                "sparse_depth_prob > 0 needs a torch.Generator: the pixels "
-                "it drops are drawn at random even at probability 1.0")
+        check_generator(geom_cfg, generator, fused.device)
         if not any(key in views for key in PRIOR_VIEW_KEYS):
             return fused  # images only: every branch folds away
         b, v = fused.shape[:2]
         h, w = views["img"].shape[2:4]
         dev = fused.device
-
-        def const(p: float, shape) -> torch.Tensor:  # p in {0, 1}
-            return torch.full(shape, p == 1.0, dtype=torch.bool, device=dev)
+        ranks, rank = ((1, 0) if seq_group is None else
+                       (dist.get_world_size(seq_group),
+                        dist.get_rank(seq_group)))
+        masks = draw_prior_masks(
+            geom_cfg, b, v * ranks, dev, generator,
+            (h, w) if "depth_along_ray" in views else None)
+        masks = {key: m[:, rank * v:(rank + 1) * v] if key in PER_VIEW_MASKS
+                 else m for key, m in masks.items()}
 
         def encode(encoder, x):  # (B, V, ...) -> (B, V, ...) per view
             out = encoder(x.reshape((b * v,) + x.shape[2:]))
             return out.reshape((b, v) + out.shape[1:])
 
-        per_sample = (const(1.0 - geom_cfg.dropout_prob, (b, v))
-                      & const(geom_cfg.overall_prob, (b, 1)))
-        masks = {}
-        for name, key, prob, valid in (
-                ("ray", "ray_directions_cam", geom_cfg.ray_dirs_prob,
-                 "ray_dirs_valid"),
-                ("depth", "depth_along_ray", geom_cfg.depth_prob,
-                 "depth_valid"),
-                ("cam", "camera_pose_quats", geom_cfg.cam_prob,
-                 "pose_valid")):
-            mask = const(prob, (b, 1)) & per_sample
-            if valid in views:
-                mask = mask & views[valid]
-            masks[name] = mask
+        cfg = geom_cfg
+        # a branch whose mask is 0 under every draw folds away
+        on = cfg.overall_prob > 0.0 and cfg.dropout_prob < 1.0
+        per_sample = masks["keep"] & masks["overall"]
+
+        def mask_of(name, valid):
+            mask = masks[name] & per_sample
+            return mask & views[valid] if valid in views else mask
+
         is_metric = views.get("is_metric_scale")
         if is_metric is None:
             is_metric = torch.zeros((b, v), dtype=torch.bool, device=dev)
 
-        if "ray_directions_cam" in views:
-            m = masks["ray"][..., None, None, None]
+        if "ray_directions_cam" in views and on and cfg.ray_dirs_prob > 0.0:
+            m = mask_of("ray", "ray_dirs_valid")[..., None, None, None]
             rays = views["ray_directions_cam"].float() * m
             fused = fused + encode(self.ray_dirs_encoder, rays) * m
 
-        if "depth_along_ray" in views:
-            mask = masks["depth"]
+        if "depth_along_ray" in views and on and cfg.depth_prob > 0.0:
+            mask = mask_of("depth", "depth_valid")
             depth = views["depth_along_ray"].float() * mask[..., None, None,
                                                             None]
-            if geom_cfg.sparse_depth_prob > 0.0:  # 1.0: always sparsified
-                depth = sparsify_depth(
-                    depth, geom_cfg.sparsification_removal_percent, generator)
+            if cfg.sparse_depth_prob > 0.0:
+                gate = masks["sparse"][:, :, None, None, None]
+                depth = torch.where(gate, depth * masks["keep_px"], depth)
             scaled, depth_norm = normalize_depth_using_non_zero_pixels(
                 depth, return_norm_factor=True)  # (B, V, H, W, 1), (B, V)
             fused = fused + (encode(self.depth_encoder,
                                     apply_log_to_norm(scaled))
                              * mask[..., None, None, None])
             # the scale only for metric samples, unless normalised away
-            metric = (mask & is_metric
-                      & ~const(geom_cfg.depth_scale_norm_all_prob, (b, v)))
+            metric = mask & is_metric & ~masks["depth_norm_all"]
             scale = encode(self.depth_scale_encoder,
                            torch.log(depth_norm + 1e-8)[..., None])
             fused = fused + (scale * metric[..., None])[:, :, None, None, :]
 
-        if "camera_pose_quats" in views and "camera_pose_trans" in views:
-            mask = masks["cam"][..., None]
+        if ("camera_pose_quats" in views and "camera_pose_trans" in views
+                and on and cfg.cam_prob > 0.0):
+            mask = mask_of("cam", "pose_valid")[..., None]
             quats = views["camera_pose_quats"].float()
             trans = views["camera_pose_trans"].float()
+            q0, t0 = quats[:, :1], trans[:, :1]
+            if seq_group is not None:  # global view 0 is rank 0's first
+                q0 = all_gather(q0, seq_group)[0]
+                t0 = all_gather(t0, seq_group)[0]
             rel_q, rel_t = transform_pose_using_quats_and_trans_2_to_1(
-                quats[:, :1].expand_as(quats), trans[:, :1].expand_as(trans),
-                quats, trans)
+                q0.expand_as(quats), t0.expand_as(trans), quats, trans)
             rel_q = torch.where(mask, rel_q,
                                 rel_q.new_tensor([0.0, 0.0, 0.0, 1.0]))
             rel_t = torch.where(mask, rel_t, 0.0)
-            scaled_t, t_norm = normalize_pose_translations(
-                rel_t, return_norm_factor=True)  # (B, V, 3), (B,)
-            metric = (is_metric
-                      & ~const(geom_cfg.pose_scale_norm_all_prob, (b, v)))
+            if seq_group is None:
+                scaled_t, t_norm = normalize_pose_translations(
+                    rel_t, return_norm_factor=True)  # (B, V, 3), (B,)
+            else:  # the mean norm of the non-zero translations of all views
+                dis = safe_norm(rel_t)  # (B, V_local)
+                num = all_reduce(dis.sum(-1), seq_group)
+                den = (dis > 0).sum(-1).to(num.dtype)
+                dist.all_reduce(den, group=seq_group)
+                t_norm = (num / (den + 1e-8)).clamp_min(1e-8)
+                scaled_t = rel_t / t_norm[:, None, None]
+            metric = is_metric & ~masks["pose_norm_all"]
             log_t = torch.log(t_norm + 1e-8)[:, None, None].expand(b, v, 1)
             pose_feat = (encode(self.cam_rot_encoder, rel_q) * mask
                          + encode(self.cam_trans_encoder, scaled_t) * mask

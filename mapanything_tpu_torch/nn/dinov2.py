@@ -9,7 +9,8 @@ The patch pos-embed resize uses the same torch-exact bicubic matrices as the
 JAX package (numpy, cubic convolution a = -0.75, border clamp), applied as
 two fp32 matmuls. The token axis can be padded once to a multiple of
 `pad_tokens_to` (1370 -> 1408 at 518^2); every block then masks the pad
-keys through `n_valid`.
+keys through `n_valid`. With `gradient_checkpointing` each block is
+recomputed in the backward (the JAX package's `nn.remat` per block).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Block, Conv2d, FusedLayerNorm
+from .layers import Block, Conv2d, FusedLayerNorm, checkpointed
 
 DINOV2_CONFIGS = {
     # "test" is not a real DINOv2: a 2-layer stub for unit tests
@@ -107,9 +108,11 @@ class DinoViT(nn.Module):
 
     def __init__(self, size: str = "large", patch_size: int = 14,
                  dtype: torch.dtype = torch.float32,
-                 pad_tokens_to: Optional[int] = None, device=None):
+                 pad_tokens_to: Optional[int] = None,
+                 gradient_checkpointing: bool = False, device=None):
         super().__init__()
         cfg = DINOV2_CONFIGS[size]
+        self.gradient_checkpointing = gradient_checkpointing
         dim = cfg["embed_dim"]
         self.embed_dim = dim
         self.patch_size = patch_size
@@ -125,6 +128,8 @@ class DinoViT(nn.Module):
             Block(dim, cfg["num_heads"], layerscale_init=LAYERSCALE_INIT,
                   dtype=dtype, device=device)
             for _ in range(cfg["depth"]))
+        for blk in self.blocks:
+            blk.mlp.checkpoint_chunks = gradient_checkpointing
         self.norm = FusedLayerNorm(dim, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor,
@@ -152,6 +157,9 @@ class DinoViT(nn.Module):
                 x = F.pad(x, (0, 0, 0, n_pad - n_tok))
                 n_valid = n_tok
         for blk in self.blocks:
-            x = blk(x, n_valid, mlp_chunk)
+            if self.gradient_checkpointing:
+                x = checkpointed(blk, x, n_valid, mlp_chunk)
+            else:
+                x = blk(x, n_valid, mlp_chunk)
         x = self.norm(x)
         return x[:, 1:1 + gh * gw].reshape(b, gh, gw, dim)

@@ -5,6 +5,9 @@ Counterparts of mapanything_tpu/nn/layers.py: the DINOv2/timm pre-norm block
 residual) that the encoder and the trunk share, and its sequence-parallel
 form over view-sharded patches (`RingGlobalBlock`).
 
+Gradient checkpointing (`checkpointed`) recomputes a block's activations
+in its backward instead of keeping them, as the JAX package's `nn.remat`.
+
 Dtype policy, as in the JAX package: parameters live in fp32, each layer
 computes in its `dtype` (bf16 on the serving path), LayerNorm takes fp32
 statistics and casts its output.
@@ -23,9 +26,22 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import ring_attention as ring
 from ..ops.attention import sdpa
+
+
+def checkpointed(fn, *args):
+    """fn(*args) whose activations are recomputed in the backward instead
+    of kept (torch.utils.checkpoint, non-reentrant), where grad is on;
+    plainly otherwise. `fn` draws nothing at random, so no RNG state is
+    stashed. A checkpointed attention launches its forward with lse twice
+    per step: once in the forward, once in the recompute."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 class Dense(nn.Linear):
@@ -116,7 +132,10 @@ class Mlp(nn.Module):
 
     With `token_chunk`, the rows run `token_chunk` at a time, so the
     (rows, hidden) GELU transient exists only at chunk size (the
-    memory-efficient path); each row's result is computed as without it."""
+    memory-efficient path); each row's result is computed as without it.
+    With `checkpoint_chunks` (set under gradient checkpointing), each chunk
+    is also recomputed in the backward, so the transient stays at chunk
+    size there too."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -124,16 +143,23 @@ class Mlp(nn.Module):
         self.fc1 = Dense(in_dim, hidden_dim, dtype=dtype, device=device)
         self.fc2 = Dense(hidden_dim, out_dim, dtype=dtype, device=device)
         self.approximate = "tanh" if dtype == torch.bfloat16 else "none"
+        self.checkpoint_chunks = False
+
+    def _body(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
 
     def forward(self, x: torch.Tensor,
                 token_chunk: Optional[int] = None) -> torch.Tensor:
         rows = x[..., 0].numel()
         if token_chunk is None or rows <= token_chunk:
-            return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+            return self._body(x)
         flat = x.reshape(rows, x.shape[-1])
-        out = torch.cat([
-            self.fc2(F.gelu(self.fc1(part), approximate=self.approximate))
-            for part in flat.split(token_chunk)])
+        if self.checkpoint_chunks:
+            out = torch.cat([checkpointed(self._body, part)
+                             for part in flat.split(token_chunk)])
+        else:
+            out = torch.cat([self._body(part)
+                             for part in flat.split(token_chunk)])
         return out.reshape(*x.shape[:-1], out.shape[-1])
 
 

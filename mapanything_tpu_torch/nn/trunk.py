@@ -14,6 +14,11 @@ sharded over its ranks, each rank holding V/p of them. Global layers run
 their block as a `RingGlobalBlock` on the local views' patches and the
 replicated token, with no padding; the ref/non-ref embedding uses the global
 view index rank * V_local + i. Frame layers are per view and unchanged.
+
+With `gradient_checkpointing` every frame `Block` and every global block
+(`RingGlobalBlock` on the ring) is recomputed in the backward, as the JAX
+package wraps them in `nn.remat`; on the ring the recompute reissues the
+block's rotations, in the same order on every rank.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Block, Dense, FusedLayerNorm, RingGlobalBlock
+from .layers import (Block, Dense, FusedLayerNorm, RingGlobalBlock,
+                     checkpointed)
 
 
 class AlternatingAttentionTrunk(nn.Module):
@@ -34,8 +40,10 @@ class AlternatingAttentionTrunk(nn.Module):
                  distinguish_ref_and_non_ref_views: bool = True,
                  indices: Sequence[int] = (11, 17),
                  dtype: torch.dtype = torch.float32,
-                 pad_tokens_to: Optional[int] = None, device=None):
+                 pad_tokens_to: Optional[int] = None,
+                 gradient_checkpointing: bool = False, device=None):
         super().__init__()
+        self.gradient_checkpointing = gradient_checkpointing
         self.input_embed_dim = input_embed_dim
         self.dim = dim
         self.indices = tuple(indices)
@@ -48,6 +56,8 @@ class AlternatingAttentionTrunk(nn.Module):
         self.layers = nn.ModuleList(
             Block(dim, num_heads, dtype=dtype, device=device)
             for _ in range(depth))
+        for blk in self.layers:
+            blk.mlp.checkpoint_chunks = gradient_checkpointing
         for i in self.indices:
             self.add_module(f"norm_intermediate_{i}",
                             FusedLayerNorm(dim, dtype=dtype, device=device))
@@ -75,11 +85,16 @@ class AlternatingAttentionTrunk(nn.Module):
                       ).to(dt)[None, :, None, None]
             x = x + is_ref * emb[0] + (1.0 - is_ref) * emb[1]
 
+        def run(fn, *args):
+            if self.gradient_checkpointing:
+                return checkpointed(fn, *args)
+            return fn(*args)
+
         intermediates = []
         for i, blk in enumerate(self.layers):
             if i % 2 and seq_group is not None:  # global, view-sharded
-                x, tok = RingGlobalBlock(blk)(x.reshape(b, v * p, dim), tok,
-                                              seq_group, mlp_chunk)
+                x, tok = run(RingGlobalBlock(blk), x.reshape(b, v * p, dim),
+                             tok, seq_group, mlp_chunk)
                 x = x.reshape(b, v, p, dim)
             elif i % 2:  # global: [all views' patches | extra tokens | pad]
                 n_tot = v * p + tok.shape[1]
@@ -90,11 +105,11 @@ class AlternatingAttentionTrunk(nn.Module):
                     if n_pad != n_tot:
                         flat = F.pad(flat, (0, 0, 0, n_pad - n_tot))
                         n_valid = n_tot
-                flat = blk(flat, n_valid, mlp_chunk)
+                flat = run(blk, flat, n_valid, mlp_chunk)
                 x = flat[:, :v * p].reshape(b, v, p, dim)
                 tok = flat[:, v * p:n_tot]
             else:  # frame: each view on its own
-                x = blk(x.reshape(b * v, p, dim), None,
+                x = run(blk, x.reshape(b * v, p, dim), None,
                         mlp_chunk).reshape(b, v, p, dim)
             if i in self.indices:
                 feat = getattr(self, f"norm_intermediate_{i}")(x)

@@ -37,6 +37,14 @@ consecutive ranks, and on each rank
      3 timed steps each: wall ms per step, device ms per step and its
      NCCL share (torch.profiler), peak memory.
 
+With `--task NAME` the views carry geometric priors: for `--check infer`
+BASELINE config 3's (intrinsics, camera-to-world poses, the metric flag)
+and every `infer` runs the preset NAME (a deterministic one, e.g.
+pass_through); for `--check train` the batch's priors under the preset
+NAME (e.g. aug_training), each step's masks drawn from a generator seeded
+the same on every rank (check 3 then holds the view-sharded masks to the
+unsharded ones as well).
+
 Rank 0 prints one JSON line; the exit code is 1 if a check failed. With
 `--device cpu` the group is gloo and the plain kernel twins run.
 chip_smoke.py's phase 5 runs checks 1-2 on a one-process group, its phase
@@ -56,7 +64,9 @@ import torch
 import torch.distributed as dist
 
 from ..data.synthetic import make_synthetic_batch
+from ..geometry import pose_quats_trans_to_matrix
 from ..models import MapAnything, MapAnythingConfig, images_only_config
+from ..models.tasks import task_config
 from ..nn.layers import Block, RingGlobalBlock, init_weights_
 from ..ops.flash_attention import flash_attention, reset_launch_counts
 from ..perf.timing import profile_calls
@@ -116,27 +126,50 @@ def _launches() -> dict:
             "plain_launches": flash_attention.plain_launches}
 
 
-def check_inference(model, group, views, device, calls=5):
+def config3_views(views, seed: int = 7):
+    """BASELINE config 3's priors on `views` (one dict per view): intrinsics
+    (focal 0.8-1.2 x the width, centred), a camera-to-world 4x4 from a
+    seeded random unit quaternion and normal translation, the metric
+    flag."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for view in views:
+        h, w = view["img"].shape[1:3]
+        f = rng.uniform(0.8, 1.2) * w
+        k = np.array([[[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]]], np.float32)
+        quat = rng.standard_normal(4).astype(np.float32)
+        pose = pose_quats_trans_to_matrix(
+            torch.from_numpy(quat / np.linalg.norm(quat)),
+            torch.from_numpy(rng.standard_normal(3).astype(np.float32)))
+        out.append(dict(view, intrinsics=k, camera_poses=pose[None].numpy(),
+                        is_metric_scale=True))
+    return out
+
+
+def check_inference(model, group, views, device, calls=5, task=None):
     """Returns (results, the last sharded `infer` output). The launch counts
     and the peak memory are those of the timed sharded calls: 2 warm-ups
-    and `calls`, `forwards_counted` in all."""
+    and `calls`, `forwards_counted` in all. Every call runs the preset
+    `task` (infer's `task`)."""
     plain = InferencePipeline(model)
     sharded = InferencePipeline(model, view_shard_group=group)
-    ref = plain.infer(views, apply_mask=False)
-    res = output_differences(sharded.infer(views, apply_mask=False), ref)
+    ref = plain.infer(views, apply_mask=False, task=task)
+    res = output_differences(sharded.infer(views, apply_mask=False,
+                                           task=task), ref)
     model.set_attn_impl("math")
     try:
-        res.update(output_differences(plain.infer(views, apply_mask=False),
+        res.update(output_differences(plain.infer(views, apply_mask=False,
+                                                  task=task),
                                        ref, "_math_vs_flash"))
     finally:
         model.set_attn_impl("auto")
     del ref
     res["unsharded_infer_ms"], res["unsharded_infer_ms_all"] = _timed(
-        lambda: plain.infer(views), device, calls)
+        lambda: plain.infer(views, task=task), device, calls)
     last = [None]
 
     def call():
-        last[0] = sharded.infer(views)
+        last[0] = sharded.infer(views, task=task)
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -187,12 +220,14 @@ def check_block_gradient(dim, heads, n, group, device, dtype) -> dict:
             "worst_grad_rel_l2": max(errs.values()), **launches}
 
 
-def _timed_steps(step, model, batch, device, steps) -> dict:
-    """2 warm-up and `steps` timed calls of step(state, batch) from a fresh
-    TrainState: wall ms per step, the launch counts of the last step, the
-    losses, the peak memory and a profile of one more step."""
+def _timed_steps(step, model, batch, device, steps, seed=0) -> dict:
+    """2 warm-up and `steps` timed calls of step(state, batch, generator)
+    from a fresh TrainState, one generator seeded `seed` for all of them:
+    wall ms per step, the launch counts of the last step, the losses, the
+    peak memory and a profile of one more step."""
     state = create_train_state(model, OptimConfig(warmup_steps=2,
                                                   total_steps=100))
+    generator = torch.Generator(device=device).manual_seed(seed)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     losses = []
@@ -200,7 +235,7 @@ def _timed_steps(step, model, batch, device, steps) -> dict:
     def call():
         nonlocal state
         reset_launch_counts()
-        state, metrics = step(state, batch)
+        state, metrics = step(state, batch, generator)
         losses.append(float(metrics["loss"]))
 
     res = {}
@@ -214,20 +249,22 @@ def _timed_steps(step, model, batch, device, steps) -> dict:
     return res
 
 
-def check_train_step(model, batch, group, device, steps: int = 3) -> dict:
+def check_train_step(model, batch, group, device, steps: int = 3,
+                     geom_cfg=None) -> dict:
     """Check 3 on this rank: compare_sharded, then the unsharded and the
     view-sharded step timed (_timed_steps), the unsharded first. The
-    weights move in the timed steps."""
+    weights move in the timed steps. `geom_cfg`: the priors' config
+    (images only when None)."""
     res = {"ranks": dist.get_world_size(group),
            "views": batch["views"]["img"].shape[1],
-           "vs_unsharded": compare_sharded(model, batch, group)}
-    res["unsharded"] = _timed_steps(
-        make_train_step(model, images_only_config()), model, batch, device,
-        steps)
+           "vs_unsharded": compare_sharded(model, batch, group,
+                                           geom_cfg=geom_cfg)}
+    geom = geom_cfg or images_only_config()
+    res["unsharded"] = _timed_steps(make_train_step(model, geom), model,
+                                    batch, device, steps)
     res.update(_timed_steps(
-        make_view_sharded_train_step(model, images_only_config(),
-                                     group=group), model, batch, device,
-        steps))
+        make_view_sharded_train_step(model, geom, group=group), model, batch,
+        device, steps))
     return res
 
 
@@ -251,7 +288,9 @@ def _main_train(args, group, device, cfg, hw, res) -> bool:
         model = _build_model(cfg, args.weights, device)
         batch = make_synthetic_batch(1, args.views, hw, hw, seed=0,
                                      device=device)
-        mine = check_train_step(model, batch, subs[rank // p], device)
+        mine = check_train_step(
+            model, batch, subs[rank // p], device,
+            geom_cfg=task_config(args.task) if args.task else None)
         del model, batch
         if device.type == "cuda":
             torch.cuda.empty_cache()
@@ -279,6 +318,9 @@ def main(argv=None) -> int:
     parser.add_argument("--check", choices=("infer", "train"),
                         default="infer",
                         help="infer: checks 1-2; train: check 3")
+    parser.add_argument("--task", default=None,
+                        help="a preset of models/tasks.py: infer with "
+                        "config 3's priors, or train with the batch's")
     args = parser.parse_args(argv)
     if args.weights is None:
         args.weights = "init" if args.check == "train" else "normal"
@@ -297,6 +339,7 @@ def main(argv=None) -> int:
             res = {"check": "train", "ranks": dist.get_world_size(group),
                    "backend": dist.get_backend(group), "views": args.views,
                    "size": args.size, "weights": args.weights,
+                   "task": args.task,
                    "device": (torch.cuda.get_device_name(device)
                               if device.type == "cuda" else "cpu")}
             ok = _main_train(args, group, device, cfg, hw, res)
@@ -309,12 +352,15 @@ def main(argv=None) -> int:
         views = [{"img": (0.5 * rng.standard_normal((1, hw, hw, 3))).astype(
             np.float32), "data_norm_type": ["dinov2"]}
             for _ in range(args.views)]
+        if args.task:
+            views = config3_views(views)
         res = {"ranks": dist.get_world_size(group), "backend":
                dist.get_backend(group), "views": args.views, "size": args.size,
-               "weights": args.weights,
+               "weights": args.weights, "task": args.task,
                "device": (torch.cuda.get_device_name(device)
                           if device.type == "cuda" else "cpu")}
-        res["inference"], _ = check_inference(model, group, views, device)
+        res["inference"], _ = check_inference(model, group, views, device,
+                                              task=args.task)
         del model
         patches = (hw // 14) ** 2
         dim, heads = (64, 2) if test else (1024, 16)

@@ -25,6 +25,11 @@ gradient three ways:
 `compare_sharded` reads the view-sharded loss and gradient
 (train/seq_parallel.py) against the unsharded ones the same ways.
 
+Both take a `geom_cfg`: the forwards then feed the batch's views with
+their priors (the noise perturbs the image alone), and where the config
+draws at random each forward gets its own generator seeded `seed` on the
+batch's device, so that every forward sees the same masks.
+
 The command line builds the released MapAnythingConfig() on the GPU with
 the model's own seeded init, as chip_smoke.py's training phase does, and
 reads `compare` on a 1-view 518x518 batch before each of `--steps` train
@@ -112,18 +117,41 @@ def _flat_grad(outputs, params, cotangents=None,
                       for g, p in zip(grads, params)])
 
 
-def compare(model, batch: Dict) -> Dict:
+def _inputs(batch: Dict, geom_cfg, seed: int):
+    """(views, geom_cfg, generator factory) of one reading: the images alone
+    without a geom_cfg; else the batch's views, and a fresh generator
+    seeded `seed` per forward where `geom_cfg` draws at random."""
+    from ..models import images_only_config
+
+    views = batch["views"]
+    if geom_cfg is None:
+        return {"img": views["img"]}, images_only_config(), lambda: None
+    img = views["img"]
+    draws = (not geom_cfg.deterministic()) or geom_cfg.sparse_depth_prob > 0
+
+    def generator():
+        if not draws:
+            return None
+        return torch.Generator(device=img.device).manual_seed(seed)
+
+    return views, geom_cfg, generator
+
+
+def compare(model, batch: Dict, geom_cfg=None, seed: int = 0) -> Dict:
     """The readings of the module docstring for one batch ("views" with
-    "img", and "gt"), with the model's current parameters."""
+    "img", and "gt"), with the model's current parameters; the images
+    alone, or the views with their priors under `geom_cfg`."""
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
     n_views = batch["gt"]["pts3d"].shape[1]
+    views, geom, generator = _inputs(batch, geom_cfg, seed)
 
     def forward(impl, noise=False):
-        img = batch["views"]["img"]
+        img = views["img"]
         model.set_attn_impl(impl)
         try:
-            preds = model({"img": _noisy(img) if noise else img})
+            preds = model(dict(views, img=_noisy(img) if noise else img),
+                          geom, generator())
         finally:
             model.set_attn_impl("auto")
         loss, details = overall_loss(batch["gt"], preds)
@@ -176,10 +204,13 @@ def compare(model, batch: Dict) -> Dict:
 
 
 def compare_sharded(model, batch: Dict, group,
-                    cfg: OverallLossConfig = OverallLossConfig()) -> Dict:
+                    cfg: OverallLossConfig = OverallLossConfig(),
+                    geom_cfg=None, seed: int = 0) -> Dict:
     """The view-sharded loss and parameter gradient (train/seq_parallel.py,
     over the ranks of `group`) against the unsharded ones, on the same
-    model and batch ("views" with "img", and "gt"):
+    model and batch ("views" with "img", and "gt"; with `geom_cfg` the
+    views' priors too, the masks of both calls drawn from generators seeded
+    `seed`):
 
       * `loss_unsharded`, `loss_sharded` and `loss_rel_diff`;
       * `grad_rel_l2`: the sharded forward's parameter gradient pulled back
@@ -203,11 +234,12 @@ def compare_sharded(model, batch: Dict, group,
 
     params = [p for _, p in model.named_parameters()]
     p = dist.get_world_size(group)
-    img = batch["views"]["img"]
+    views, geom, generator = _inputs(batch, geom_cfg, seed)
+    img = views["img"]
     n_views = img.shape[1]
 
     def unsharded(image):
-        preds = model({"img": image})
+        preds = model(dict(views, img=image), geom, generator())
         loss, _ = overall_loss(batch["gt"], preds, cfg)
         return loss, _float_outputs(preds)
 
@@ -223,9 +255,9 @@ def compare_sharded(model, batch: Dict, group,
     full_n = _flat_grad(loss_n, params, retain_graph=False)
     del outs, loss_n
 
-    views, gt = shard_views(batch, group)
+    local, gt = shard_views(dict(batch, views=views), group)
     lo = dist.get_rank(group) * (n_views // p)
-    preds = model(views, seq_group=group)
+    preds = model(local, geom, generator(), seq_group=group)
     total, details = view_sharded_overall_loss(gt, preds, cfg, group)
     share = details["_share"]
     outs = _float_outputs(preds)

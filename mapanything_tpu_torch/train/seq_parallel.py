@@ -34,7 +34,7 @@ card by chip_smoke.py and parallel/ring_check.py.
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -57,7 +57,7 @@ from .losses import (
     compute_gradient_matching_loss,
     compute_normal_loss,
 )
-from .step import TrainState, _check_images_only, global_norm
+from .step import TrainState, global_norm
 
 # parameter gradients are summed over the ranks in flat buckets of this many
 # elements (one all_reduce each)
@@ -344,46 +344,53 @@ def _all_reduce_grads(grads, group) -> None:
 
 
 def shard_views(batch: Dict, group) -> tuple:
-    """(local image views, local GT) of this rank: its V/p consecutive views
-    of every entry with a view axis (axis 1 of the entries with two or more
-    dimensions), the per-sample entries as they are."""
+    """(local views, local GT) of this rank: its V/p consecutive views of
+    every entry with a view axis (axis 1 of the entries with two or more
+    dimensions: the images, the priors and their flags), the per-sample
+    entries as they are."""
     p, rank = dist.get_world_size(group), dist.get_rank(group)
-    img = batch["views"]["img"]
-    v = img.shape[1]
+    v = batch["views"]["img"].shape[1]
     if v % p:
         raise ValueError(f"view count {v} must be a multiple of the group "
                          f"size {p}")
     lo, hi = rank * (v // p), (rank + 1) * (v // p)
-    gt = {key: t[:, lo:hi] if t.dim() >= 2 else t
-          for key, t in batch["gt"].items()}
-    return {"img": img[:, lo:hi]}, gt
+
+    def local(entries):
+        return {key: t[:, lo:hi] if t.dim() >= 2 else t
+                for key, t in entries.items()}
+
+    return local(batch["views"]), local(batch["gt"])
 
 
 def make_view_sharded_train_step(
         model: MapAnything, geom_cfg: GeometricInputConfig,
         loss_cfg: OverallLossConfig = OverallLossConfig(),
         group=None) -> Callable:
-    """Build train_step(state, batch) -> (state, metrics) with the VIEW axis
-    sharded over the ranks of `group`: make_train_step's semantics.
+    """Build train_step(state, batch, generator=None) -> (state, metrics)
+    with the VIEW axis sharded over the ranks of `group`: make_train_step's
+    semantics.
 
     Every rank holds the same model and optimizer state (a TrainState of
-    train/step.py, its AdamW) and the whole batch; it runs its V/p views
-    (V a multiple of the group size), backpropagates its share of the loss,
-    sums the parameter gradients over the ranks and applies the same AdamW
-    step, so the parameters stay identical. metrics, the same on every
-    rank: "loss", the details of :func:`view_sharded_overall_loss` and
-    "grad_norm", the global norm before clipping. Images only, as
-    make_train_step. Runs where the model lives: the card, or the CPU with
+    train/step.py, its AdamW), the whole batch and a generator in the same
+    state; it runs its V/p views (V a multiple of the group size) with
+    their priors, backpropagates its share of the loss, sums the parameter
+    gradients over the ranks and applies the same AdamW step, so the
+    parameters stay identical. A stochastic `geom_cfg` draws the masks of
+    all V views on every rank and keeps its own (draw_prior_masks), so the
+    step computes what make_train_step computes with the same generator.
+    metrics, the same on every rank: "loss", the details of
+    :func:`view_sharded_overall_loss` and "grad_norm", the global norm
+    before clipping. Runs where the model lives: the card, or the CPU with
     a gloo group.
     """
-    _check_images_only(geom_cfg)
 
-    def train_step(state: TrainState, batch: Dict):
+    def train_step(state: TrainState, batch: Dict,
+                   generator: Optional[torch.Generator] = None):
         params = state.optimizer.params
         views, gt = shard_views(batch, group)
         for prm in params:
             prm.grad = None
-        preds = model(views, seq_group=group)
+        preds = model(views, geom_cfg, generator, seq_group=group)
         total, details = view_sharded_overall_loss(gt, preds, loss_cfg,
                                                    group)
         details.pop("_share").backward()

@@ -17,19 +17,22 @@ The optimizer is the JAX package's optax chain written out on tensors:
 
 Parameters and optimizer state are fp32 and updated in place. The forward
 computes in the model's dtype (bf16 at the released width).
+
+The step feeds the batch's views, priors included, to the model with the
+geometric config; a stochastic config (the `aug_training` mix) draws its
+masks from the torch.Generator the step is given, the JAX step's `rng`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
 
-from ..models import GeometricInputConfig, MapAnything, images_only_config
-from ..models.mapanything import TRAIN_PRIORS_ITEM
+from ..models import GeometricInputConfig, MapAnything
 from .losses import OverallLossConfig, overall_loss
 
 
@@ -167,33 +170,28 @@ def create_train_state(model: MapAnything,
     return TrainState(model=model, optimizer=make_optimizer(optim_cfg, model))
 
 
-def _check_images_only(geom_cfg: GeometricInputConfig) -> None:
-    if geom_cfg != images_only_config():
-        raise NotImplementedError(
-            f"training with geometric inputs is not ported yet: "
-            f"{TRAIN_PRIORS_ITEM}; use images_only_config()")
-
-
 def make_loss_fn(model: MapAnything, geom_cfg: GeometricInputConfig,
                  loss_cfg: OverallLossConfig = OverallLossConfig()):
-    """(batch) -> (loss, details): the model on the batch's images, then
-    the released criterion against the batch's GT."""
-    _check_images_only(geom_cfg)
+    """(batch, generator=None) -> (loss, details): the model on the batch's
+    views with `geom_cfg` (its masks drawn from `generator`), then the
+    released criterion against the batch's GT."""
 
-    def loss_fn(batch: Dict) -> tuple:
-        # images only: the views' prior keys are inputs this config ignores
-        preds = model({"img": batch["views"]["img"]})
+    def loss_fn(batch: Dict, generator: Optional[torch.Generator] = None
+                ) -> tuple:
+        preds = model(batch["views"], geom_cfg, generator)
         return overall_loss(batch["gt"], preds, loss_cfg)
 
     return loss_fn
 
 
-def loss_and_grads(loss_fn, params, batch: Dict):
+def loss_and_grads(loss_fn, params, batch: Dict,
+                   generator: Optional[torch.Generator] = None):
     """Run loss_fn forward and backward; returns (loss, details, grads) with
-    one gradient per parameter (zeros where none reached it)."""
+    one gradient per parameter (zeros where none reached it: a prior
+    encoder whose mask was 0 in this step still decays under AdamW)."""
     for p in params:
         p.grad = None
-    loss, details = loss_fn(batch)
+    loss, details = loss_fn(batch, generator)
     loss.backward()
     grads = [torch.zeros_like(p) if p.grad is None else p.grad
              for p in params]
@@ -203,19 +201,22 @@ def loss_and_grads(loss_fn, params, batch: Dict):
 def make_train_step(model: MapAnything, geom_cfg: GeometricInputConfig,
                     loss_cfg: OverallLossConfig = OverallLossConfig()
                     ) -> Callable:
-    """Build train_step(state, batch) -> (state, metrics).
+    """Build train_step(state, batch, generator=None) -> (state, metrics).
 
-    `batch` holds "views" (the model inputs) and "gt" (the supervision), as
-    data/synthetic.py makes it. Only the images-only geometric config is
-    ported; it is deterministic, so the step takes no random key (the JAX
-    step's `rng`). metrics: "loss", every loss detail, and "grad_norm", the
-    global norm before clipping; all are tensors on the model's device.
+    `batch` holds "views" (the model inputs, priors included) and "gt" (the
+    supervision), as data/synthetic.py makes it. `generator`, a
+    torch.Generator on the model's device, is the JAX step's `rng`: the
+    masks of a stochastic `geom_cfg` are drawn from it, and a stochastic
+    config without one raises ValueError. metrics: "loss", every loss
+    detail, and "grad_norm", the global norm before clipping; all are
+    tensors on the model's device.
     """
     loss_fn = make_loss_fn(model, geom_cfg, loss_cfg)
 
-    def train_step(state: TrainState, batch: Dict):
+    def train_step(state: TrainState, batch: Dict,
+                   generator: Optional[torch.Generator] = None):
         loss, details, grads = loss_and_grads(
-            loss_fn, state.optimizer.params, batch)
+            loss_fn, state.optimizer.params, batch, generator)
         norm = global_norm(grads)
         metrics = {"loss": loss,
                    **{k: v.detach() for k, v in details.items()},

@@ -25,8 +25,6 @@ import torch
 from .. import geometry as G
 from ..data.image import IMAGE_NORMALIZATION_DICT
 from ..models.mapanything import (
-    PRIOR_VIEW_KEYS,
-    SHARDED_PRIORS_ITEM,
     GeometricInputConfig,
     MapAnything,
     resolve_memory_policy,
@@ -41,8 +39,6 @@ ALLOWED_VIEW_KEYS = {
 }
 REQUIRED_KEYS = {"img", "data_norm_type"}
 CONFLICTING_KEYS = [("intrinsics", "ray_directions")]
-# the batched validity masks of the priors (stack_views)
-_VALID_KEYS = ("ray_dirs_valid", "depth_valid", "pose_valid")
 
 
 def validate_input_views_for_inference(
@@ -335,9 +331,9 @@ class InferencePipeline:
         model: the model; the pipeline follows its device.
         view_shard_group: optional torch.distributed process group: every
             forward then runs view-sharded over its ranks (sequence-parallel
-            ring attention), and every rank returns all views. The view
-            count must be a multiple of the group size. Images only: priors
-            the call does not ignore raise NotImplementedError.
+            ring attention, the priors sharded with their views), and every
+            rank returns all views. The view count must be a multiple of
+            the group size.
     """
 
     def __init__(self, model: MapAnything, view_shard_group=None):
@@ -396,23 +392,15 @@ class InferencePipeline:
             post_chunk = 8 if mem_eff else None
             chunking = None
 
+        generator = (torch.Generator(device=device).manual_seed(0)
+                     if geom_cfg.sparse_depth_prob > 0.0 else None)
         if self.view_shard_group is None:
-            generator = (torch.Generator(device=device).manual_seed(0)
-                         if geom_cfg.sparse_depth_prob > 0.0 else None)
             preds = self.model(batched, geom_cfg, generator, mem_eff,
                                chunking=chunking)
         else:
-            if geom_cfg.overall_prob > 0.0 and max(
-                    geom_cfg.ray_dirs_prob, geom_cfg.depth_prob,
-                    geom_cfg.cam_prob) > 0.0:
-                raise NotImplementedError(
-                    f"geometric priors on a view-sharded pipeline: "
-                    f"{SHARDED_PRIORS_ITEM}")
-            images = {key: t for key, t in batched.items()
-                      if key not in PRIOR_VIEW_KEYS + _VALID_KEYS}
-            preds = view_sharded_forward(self.model, images,
-                                         self.view_shard_group,
-                                         memory_efficient=mem_eff,
+            preds = view_sharded_forward(self.model, batched,
+                                         self.view_shard_group, geom_cfg,
+                                         generator, memory_efficient=mem_eff,
                                          chunking=chunking)
         out = postprocess_outputs(
             preds, batched["img"], data_norm_type=data_norm_type,

@@ -35,7 +35,10 @@ from mapanything_tpu_torch.models import (
     aug_training_config,
     tasks as PTasks,
 )
-from mapanything_tpu_torch.models.mapanything import sparsify_depth
+from mapanything_tpu_torch.models.mapanything import (
+    check_generator,
+    draw_prior_masks,
+)
 from mapanything_tpu_torch.nn import encoders as PE
 from mapanything_tpu_torch.parallel import init_distributed
 from mapanything_tpu_torch.utils import inference as PI
@@ -317,12 +320,17 @@ def test_sparse_branch_kept_share():
     """At removal 0.9 about a tenth of the pixels stay (the draw itself is
     the pinned divergence from JAX's), and the same seed gives the same
     pixels."""
-    depth = torch.ones((1, 2, 100, 100, 1))
-    kept = sparsify_depth(depth, 0.9, torch.Generator().manual_seed(0))
-    share = float((kept > 0).float().mean())
+    cfg = PTasks.task_config("registration_sparse")
+
+    def kept(seed):
+        return draw_prior_masks(cfg, 1, 2, "cpu",
+                                torch.Generator().manual_seed(seed),
+                                (100, 100))["keep_px"]
+
+    share = float(kept(0).float().mean())
     assert abs(share - 0.1) < 0.01, share
-    again = sparsify_depth(depth, 0.9, torch.Generator().manual_seed(0))
-    assert torch.equal(kept, again)
+    assert torch.equal(kept(0), kept(0))
+    assert not torch.equal(kept(0), kept(1))
 
 
 def test_sparse_preset_is_seeded(models):
@@ -337,34 +345,49 @@ def test_sparse_preset_is_seeded(models):
 
 
 def test_stochastic_configs_raise(models):
+    """Inference refuses a stochastic preset, as JAX's; the model refuses a
+    stochastic config without a generator (JAX's refusal without an rng),
+    or with one on another device, and runs it with one."""
     _, _, port = models
     views = [_view(100, intrinsics=True)]
     with pytest.raises(ValueError, match="stochastic"):
         PI.InferencePipeline(port).infer(views, task="aug_training")
     batched = PI.stack_views(PI.preprocess_input_views_for_inference(views))
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
-        port(batched, aug_training_config(),
-             generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="needs a torch.Generator"):
+        port(batched, aug_training_config())
+    # a CPU generator for a card's model (stands in: no card here)
+    with pytest.raises(ValueError, match="generator lives on cpu"):
+        check_generator(aug_training_config(), torch.Generator(), "cuda")
+    with torch.no_grad():
+        out = port(batched, aug_training_config(),
+                   generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(out["pts3d"]).all()
 
 
 def test_sharded_call_with_priors_raises(models):
+    """The view-sharded call with priors (one rank here; p = 2 and 4 in
+    tests/test_torch_train_priors.py) equals the unsharded one; a
+    stochastic config raises there, as in JAX."""
     import torch.distributed as dist
 
+    from mapanything_tpu_torch.parallel.inference import view_sharded_forward
+
     _, _, port = models
-    views = [_view(110, intrinsics=True), _view(111)]
+    views = [_view(110, intrinsics=True, camera_poses=True,
+                   is_metric_scale=True),
+             _view(111, intrinsics=True, depth_z=True)]
     group = init_distributed(device="cpu")
     try:
-        pipe = PI.InferencePipeline(port, view_shard_group=group)
-        with pytest.raises(NotImplementedError, match="queue A item 14"):
-            pipe.infer(views)
+        out = PI.InferencePipeline(port, view_shard_group=group).infer(
+            views, task="depth_completion")
         batched = PI.stack_views(
             PI.preprocess_input_views_for_inference(views))
-        with pytest.raises(NotImplementedError, match="queue A item 14"):
-            port(batched, seq_group=group)
-        # an ignored prior leaves images only, which the ring runs
-        out = pipe.infer(views, ignore_calibration_inputs=True)
+        with pytest.raises(ValueError, match="deterministic"):
+            view_sharded_forward(port, batched, group, aug_training_config(),
+                                 torch.Generator().manual_seed(0))
     finally:
         dist.destroy_process_group()
-    ref = PI.InferencePipeline(port).infer(views,
-                                           ignore_calibration_inputs=True)
-    assert_close_rel(_np(out[0]["pts3d"]), _np(ref[0]["pts3d"]), name="ring")
+    ref = PI.InferencePipeline(port).infer(views, task="depth_completion")
+    for key in ("pts3d", "depth_along_ray", "cam_quats", "conf"):
+        for o, r in zip(out, ref):
+            assert_close_rel(_np(o[key]), _np(r[key]), 1e-5, name=key)

@@ -364,8 +364,9 @@ def test_one_rank_step_matches_unsharded(step_run):
 @pytest.mark.parametrize("p,rank", [(2, 1), (4, 3)])
 def test_shard_views_takes_each_ranks_views(monkeypatch, p, rank):
     """Rank r of p gets views [r V/p, (r + 1) V/p) of every entry with a
-    view axis and the per-sample flags whole; a view count that p does not
-    divide raises."""
+    view axis, the images, the priors and their per-view flags included,
+    and the per-sample flags whole; a view count that p does not divide
+    raises."""
     import torch.distributed as dist
 
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: p)
@@ -373,8 +374,10 @@ def test_shard_views_takes_each_ranks_views(monkeypatch, p, rank):
     batch = make_synthetic_batch(2, 4, 28, 28, seed=3, device="cpu")
     views, gt = shard_views(batch, None)
     lo, hi = rank * 4 // p, (rank + 1) * 4 // p
-    assert set(views) == {"img"}
-    assert torch.equal(views["img"], batch["views"]["img"][:, lo:hi])
+    assert set(views) == set(batch["views"]) > {"img", "camera_pose_quats",
+                                                "is_metric_scale"}
+    for key, t in batch["views"].items():
+        assert torch.equal(views[key], t[:, lo:hi]), key
     for key, t in batch["gt"].items():
         assert torch.equal(gt[key], t[:, lo:hi] if t.dim() >= 2 else t), key
     batch["views"]["img"] = batch["views"]["img"][:, :3]

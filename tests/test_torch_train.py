@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import torch
 
 from mapanything_tpu.data.synthetic import make_synthetic_batch as jax_batch
+from mapanything_tpu.models import GeometricInputConfig as JaxGeomCfg
 from mapanything_tpu.models import MapAnything as JaxMapAnything
 from mapanything_tpu.models import MapAnythingConfig as JaxConfig
 from mapanything_tpu.models import images_only_config as jax_images_only
@@ -221,9 +222,31 @@ def test_three_steps_match_jax(setup):
 
 
 def test_step_rejects_geometric_inputs(setup):
-    port = _port_model(setup[1])
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
-        PS.make_train_step(port, GeometricInputConfig())
+    """The step once refused every prior; with GeometricInputConfig() (every
+    prior on) its loss and gradients now match JAX's step on the batch's
+    priors, within (a)'s 1e-4."""
+    jax_model, params, _ = setup
+    with jax.default_matmul_precision(HIGHEST):
+        jbatch = jax_batch(1, 2, H, W, seed=0)
+
+        def loss_fn(p):
+            preds = jax_model.apply(p, jbatch["views"], JaxGeomCfg())
+            return JL.overall_loss(jbatch["gt"], preds)
+
+        (ref_loss, _), ref_grads = jax.jit(
+            jax.value_and_grad(loss_fn, has_aux=True))(params)
+    port = _port_model(params)
+    ref_grads = from_jax_params(jax.tree.map(np.asarray, ref_grads), port)
+    batch = make_synthetic_batch(1, 2, H, W, seed=0, device="cpu")
+    named = list(port.named_parameters())
+    loss, _, grads = PS.loss_and_grads(
+        PS.make_loss_fn(port, GeometricInputConfig()),
+        [p for _, p in named], batch)
+    _assert_close_max(loss.numpy(), np.asarray(ref_loss), 1e-4, "loss")
+    for (name, _), g in zip(named, grads):
+        _assert_close_max(g.numpy(), ref_grads[name], 1e-4, f"d {name}")
+    assert any(float(g.abs().max()) > 0 for (name, _), g in zip(named, grads)
+               if name.startswith("cam_rot_encoder"))
 
 
 @pytest.mark.parametrize("res,views", [(518, 1), (518, 4), (392, 32)])
