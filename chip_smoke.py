@@ -209,9 +209,41 @@ Phases, in order (any failure exits non-zero and prints no result line):
      unsharded one with the same generator seed
      (grad_check.compare_sharded: loss 1e-2, gradient 2e-2) and 5 steps
      with phase 6's VS_STEP_LAUNCHES each. 0 probe and baseline launches.
+  9. Serving through serve.py at full width, a model with phase 3's
+     weights:
+     9a, the forward kernel against its plain version (phase 2's method
+     and limits, no baseline) at the shapes batched and non-square scenes
+     give it (SERVING_SHAPES: 518x392 at 4 scenes x 2 views, 518x168 at 2
+     views, the 4-view global layer at 518x392 on B2), with device ms,
+     bound, flash SDPA's time and host µs.
+     9b, four 2-view 518^2 scenes queued on a BatchingEngine(max_batch=4)
+     before its start: exactly one batched call, 48 forward launches and
+     nothing else, each scene within rel-L2 1e-2 of its solo batch-1 infer
+     (pts3d, depth_z, camera_poses, metric scale; masks off, as phase 3).
+     9c, the server as a user starts it: the model written with
+     train/checkpoints.py::save_params, then the CLI's composition
+     (serve.build_server --checkpoint FILE --port 0 --max-batch 4:
+     from_pretrained onto the card, the engine, the server, a 2-view
+     warm-up); the served model bitwise the saved one, on the card;
+     /healthz 200, a concurrent burst from client threads (BURST: 640x480
+     images only, 480x640, 640x480 with intrinsics off the centre and
+     z-depth, 1036x336 into 518x168), each response 200, of its bucket's
+     shapes, finite and within 1e-2 of the solo infer of the same
+     preprocessed scene on phase 3's model; a malformed body 400 and the
+     next request 200; /v1/stats errors 0; forward launches exactly 48 x
+     the batched calls of the window. Prints the load seconds, the
+     checkpoint's GiB, peak GiB, requests/s, latency p50 and max, batched
+     calls, scenes padded and bytes per response.
+     9d, readings not held to a limit, on the served model alone (phase
+     3's freed; masks on; median of 5 after a warm-up): the four scenes
+     through the running engine (first submit to last result: the merge,
+     the hand-off, the forward, the host copies and the split), the
+     pipeline's own batch-4 call and its batch 1: wall, views/s, device
+     ms, busy share, peak GiB. Forward launches exactly 48 per batched
+     call; 0 probe and baseline launches.
 
 The last two lines are the kernels' JSON summary (each kernel's launches:
-the counts phases 3-8 read, summed) and
+the counts phases 3-9 read, summed) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -369,32 +401,44 @@ def attention_inputs(torch, shape, n_valid, seed):
     return qkv.unbind(2)
 
 
-def kernel_vs_plain(torch, fa, fp, F):
+def kernel_vs_plain(torch, fa, fp, F, shapes=ATTENTION_SHAPES, seed=0,
+                    baseline=True):
+    """The forward kernel against its plain version at each (name, shape,
+    n_valid) of `shapes` (the real rows), with its device time, bound,
+    flash SDPA's time and host µs; with `baseline`, the same for the
+    mma.sync baseline. Returns [(name, row)]."""
     rows = []
-    for name, shape, n_valid in ATTENTION_SHAPES:
-        q, k, v = attention_inputs(torch, shape, n_valid, seed=len(rows))
+    for name, shape, n_valid in shapes:
+        q, k, v = attention_inputs(torch, shape, n_valid,
+                                   seed=seed + len(rows))
         out = fa.flash_attention(q, k, v, n_valid=n_valid)
         ref = fa.flash_attention_plain(q, k, v, n_valid=n_valid)
         torch.cuda.synchronize()
         real = shape[1] if n_valid is None else n_valid
         o, r = out[:, :real].float(), ref[:, :real].float()
-        mo = fp.flash_attention_mma(q, k, v, n_valid)[:, :real].float()
         row = {
             "shape": list(shape), "n_valid": n_valid,
             "max_abs_err": float((o - r).abs().max()),
             "rel_l2": rel_l2(o, r),
-            "mma_max_abs_err": float((mo - r).abs().max()),
-            "mma_rel_l2": rel_l2(mo, r),
             "ms": kernel_ms(lambda: fa.flash_attention(q, k, v, n_valid)),
-            "mma_ms": kernel_ms(
-                lambda: fp.flash_attention_mma(q, k, v, n_valid)),
             "plain_ms": plain_ms(
                 lambda: fa.flash_attention_plain(q, k, v, n_valid)),
             "host_us": host_us(
                 lambda: fa._fwd_cuda(q, k, v, n_valid, with_lse=False)),
-            "mma_host_us": host_us(
-                lambda: fp.flash_attention_mma(q, k, v, n_valid)),
         }
+        mma = ""
+        if baseline:
+            mo = fp.flash_attention_mma(q, k, v, n_valid)[:, :real].float()
+            row.update({
+                "mma_max_abs_err": float((mo - r).abs().max()),
+                "mma_rel_l2": rel_l2(mo, r),
+                "mma_ms": kernel_ms(
+                    lambda: fp.flash_attention_mma(q, k, v, n_valid)),
+                "mma_host_us": host_us(
+                    lambda: fp.flash_attention_mma(q, k, v, n_valid)),
+            })
+            mma = f" mma.sync {row['mma_ms']:.4f} ms"
+            del mo
         flops = fa.attention_flops(shape[0], shape[1], real, shape[2],
                                    shape[3])
         row["tflops"] = flops / row["ms"] / 1e9
@@ -402,14 +446,15 @@ def kernel_vs_plain(torch, fa, fp, F):
         row["library_ms"] = library_fwd_ms(torch, *sdpa_layout(q, k, v, real))
         print(f"attention {name} {tuple(shape)} n_valid={n_valid}: "
               f"max_abs={row['max_abs_err']:.3e} rel_l2={row['rel_l2']:.3e} "
-              f"kernel {row['ms']:.4f} ms ({row['tflops']:.2f} TFLOP/s) "
-              f"mma.sync {row['mma_ms']:.4f} ms plain {row['plain_ms']:.4f} "
+              f"kernel {row['ms']:.4f} ms ({row['tflops']:.2f} TFLOP/s)"
+              f"{mma} plain {row['plain_ms']:.4f} "
               f"ms bound {row['bound_ms']:.4f} ms ({row['bound_by']}) "
               f"library {row['library_ms']:.4f} ms; host "
-              f"{row['host_us']:.1f} us (mma.sync {row['mma_host_us']:.1f})",
+              f"{row['host_us']:.1f} us"
+              + (f" (mma.sync {row['mma_host_us']:.1f})" if baseline else ""),
               flush=True)
         rows.append((name, row))
-        del q, k, v, out, ref, o, r, mo
+        del q, k, v, out, ref, o, r
         torch.cuda.empty_cache()
     return rows
 
@@ -824,12 +869,12 @@ def write_images(folder: str, n: int) -> list[str]:
     return paths
 
 
-def check_outputs(out, num_views, torch) -> str | None:
+def check_outputs(out, num_views, torch, batch=1) -> str | None:
     expect = {
-        "pts3d": (1, 518, 518, 3), "depth_along_ray": (1, 518, 518, 1),
-        "intrinsics": (1, 3, 3), "camera_poses": (1, 4, 4),
-        "conf": (1, 518, 518), "mask": (1, 518, 518, 1),
-        "metric_scaling_factor": (1,),
+        "pts3d": (batch, 518, 518, 3), "depth_along_ray": (batch, 518, 518, 1),
+        "intrinsics": (batch, 3, 3), "camera_poses": (batch, 4, 4),
+        "conf": (batch, 518, 518), "mask": (batch, 518, 518, 1),
+        "metric_scaling_factor": (batch,),
     }
     if len(out) != num_views:
         return f"{len(out)} views returned, expected {num_views}"
@@ -1143,11 +1188,13 @@ def timed_infer(torch, fa, pipe, views, calls, **kw):
     counts = dict(fa.flash_attention.kernel_counts)
     plain = fa.flash_attention.plain_launches
     wall = statistics.median(times)
-    res = {"views": len(views), "calls": calls, "wall_ms": wall,
-           "wall_ms_all": times, "views_per_s": len(views) / wall * 1e3,
+    batch = len(views[0]["img"])
+    res = {"views": len(views), "batch": batch, "calls": calls,
+           "wall_ms": wall, "wall_ms_all": times,
+           "views_per_s": batch * len(views) / wall * 1e3,
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
            "kernel_counts": counts, "plain_launches": plain}
-    bad = check_outputs(out, len(views), torch)
+    bad = check_outputs(out, len(views), torch, batch)
     want = dict.fromkeys(fa.KERNELS, 0) | {"fwd": FORWARD_LAUNCHES * calls}
     if not bad and (counts != want or plain != 0):
         bad = (f"kernel launches {counts} and {plain} plain in {calls} "
@@ -1864,6 +1911,360 @@ def training_with_priors(torch, fa, fp, F, load_images):
     return counts, untouched_baseline(fp)
 
 
+# phase 9: serving through serve.py at full width. The forward at the
+# shapes batched and non-square scenes give it (patches = 37 x rows of 14;
+# the encoder adds a class token and the global layer the scale token, both
+# padded to 128 keys):
+SERVING_SHAPES = [
+    # 518x392 (37 x 28 = 1036 patches), a batch of 4 scenes of 2 views
+    ("encoder_518x392_b4x2", (8, 1152, 16, 64), 1037),
+    ("frame_518x392_b4x2", (8, 1036, 16, 64), None),
+    ("global_518x392_b4x2", (4, 2176, 16, 64), 2073),
+    # 518x168 (37 x 12 = 444 patches), 2 views
+    ("encoder_518x168_2view", (2, 512, 16, 64), 445),
+    ("global_518x168_2view", (1, 896, 16, 64), 889),
+    # 4 views of 518x392: 4145 keys, past the one-pass limit (B2)
+    ("global_518x392_4view", (1, 4224, 16, 64), 4145),
+]
+SERVE_BATCH = 4  # scenes per batched call: bench.py's headline batch
+SERVE_CALLS = 5
+HTTP_TIMEOUT = 300.0
+# the HTTP burst: (raw width, raw height, with intrinsics and depth_z,
+# scenes); each scene 2 views
+BURST = [(640, 480, False, 4), (480, 640, False, 2), (640, 480, True, 2),
+         (1036, 336, False, 1)]
+COMPARED = ("pts3d", "depth_z", "camera_poses", "metric_scaling_factor")
+
+
+def raw_views(w: int, h: int, seed: int, priors: bool) -> dict:
+    """Two raw client views of (w, h) as the npz of a request: uint8 images
+    (smooth patterns and noise, as write_images), and with `priors`
+    intrinsics whose principal point lies off the centre (the crop moves
+    it) and a smooth z-depth in metres."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w] / max(w, h)
+    imgs = []
+    for i in range(2):
+        base = np.stack([np.sin(6 * xx + seed + i), np.cos(5 * yy - i),
+                         np.sin(4 * (xx + yy) + seed)], -1)
+        img = 127.5 * (1 + 0.8 * base) + rng.normal(0, 8, base.shape)
+        imgs.append(np.clip(img, 0, 255).astype(np.uint8))
+    arrays = {"images": np.stack(imgs)}
+    if priors:
+        f = 0.9 * w
+        k = np.array([[f, 0, 0.45 * w], [0, f, 0.55 * h], [0, 0, 1]],
+                     np.float32)
+        arrays["intrinsics"] = np.stack([k, k])
+        arrays["depth_z"] = np.stack([
+            (2.0 + np.sin(3 * xx + i) + 0.5 * yy).astype(np.float32)
+            for i in range(2)])
+    return arrays
+
+
+def npz_body(arrays: dict) -> bytes:
+    import io
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def http_call(url: str, body: bytes | None = None):
+    """(status, body bytes, seconds) of a GET (body None) or a POST."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body,
+                                 method="GET" if body is None else "POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+            status, data = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        with e:
+            status, data = e.code, e.read()
+    return status, data, time.perf_counter() - t0
+
+
+def scene_errors(got, ref, torch) -> dict:
+    """Relative error of a served scene (per-view numpy dicts) against a
+    solo infer (per-view (1, ...) tensors): rel-L2 over the views for each
+    of COMPARED."""
+    return {key: rel_l2(torch.stack([torch.as_tensor(g[key]) for g in got]),
+                        torch.stack([r[key][0].cpu() for r in ref]))
+            for key in COMPARED}
+
+
+def batched_call(torch, fa, fp, serve, pipe, scenes):
+    """9b: SERVE_BATCH scenes queued before the engine starts make exactly
+    one batched call (48 forward launches, nothing else), each scene
+    within ERR_LIMIT of its solo batch-1 infer. apply_mask=False on both,
+    as phase 3 compares: the masks' threshold on near-zero random logits
+    flips pixels under any bf16-level change. Returns (results, failure
+    or None)."""
+    solo = [pipe.infer(s, apply_mask=False) for s in scenes]
+    torch.cuda.synchronize()
+    engine = serve.BatchingEngine(pipe, max_batch=SERVE_BATCH)
+    fa.reset_launch_counts()
+    futures = [engine.submit(s, apply_mask=False) for s in scenes]
+    engine.start()
+    try:
+        outs = [f.result(timeout=HTTP_TIMEOUT) for f in futures]
+    finally:
+        engine.stop()
+    stats = engine.stats_dict()
+    res = {"stats": stats, "scene_rel_err": [
+        scene_errors(o, r, torch) for o, r in zip(outs, solo)]}
+    bad = expect_launches(fa, {"fwd": FORWARD_LAUNCHES}, "batched call")
+    res["kernel_counts"] = launches_of(fa)
+    if stats["batched_calls"] != 1:
+        bad = f"{stats['batched_calls']} batched calls, expected 1"
+    worst = max(v for e in res["scene_rel_err"] for v in e.values())
+    if not bad and not worst <= ERR_LIMIT:
+        bad = f"a scene of the batch against its solo infer: {res}"
+    return res, bad or untouched_baseline(fp)
+
+
+def served_checkpoint(torch, serve, save_params, model, folder):
+    """9c's server as a user starts it: `model` written with save_params
+    into `folder`, then the CLI's composition (serve.build_server prints
+    the load seconds). The served model must hold the saved tensors
+    bitwise, on the card. Returns (readings, engine, server, failure or
+    None); the caller stops the engine and the server."""
+    path = os.path.join(folder, "params.pt")
+    t0 = time.perf_counter()
+    save_params(path, model)
+    save_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine, server = serve.build_server(
+        ["--checkpoint", path, "--port", "0", "--max-batch", str(SERVE_BATCH)])
+    res = {"checkpoint_gib": os.path.getsize(path) / 2**30, "save_s": save_s,
+           "build_server_s": time.perf_counter() - t0,
+           "loaded_gib": (torch.cuda.memory_allocated() - before) / 2**30,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    served = engine.pipeline.model
+    got, want = served.state_dict(), model.state_dict()
+    res["bitwise_equal"] = list(got) == list(want) and all(
+        torch.equal(got[key], want[key]) for key in want)
+    res["device"] = next(served.parameters()).device.type
+    if not res["bitwise_equal"] or res["device"] != "cuda":
+        return res, engine, server, f"the served model: {res}"
+    return res, engine, server, None
+
+
+def http_burst(torch, fa, serve, pipe, engine, server):
+    """9c: over the running `server` and its `engine`: /healthz, a
+    concurrent burst (BURST), a malformed body (400) and one more request;
+    every response 200, of the bucket's shapes, finite and within ERR_LIMIT
+    of `pipe`'s solo infer of the same preprocessed scene; /v1/stats
+    errors 0; forward launches 48 x the batched calls of the window.
+    Returns (results, the window's kernel counts, failure or None)."""
+    import io
+    import threading
+
+    import numpy as np
+
+    base = f"http://127.0.0.1:{server.port}"
+    health = http_call(base + "/healthz")[0]
+    if health != 200:
+        return {"healthz": health}, {}, f"/healthz read {health}"
+    requests, seed = [], 0
+    for w, h, priors, n in BURST:
+        for _ in range(n):
+            seed += 1
+            requests.append(raw_views(w, h, seed, priors))
+    bodies = [npz_body(a) for a in requests]
+    url = base + "/v1/infer?apply_mask=0"
+    answers = [None] * len(bodies)
+
+    def post(i):
+        answers[i] = http_call(url, bodies[i])
+
+    fa.reset_launch_counts()
+    calls0 = engine.stats_dict()["batched_calls"]
+    threads = [threading.Thread(target=post, args=(i,))
+               for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(HTTP_TIMEOUT)
+    burst_s = time.perf_counter() - t0
+    malformed = http_call(url, b"not an npz")[0]
+    after = http_call(url, bodies[0])
+    stats = json.loads(http_call(base + "/v1/stats")[1])
+    calls = stats["batched_calls"] - calls0
+    counts = launches_of(fa)
+    lat = sorted(a[2] * 1e3 for a in answers if a is not None)
+    res = {"requests": len(bodies), "burst_s": burst_s,
+           "requests_per_s": len(bodies) / burst_s,
+           "latency_ms_p50": statistics.median(lat) if lat else None,
+           "latency_ms_max": max(lat) if lat else None,
+           "batched_calls": calls, "stats": stats,
+           "response_bytes_mean": statistics.mean(
+               len(a[1]) for a in answers if a is not None),
+           "malformed_status": malformed, "after_status": after[0],
+           "kernel_counts": counts}
+    if any(a is None or a[0] != 200 for a in answers) or after[0] != 200:
+        return res, counts, ("a request failed: " + str(
+            [None if a is None else (a[0], a[1][:200]) for a in answers]))
+    if malformed != 400 or stats["errors"] != 0:
+        return res, counts, (f"malformed body {malformed} (400 "
+                             f"expected), /v1/stats errors "
+                             f"{stats['errors']}")
+    bad = expect_launches(fa, {"fwd": FORWARD_LAUNCHES * calls},
+                          f"{calls} batched calls")
+    if bad:
+        return res, counts, bad
+    # the solo infer of each scene as the server preprocessed it
+    errs = []
+    for arrays, (_, data, _) in zip(requests, answers):
+        got = dict(np.load(io.BytesIO(data)))
+        views = serve._views_from_npz(arrays, 518)
+        h, w = views[0]["img"].shape[1:3]
+        if got["pts3d"].shape != (2, h, w, 3) or not all(
+                np.isfinite(v).all() for v in got.values()):
+            return res, counts, (f"response of shape "
+                                 f"{got['pts3d'].shape} or not finite")
+        ref = pipe.infer(views, apply_mask=False)
+        errs.append(scene_errors(
+            [{k: v[j] for k, v in got.items()} for j in range(2)],
+            ref, torch) | {"bucket": [w, h]})
+    res["scene_rel_err"] = errs
+    worst = max(v for e in errs for k, v in e.items() if k != "bucket")
+    if not worst <= ERR_LIMIT:
+        return res, counts, (f"a served scene against its solo infer: "
+                             f"{errs}")
+    return res, counts, None
+
+
+def engine_reading(torch, fa, engine, scenes, calls, **flags):
+    """9d through the running engine: `scenes` submitted together, timed
+    from the first submit to the last result (the merge, the hand-off to
+    the worker, the forward, the host copies and the split); the median of
+    `calls` after one warm-up, then a torch.profiler trace of one more.
+    Forward launches exactly 48 per batched call. Returns (res, failure or
+    None)."""
+    def call():
+        futures = [engine.submit(scene, **flags) for scene in scenes]
+        return [f.result(timeout=HTTP_TIMEOUT) for f in futures]
+
+    call()
+    torch.cuda.reset_peak_memory_stats()
+    calls0 = engine.stats_dict()["batched_calls"]
+    fa.reset_launch_counts()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        call()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = launches_of(fa)
+    batched = engine.stats_dict()["batched_calls"] - calls0
+    wall = statistics.median(times)
+    res = {"views": len(scenes[0]), "scenes": len(scenes), "calls": calls,
+           "batched_calls": batched, "wall_ms": wall, "wall_ms_all": times,
+           "views_per_s": len(scenes) * len(scenes[0]) / wall * 1e3,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "kernel_counts": counts,
+           "plain_launches": fa.flash_attention.plain_launches}
+    bad = expect_launches(fa, {"fwd": FORWARD_LAUNCHES * batched},
+                          f"{batched} batched calls")
+    if not bad:
+        res["profile"] = profile_calls(torch, call, wall, calls=1)
+    return res, bad
+
+
+def serving_engine(torch, fa, fp, F, load_images):
+    """Phase 9 (9a-9d). Returns (kernel rows, the kernel counts of its
+    runs, failure or None)."""
+    import gc
+
+    from mapanything_tpu_torch import serve
+    from mapanything_tpu_torch.models import MapAnything, MapAnythingConfig
+    from mapanything_tpu_torch.train import save_params
+    from mapanything_tpu_torch.utils.inference import InferencePipeline
+    from mapanything_tpu_torch.utils.weights import random_normal_
+
+    # 9a: the forward at the serving shapes
+    rows = kernel_vs_plain(torch, fa, fp, F, SERVING_SHAPES, seed=900,
+                           baseline=False)
+    for name, row in rows:
+        row["at"] = name
+        if not max(row["max_abs_err"], row["rel_l2"]) <= ERR_LIMIT:
+            return rows, [], f"kernel disagrees with plain at {name}: {row}"
+
+    model = MapAnything(MapAnythingConfig())
+    random_normal_(model)
+    model.eval()
+    pipe = InferencePipeline(model)
+    counts, engine, server = [], None, None
+    try:
+        with tempfile.TemporaryDirectory() as folder:
+            paths = write_images(folder, 2 * SERVE_BATCH)
+            scenes = [load_images(paths[2 * i:2 * i + 2])
+                      for i in range(SERVE_BATCH)]
+        # 9b: one deterministic batched call
+        res, bad = batched_call(torch, fa, fp, serve, pipe, scenes)
+        print(f"phase 9b, {SERVE_BATCH} queued 2-view scenes: "
+              f"{json.dumps(res)}", flush=True)
+        if bad:
+            return rows, counts, f"9b: {bad}"
+        counts.append(res["kernel_counts"])
+        # 9c: the CLI's server over a checkpoint of this model, and HTTP
+        with tempfile.TemporaryDirectory() as folder:
+            res, engine, server, bad = served_checkpoint(
+                torch, serve, save_params, model, folder)
+        print(f"phase 9c, served checkpoint: {json.dumps(res)}", flush=True)
+        if bad:
+            return rows, counts, f"9c: {bad}"
+        res, window, bad = http_burst(torch, fa, serve, pipe, engine, server)
+        print(f"phase 9c, HTTP burst: {json.dumps(res)}", flush=True)
+        if bad:
+            return rows, counts, f"9c: {bad}"
+        counts.append(window)
+        # 9d: readings on the served model alone, masks on
+        pipe = model = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        flags = dict(apply_mask=True, mask_edges=True)
+        readings = {}
+        r, bad = engine_reading(torch, fa, engine, scenes, SERVE_CALLS,
+                                **flags)
+        readings["engine_batch4"] = r
+        if bad:
+            return rows, counts, f"9d engine_batch4: {bad}"
+        counts.append(r["kernel_counts"])
+        for name, views in (("pipeline_batch4", serve.merge_scenes(scenes)),
+                            ("pipeline_batch1", scenes[0])):
+            r, _, bad = timed_infer(torch, fa, engine.pipeline, views,
+                                    SERVE_CALLS, **flags)
+            if bad:
+                return rows, counts, f"9d {name}: {bad}"
+            counts.append(r["kernel_counts"])
+            readings[name] = r
+        for name, r in readings.items():
+            prof = r.get("profile", {})
+            print(f"phase 9d, {name} x 2 views at 518^2: wall "
+                  f"{r['wall_ms']:.2f} ms ({r['views_per_s']:.2f} views/s), "
+                  f"device {prof.get('device_ms', float('nan')):.2f} ms, busy "
+                  f"{prof.get('busy_share', float('nan')):.3f}, peak "
+                  f"{r['peak_memory_gib']:.2f} GiB", flush=True)
+        print(f"phase 9d: {json.dumps(readings)}", flush=True)
+    finally:
+        if server is not None:
+            server.stop()
+        if engine is not None:
+            engine.stop()
+    return rows, counts, untouched_baseline(fp)
+
+
 def timing(row):
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms", "mma_ms",
@@ -1873,7 +2274,7 @@ def timing(row):
 def kernels_summary(fp, attn, train_rows, ring_rows, merge, probe_rows,
                     phase_counts) -> list:
     """The kernels' JSON rows: each kernel at its main-path shape with its
-    launches in phases 3-8 (phase_counts: the kernel counts each of those
+    launches in phases 3-9 (phase_counts: the kernel counts each of those
     runs read, reset just before it), the baselines and the probes."""
     launches = {kname: sum(counts[key] for counts in phase_counts)
                 for kname, key in COUNTER.items()}
@@ -2107,7 +2508,7 @@ def main() -> int:
             return fail(f"probe {case} disagrees with its plain version: "
                         f"{row}")
 
-    # phases 3-8 run the main path: no probe and no baseline launch
+    # phases 3-9 run the main path: no probe and no baseline launch
     fp.reset_probe_counts()
 
     # phase 3: serving at full width
@@ -2242,10 +2643,22 @@ def main() -> int:
     print(f"phase 8 (training with priors) took "
           f"{time.perf_counter() - t8:.1f} s", flush=True)
 
+    # phase 9: serving through serve.py at full width
+    t9 = time.perf_counter()
+    torch.cuda.empty_cache()
+    serve_rows, phase9_counts, bad = serving_engine(torch, fa, fp, F,
+                                                    load_images)
+    if bad:
+        return fail(f"phase 9: {bad}")
+    print(f"phase 9 (serving engine and HTTP) took "
+          f"{time.perf_counter() - t9:.1f} s", flush=True)
+    attn = attn + serve_rows
+
     phase_counts = [serving,
                     {key: train[f"{key}_launches"] for key in fa.KERNELS},
                     ring_res["kernel_counts"], block_res["kernel_counts"],
-                    vs_train["launches"]] + phase7_counts + phase8_counts
+                    vs_train["launches"]] + (phase7_counts + phase8_counts
+                                             + phase9_counts)
     kernels = kernels_summary(fp, attn, train_rows, ring_rows, merge,
                               probe_rows, phase_counts)
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s",

@@ -1,16 +1,19 @@
-"""Host-side image loading with aspect-ratio bucketing; counterpart of
-mapanything_tpu/data/image.py::load_images (numpy and PIL only).
+"""Host-side image loading and preprocessing with aspect-ratio bucketing;
+counterpart of mapanything_tpu/data/image.py (numpy and PIL only).
 
 Every input set maps to one of ten (W, H) buckets per resolution set, chosen
 by the average aspect ratio; each image is Lanczos-downscaled (bicubic when
-upscaling) to cover the bucket, centre-cropped and normalised. Images leave
-as (1, H, W, 3) float32 NHWC numpy arrays.
+upscaling) to cover the bucket and cropped to it. With intrinsics the crop
+keeps the principal point where the camera put it and the intrinsics follow
+the scale and the crop (COLMAP pixel-centre convention); z-depth follows by
+a nearest-neighbour resize with OpenCV's index rule, written in numpy.
+Images leave as (1, H, W, 3) float32 NHWC numpy arrays, normalised.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import PIL.Image
@@ -49,19 +52,127 @@ def find_closest_aspect_ratio(aspect_ratio: float, resolution_set: int = 518):
     return table[min(table, key=lambda k: abs(k - aspect_ratio))]
 
 
-def resize_and_center_crop(image: PIL.Image.Image,
-                           resolution: tuple[int, int]) -> PIL.Image.Image:
-    """Scale so the image covers `resolution` (W, H) - Lanczos down,
-    bicubic up - then crop its centre."""
-    size = np.array(image.size)
-    scale = max(np.array(resolution) / size) + 1e-8
-    target = tuple(np.floor(size * scale).astype(int))
-    resample = PIL.Image.LANCZOS if scale < 1 else PIL.Image.BICUBIC
-    image = image.resize(target, resample=resample)
-    w, h = image.size
-    tw, th = resolution
-    left, top = (w - tw) // 2, (h - th) // 2
-    return image.crop((left, top, left + tw, top + th))
+# ---------------------------------------------------------------------------
+# Rescaling and cropping with the intrinsics' bookkeeping
+# ---------------------------------------------------------------------------
+
+
+def _colmap_shift(K: np.ndarray, sign: float) -> np.ndarray:
+    K = K.copy()
+    K[0, 2] += 0.5 * sign
+    K[1, 2] += 0.5 * sign
+    return K
+
+
+def camera_matrix_of_crop(input_camera_matrix: np.ndarray, input_resolution,
+                          output_resolution, scaling: float = 1.0,
+                          offset_factor: float = 0.5) -> np.ndarray:
+    """Intrinsics after a scale and a crop: in COLMAP's pixel-centre
+    convention, scale focal and principal point, shift by the crop's
+    offset (`offset_factor` of the margins)."""
+    margins = (np.asarray(input_resolution) * scaling
+               - np.asarray(output_resolution))
+    if not np.all(margins >= 0.0):
+        raise ValueError(f"crop larger than the image: margins {margins}")
+    K = _colmap_shift(input_camera_matrix, +1)  # OpenCV -> COLMAP
+    K[:2, :] *= scaling
+    K[:2, 2] -= offset_factor * margins
+    return _colmap_shift(K, -1)  # COLMAP -> OpenCV
+
+
+def bbox_from_intrinsics_in_out(input_camera_matrix, output_camera_matrix,
+                                output_resolution):
+    """The crop box (left, top, right, bottom) that moves the principal
+    point from the input intrinsics' to the output's."""
+    out_width, out_height = output_resolution
+    left, top = np.int32(np.round(
+        input_camera_matrix[:2, 2] - output_camera_matrix[:2, 2]))
+    return (left, top, left + out_width, top + out_height)
+
+
+def resize_nearest(arr: np.ndarray, size) -> np.ndarray:
+    """`arr` (H, W, ...) resized to `size` (W, H) by nearest neighbour with
+    the index rule of OpenCV's INTER_NEAREST: source index
+    min(floor(i * (1 / (dst / src))), src - 1), in float64."""
+    w, h = (int(x) for x in size)
+    sh, sw = arr.shape[:2]
+    ys = np.minimum(np.floor(np.arange(h) * (1.0 / (h / sh))).astype(np.int64),
+                    sh - 1)
+    xs = np.minimum(np.floor(np.arange(w) * (1.0 / (w / sw))).astype(np.int64),
+                    sw - 1)
+    return arr[ys[:, None], xs]
+
+
+def rescale_image_and_other_optional_info(
+        image: PIL.Image.Image, output_resolution,
+        depthmap: Optional[np.ndarray] = None,
+        camera_intrinsics: Optional[np.ndarray] = None):
+    """Scale so the image covers `output_resolution` (W, H): Lanczos when
+    downscaling, bicubic when upscaling, nearest for the depth; the
+    intrinsics follow the scale."""
+    input_resolution = np.array(image.size)  # (W, H)
+    scale_final = max(np.array(output_resolution) / image.size) + 1e-8
+    target = np.floor(input_resolution * scale_final).astype(int)
+
+    resample = PIL.Image.LANCZOS if scale_final < 1 else PIL.Image.BICUBIC
+    image = image.resize(tuple(target), resample=resample)
+    if depthmap is not None:
+        depthmap = resize_nearest(depthmap, target)
+    if camera_intrinsics is not None:
+        camera_intrinsics = camera_matrix_of_crop(
+            camera_intrinsics, input_resolution, target, scaling=scale_final)
+    return image, depthmap, camera_intrinsics
+
+
+def crop_image_and_other_optional_info(image, crop_bbox, depthmap=None,
+                                       camera_intrinsics=None):
+    """Crop the image and the depth to `crop_bbox`; the principal point
+    moves with the crop."""
+    left, top, right, bottom = crop_bbox
+    image = image.crop((left, top, right, bottom))
+    if depthmap is not None:
+        depthmap = depthmap[top:bottom, left:right]
+    if camera_intrinsics is not None:
+        camera_intrinsics = camera_intrinsics.copy()
+        camera_intrinsics[0, 2] -= left
+        camera_intrinsics[1, 2] -= top
+    return image, depthmap, camera_intrinsics
+
+
+def crop_resize_if_necessary(image, resolution,
+                             depthmap: Optional[np.ndarray] = None,
+                             intrinsics: Optional[np.ndarray] = None):
+    """Cover `resolution` (W, H), then crop to it: centred without
+    intrinsics; with them, the crop that keeps the principal point's offset
+    (camera_matrix_of_crop at offset factor 0.5). Returns the image alone,
+    or a tuple of the image, then the depth and the intrinsics that were
+    given."""
+    if not isinstance(image, PIL.Image.Image):
+        image = PIL.Image.fromarray(image)
+
+    image, depthmap, intrinsics = rescale_image_and_other_optional_info(
+        image, resolution, depthmap, intrinsics)
+
+    if intrinsics is not None:
+        new_intrinsics = camera_matrix_of_crop(intrinsics, image.size,
+                                               resolution, offset_factor=0.5)
+        crop_bbox = bbox_from_intrinsics_in_out(intrinsics, new_intrinsics,
+                                                resolution)
+    else:
+        w, h = image.size
+        tw, th = resolution
+        left, top = (w - tw) // 2, (h - th) // 2
+        crop_bbox = (left, top, left + tw, top + th)
+
+    image, depthmap, intrinsics = crop_image_and_other_optional_info(
+        image, crop_bbox, depthmap, intrinsics)
+    out = (image,) + tuple(x for x in (depthmap, intrinsics) if x is not None)
+    return out if len(out) > 1 else out[0]
+
+
+# ---------------------------------------------------------------------------
+# load_images / preprocess_inputs
+# ---------------------------------------------------------------------------
 
 
 def _normalize(img: PIL.Image.Image, norm_type: str) -> np.ndarray:
@@ -100,7 +211,7 @@ def load_images(folder_or_list: Union[str, Sequence], norm_type: str = "dinov2",
 
     views = []
     for idx, im in enumerate(pil_images):
-        im = resize_and_center_crop(im, (target_w, target_h))
+        im = crop_resize_if_necessary(im, (target_w, target_h))
         entry = entries[idx]
         views.append({
             "img": _normalize(im, norm_type)[None],
@@ -111,3 +222,72 @@ def load_images(folder_or_list: Union[str, Sequence], norm_type: str = "dinov2",
             "data_norm_type": [norm_type],
         })
     return views
+
+
+def preprocess_inputs(views: List[Dict[str, Any]], norm_type: str = "dinov2",
+                      resolution_set: int = 518) -> List[Dict[str, Any]]:
+    """The multimodal counterpart of load_images: every view's image into
+    the bucket of the set's average aspect ratio, its z-depth resized with
+    it (nearest) and its intrinsics rescaled and shifted by the crop.
+
+    Input views carry 'img' as an HWC uint8 or [0, 1] float array or a PIL
+    image, and optionally 'depth_z' (H, W) or (H, W, 1), 'intrinsics'
+    (3, 3), 'camera_poses' (4, 4) and 'is_metric_scale'. The output views
+    follow the inference API: 'img' (1, H, W, 3) normalised, 'depth_z'
+    (1, H, W, 1), 'intrinsics' (1, 3, 3), 'camera_poses' (1, 4, 4),
+    'is_metric_scale' (1,) bool, with 'true_shape', 'idx', 'instance' and
+    'data_norm_type'.
+    """
+    pil_images = []
+    for v in views:
+        img = v["img"]
+        if isinstance(img, PIL.Image.Image):
+            pil_images.append(img.convert("RGB"))
+        else:
+            arr = np.asarray(img)
+            if arr.dtype != np.uint8:
+                arr = (np.clip(arr, 0, 1) * 255).astype(np.uint8)
+            pil_images.append(PIL.Image.fromarray(arr))
+
+    avg_ar = float(np.mean([im.size[0] / im.size[1] for im in pil_images]))
+    target_w, target_h = find_closest_aspect_ratio(avg_ar, resolution_set)
+
+    out_views = []
+    for idx, (v, im) in enumerate(zip(views, pil_images)):
+        depth = v.get("depth_z")
+        if depth is not None:
+            depth = np.asarray(depth, np.float32)
+            if depth.ndim == 3:
+                depth = depth[..., 0]
+        K = v.get("intrinsics")
+        if K is not None:
+            K = np.asarray(K, np.float32).copy()
+
+        result = crop_resize_if_necessary(im, (target_w, target_h),
+                                          depthmap=depth, intrinsics=K)
+        result = list(result) if isinstance(result, tuple) else [result]
+        im2 = result.pop(0)
+        depth2 = result.pop(0) if depth is not None else None
+        K2 = result.pop(0) if K is not None else None
+
+        out = {
+            "img": _normalize(im2, norm_type)[None],
+            "true_shape": [(target_h, target_w)],
+            "idx": [idx],
+            "instance": [str(idx)],
+            "data_norm_type": [norm_type],
+        }
+        if depth2 is not None:
+            out["depth_z"] = depth2[None, ..., None]
+        if K2 is not None:
+            out["intrinsics"] = K2[None]
+        if "camera_poses" in v:
+            poses = np.asarray(v["camera_poses"], np.float32)
+            out["camera_poses"] = poses[None] if poses.ndim == 2 else poses
+        if "is_metric_scale" in v:
+            # a (1,) bool array, batched along axis 0 like every other
+            # per-view array (serve.py merges scenes that way)
+            out["is_metric_scale"] = np.atleast_1d(
+                np.asarray(v["is_metric_scale"], bool))
+        out_views.append(out)
+    return out_views
