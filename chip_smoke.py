@@ -241,9 +241,38 @@ Phases, in order (any failure exits non-zero and prints no result line):
      pipeline's own batch-4 call and its batch 1: wall, views/s, device
      ms, busy share, peak GiB. Forward launches exactly 48 per batched
      call; 0 probe and baseline launches.
+ 10. Training from a WAI tree at full width through the training CLI:
+     10a, the forward with lse (out and lse), dK/dV, dQ and the pair row
+     against their plain versions (phase 2b's method and limits, no
+     baseline) at the shapes the loader's 2 x 4-view batches give them
+     (LOADER_SHAPES: 518x392 encoder (8, 1152) / 1037, frame (8, 1036),
+     global (2, 4224) / 4145; 518x336 (8, 896) / 889, (8, 888), (2, 3584)
+     / 3553), with device ms, bound, flash SDPA's with-lse forward or
+     FA2's backward, and host µs; and the lse-free forward against its
+     plain version (9a's method and limits) at the validation batches'
+     shapes (VALIDATION_SHAPES: the three 518x392 rows, the global one on
+     B2), with device ms, bound, flash SDPA's time and host µs.
+     10b, a tree of 2 scenes x 8 seeded 640x480 frames written by the
+     port's write_scene (depth in EXR for one scene, npy for the other, a
+     banded covisibility); the first batches of two train loaders built
+     alike bitwise equal on the host; on the CLI's initial weights (the
+     released config, its own init from seed 0), that batch's images-only
+     loss with flash against math attention (limit 1e-2 relative).
+     10c, `train.__main__.main([...])` in this process: 8 samples of 4
+     views in the buckets 518x392 and 518x336 (the sampler's seed, epoch
+     + 788, draws both in its 4 batches of 2), 2 validation batches,
+     `aug_training`, one epoch, checkpoints in a temporary directory.
+     Gates: finite losses; exactly 48 forward-with-lse, 48 dK/dV and 48 dQ
+     launches a step and 48 lse-free forwards a validation batch, nothing
+     else, 0 plain, probe and baseline launches; both buckets stepped;
+     checkpoint-last, read back with load_train_state, bitwise the final
+     state. Readings (not gated): the step interval in the loop, 3 more
+     steps alone (median wall), device ms and busy share over 2 traced
+     steps, peak GiB, the loader's host ms per batch and the training
+     thread's wait for each batch, each checkpoint's save seconds.
 
 The last two lines are the kernels' JSON summary (each kernel's launches:
-the counts phases 3-9 read, summed) and
+the counts phases 3-10 read, summed) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -540,16 +569,19 @@ def print_row(kname, case, shape, row):
           f"{row['host_us']:.1f} us", flush=True)
 
 
-def training_kernels_vs_plain(torch, fa, fp, F):
-    """Phase 2b: {kernel name or PAIR: [row per shape]}. The backward
-    kernels are fed the plain forward's lse and delta; the pair row times
-    delta, dK/dV and dQ as the backward runs them, in one call, against
-    FA2's backward, which computes the same function."""
+def training_kernels_vs_plain(torch, fa, fp, F, shapes=TRAIN_SHAPES,
+                              seed=100, baseline=True):
+    """Phase 2b (and 10a at the loader's shapes): {kernel name or PAIR:
+    [row per (name, shape, n_valid) of `shapes`]}. The backward kernels are
+    fed the plain forward's lse and delta; the pair row times delta, dK/dV
+    and dQ as the backward runs them, in one call, against FA2's backward,
+    which computes the same function. With `baseline`, each kernel's
+    mma.sync baseline too."""
     rows = {name: [] for name in [*TRAINING_KERNELS, PAIR]}
-    for i, (name, shape, n_valid) in enumerate(TRAIN_SHAPES):
-        q, k, v = attention_inputs(torch, shape, n_valid, seed=100 + i)
+    for i, (name, shape, n_valid) in enumerate(shapes):
+        q, k, v = attention_inputs(torch, shape, n_valid, seed=seed + i)
         real = shape[1] if n_valid is None else n_valid
-        gen = torch.Generator(device="cuda").manual_seed(200 + i)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 100 + i)
         dout = torch.randn(shape, generator=gen, device="cuda").to(
             torch.bfloat16)
         dout[:, real:] = 0  # the row mask's backward zeroes them
@@ -563,9 +595,11 @@ def training_kernels_vs_plain(torch, fa, fp, F):
         dq = fa.flash_attention_dq(*bwd_args)
         ref_dq = fa.flash_attention_dq_plain(*bwd_args)
         pair = fa.flash_attention_bwd(*pair_args)
-        mma_fwd = fp.flash_attention_fwd_lse_mma(q, k, v, n_valid)
-        mma_dk, mma_dv = fp.flash_attention_dkv_mma(*bwd_args)
-        mma_dq = fp.flash_attention_dq_mma(*bwd_args)
+        mma_fwd = mma_dk = mma_dv = mma_dq = None
+        if baseline:
+            mma_fwd = fp.flash_attention_fwd_lse_mma(q, k, v, n_valid)
+            mma_dk, mma_dv = fp.flash_attention_dkv_mma(*bwd_args)
+            mma_dq = fp.flash_attention_dq_mma(*bwd_args)
         torch.cuda.synchronize()
 
         def real_rows(**pairs):  # (got, ref) over the real rows
@@ -583,29 +617,38 @@ def training_kernels_vs_plain(torch, fa, fp, F):
         # flash SDPA forward with lse, and its backward for the pair: no
         # single call computes dK/dV or dQ alone.
         lib = sdpa_layout(q, k, v, real)
+        mma = {}
+        if baseline:
+            mma = {
+                "flash_attn_fwd_lse": (
+                    real_rows(out=(mma_fwd[0], ref_out),
+                              lse=(lse_rows(mma_fwd[1]), lse_rows(ref_lse))),
+                    lambda: fp.flash_attention_fwd_lse_mma(q, k, v,
+                                                           n_valid)),
+                "flash_attn_bwd_dkv": (
+                    real_rows(dk=(mma_dk, ref_dk), dv=(mma_dv, ref_dv)),
+                    lambda: fp.flash_attention_dkv_mma(*bwd_args)),
+                "flash_attn_bwd_dq": (
+                    real_rows(dq=(mma_dq, ref_dq)),
+                    lambda: fp.flash_attention_dq_mma(*bwd_args)),
+            }
         cases = [
             ("flash_attn_fwd_lse",
              real_rows(out=(out, ref_out),
                        lse=(lse_rows(lse), lse_rows(ref_lse))),
              lambda: fa.flash_attention_fwd_lse(q, k, v, n_valid),
              lambda: fa.flash_attention_fwd_lse_plain(q, k, v, n_valid),
-             (real_rows(out=(mma_fwd[0], ref_out),
-                        lse=(lse_rows(mma_fwd[1]), lse_rows(ref_lse))),
-              lambda: fp.flash_attention_fwd_lse_mma(q, k, v, n_valid)),
+             mma.get("flash_attn_fwd_lse"),
              "fwd_lse", library_fwd_lse_ms(torch, *lib)),
             ("flash_attn_bwd_dkv",
              real_rows(dk=(dk, ref_dk), dv=(dv, ref_dv)),
              lambda: fa.flash_attention_dkv(*bwd_args),
              lambda: fa.flash_attention_dkv_plain(*bwd_args),
-             (real_rows(dk=(mma_dk, ref_dk), dv=(mma_dv, ref_dv)),
-              lambda: fp.flash_attention_dkv_mma(*bwd_args)),
-             "dkv", None),
+             mma.get("flash_attn_bwd_dkv"), "dkv", None),
             ("flash_attn_bwd_dq", real_rows(dq=(dq, ref_dq)),
              lambda: fa.flash_attention_dq(*bwd_args),
              lambda: fa.flash_attention_dq_plain(*bwd_args),
-             (real_rows(dq=(mma_dq, ref_dq)),
-              lambda: fp.flash_attention_dq_mma(*bwd_args)),
-             "dq", None),
+             mma.get("flash_attn_bwd_dq"), "dq", None),
             (PAIR,
              real_rows(dq=(pair[0], ref_dq), dk=(pair[1], ref_dk),
                        dv=(pair[2], ref_dv)),
@@ -632,7 +675,7 @@ def training_kernels_vs_plain(torch, fa, fp, F):
             print_row(kname, name, shape, row)
         del (q, k, v, dout, out, lse, ref_out, ref_lse, delta, dk, dv, dq,
              ref_dk, ref_dv, ref_dq, pair, mma_fwd, mma_dk, mma_dv, mma_dq,
-             cases, bwd_args, pair_args, lib)
+             mma, cases, bwd_args, pair_args, lib)
         torch.cuda.empty_cache()
     return rows
 
@@ -867,6 +910,29 @@ def write_images(folder: str, n: int) -> list[str]:
         PIL.Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(path)
         paths.append(path)
     return paths
+
+
+# utils/weights.py::random_normal_'s weights of the released config (seed
+# 0), kept on the host after their first draw: numpy draws 653 M normals in
+# ~14 s, and phases 3, 5, 7, 8d and 9 each run a model with these weights
+_RANDOM_WEIGHTS: dict = {}
+
+
+def random_weights_model():
+    """MapAnything(MapAnythingConfig()) on the card, in eval mode, with
+    random_normal_'s weights (numpy normals x 0.02, seed 0): phase 3's
+    model. The weights are drawn once and loaded from the host after."""
+    from mapanything_tpu_torch.models import MapAnything, MapAnythingConfig
+    from mapanything_tpu_torch.utils.weights import random_normal_
+
+    model = MapAnything(MapAnythingConfig())
+    if _RANDOM_WEIGHTS:
+        model.load_state_dict(_RANDOM_WEIGHTS)
+    else:
+        random_normal_(model)
+        _RANDOM_WEIGHTS.update({key: val.detach().cpu() for key, val
+                                in model.state_dict().items()})
+    return model.eval()
 
 
 def check_outputs(out, num_views, torch, batch=1) -> str | None:
@@ -1759,15 +1825,12 @@ def trainer_check(torch, fa, T, L, make_model, make_synthetic_batch):
 
 def sharded_with_priors(torch, fa, T, SP, RC, compare_sharded, make_model,
                         make_synthetic_batch, geom_cfg, group, views,
-                        MapAnything, MapAnythingConfig, random_normal_,
                         InferencePipeline):
     """Phase 8d, at p = 1: config 3 through the view-sharded pipeline
     against the unsharded call, then the view-sharded aug_training step
     against the unsharded one with the same generator seed, and its launch
     counts. Returns (results, launches, failure or None)."""
-    model = MapAnything(MapAnythingConfig())
-    random_normal_(model)
-    model.eval()
+    model = random_weights_model()
     res, launches = {}, {}
     infer, bad = run_ring_slice(torch, fa, RC, model, group,
                                 InferencePipeline, views)
@@ -1833,7 +1896,6 @@ def training_with_priors(torch, fa, fp, F, load_images):
         compare_sharded,
     )
     from mapanything_tpu_torch.utils.inference import InferencePipeline
-    from mapanything_tpu_torch.utils.weights import random_normal_
 
     def make_model(**flags):
         return seeded_model(torch, MapAnything, MapAnythingConfig, **flags)
@@ -1900,8 +1962,7 @@ def training_with_priors(torch, fa, fp, F, load_images):
     try:
         res, launches, bad = sharded_with_priors(
             torch, fa, T, SP, RC, compare_sharded, make_model,
-            make_synthetic_batch, aug, group, views, MapAnything,
-            MapAnythingConfig, random_normal_, InferencePipeline)
+            make_synthetic_batch, aug, group, views, InferencePipeline)
     finally:
         torch.distributed.destroy_process_group()
     bad = report("8d, view-sharded with priors, p = 1", t0, res, launches,
@@ -2187,10 +2248,8 @@ def serving_engine(torch, fa, fp, F, load_images):
     import gc
 
     from mapanything_tpu_torch import serve
-    from mapanything_tpu_torch.models import MapAnything, MapAnythingConfig
     from mapanything_tpu_torch.train import save_params
     from mapanything_tpu_torch.utils.inference import InferencePipeline
-    from mapanything_tpu_torch.utils.weights import random_normal_
 
     # 9a: the forward at the serving shapes
     rows = kernel_vs_plain(torch, fa, fp, F, SERVING_SHAPES, seed=900,
@@ -2200,9 +2259,7 @@ def serving_engine(torch, fa, fp, F, load_images):
         if not max(row["max_abs_err"], row["rel_l2"]) <= ERR_LIMIT:
             return rows, [], f"kernel disagrees with plain at {name}: {row}"
 
-    model = MapAnything(MapAnythingConfig())
-    random_normal_(model)
-    model.eval()
+    model = random_weights_model()
     pipe = InferencePipeline(model)
     counts, engine, server = [], None, None
     try:
@@ -2265,6 +2322,388 @@ def serving_engine(torch, fa, fp, F, load_images):
     return rows, counts, untouched_baseline(fp)
 
 
+# phase 10: training from a WAI tree at full width, through the training CLI
+# (python -m mapanything_tpu_torch.train). The training kernels at the
+# shapes the loader's batches give them: 2 samples x 4 views a step
+# (--max_imgs_per_device 8), one aspect-ratio bucket a batch; the encoder
+# adds a class token and the global layer the scale token, both padded to
+# 128 keys
+LOADER_SHAPES = [
+    # 518x392 (37 x 28 = 1036 patches)
+    ("encoder_518x392_b2x4", (8, 1152, 16, 64), 1037),
+    ("frame_518x392_b2x4", (8, 1036, 16, 64), None),
+    ("global_518x392_b2x4", (2, 4224, 16, 64), 4145),
+    # 518x336 (37 x 24 = 888 patches)
+    ("encoder_518x336_b2x4", (8, 896, 16, 64), 889),
+    ("frame_518x336_b2x4", (8, 888, 16, 64), None),
+    ("global_518x336_b2x4", (2, 3584, 16, 64), 3553),
+]
+# the CLI validates in the first bucket, 2 samples of 4 views a batch,
+# through the lse-free forward (B1 at the encoder and frame layers, B2 at
+# the global layer)
+VALIDATION_SHAPES = LOADER_SHAPES[:3]
+WAI_BUCKETS = [(518, 392), (518, 336)]
+WAI_SCENES = (("scene_exr", "exr"), ("scene_npy", "npy"))  # depth format
+WAI_FRAMES, WAI_SIZE = 8, (640, 480)
+WAI_VIEWS, WAI_IMGS = 4, 8  # views a sample, images a batch (2 samples)
+WAI_SAMPLES = 8  # 4 steps; the sampler (seed epoch + 788) draws both buckets
+VAL_SAMPLES = 4  # 2 validation batches of 2
+CLI_SEED = 0  # the model's init and the masks' generator
+TIMED_STEPS, PROFILED_STEPS = 3, 2
+
+
+def write_wai_tree(folder: str) -> str:
+    """WAI_SCENES of WAI_FRAMES seeded 640x480 frames through the port's
+    write_scene: smooth images with noise, a smooth positive depth, a
+    camera moving along x, a banded covisibility (the walk chooses among
+    the two neighbours on each side)."""
+    import numpy as np
+
+    from mapanything_tpu_torch.data.wai import write_scene
+
+    w, h = WAI_SIZE
+    rng = np.random.default_rng(10)
+    yy, xx = np.mgrid[0:h, 0:w] / max(w, h)
+    dist = np.abs(np.arange(WAI_FRAMES)[:, None]
+                  - np.arange(WAI_FRAMES)[None, :])
+    covis = np.clip(1.0 - dist / 3.0, 0.0, 1.0).astype(np.float32)
+    intrinsics = dict(fx=0.9 * w, fy=0.9 * w, cx=w / 2, cy=h / 2, w=w, h=h)
+    root = os.path.join(folder, "wai")
+    for s, (scene, fmt) in enumerate(WAI_SCENES):
+        frames = []
+        for i in range(WAI_FRAMES):
+            base = np.stack([np.sin(6 * xx + i + s), np.cos(5 * yy - i),
+                             np.sin(4 * (xx + yy) + s)], -1)
+            img = 127.5 * (1 + 0.8 * base) + rng.normal(0, 8, base.shape)
+            pose = np.eye(4)
+            pose[:3, 3] = [0.1 * i, 0.0, 0.02 * s]
+            frames.append({
+                "frame_name": f"frame_{i:03d}",
+                "image": np.clip(img, 0, 255).astype(np.uint8),
+                "depth": (2.0 + np.sin(3 * xx + i) + 0.5 * yy
+                          + rng.uniform(0, 0.05, (h, w))).astype(np.float32),
+                "transform_matrix": pose})
+        write_scene(os.path.join(root, scene), frames, intrinsics, covis,
+                    depth_format=fmt)
+    return root
+
+
+def wai_spec(samples: int, buckets, seed: int) -> str:
+    return (f"{samples} @ WAIDataset(ROOT=wai_root, spec='eth3d', "
+            f"num_views={WAI_VIEWS}, covisibility_thres=0.25, "
+            f"resolution={list(buckets)}, seed={seed})")
+
+
+class TimedLoader:
+    """The CLI's train loader, timed: the seconds the training thread
+    waits for each batch, and the host seconds each batch took to load in
+    its worker thread."""
+
+    def __init__(self, inner):
+        self.inner, self.wait_s, self.load_s = inner, [], []
+        load = inner._load_batch
+
+        def timed_load(idxs):
+            t0 = time.perf_counter()
+            out = load(idxs)
+            self.load_s.append(time.perf_counter() - t0)
+            return out
+
+        inner._load_batch = timed_load
+
+    def set_epoch(self, epoch):
+        self.inner.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.inner)
+
+    def __iter__(self):
+        it = iter(self.inner)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                self.wait_s.append(time.perf_counter() - t0)
+                yield batch
+        finally:
+            it.close()
+
+
+def first_loader_batch(DL, mix, spec, root):
+    """The first batch of a train loader built as the CLI builds it."""
+    loader = DL.get_train_data_loader(mix(spec, wai_root=root),
+                                      max_num_of_imgs_per_gpu=WAI_IMGS)
+    loader.set_epoch(0)
+    it = iter(loader)
+    try:
+        return next(it)
+    finally:
+        it.close()
+
+
+def batches_equal(a, b) -> bool:
+    import numpy as np
+
+    return all(sorted(a[g]) == sorted(b[g]) and all(
+        a[g][k].dtype == b[g][k].dtype and np.array_equal(a[g][k], b[g][k])
+        for k in a[g]) for g in ("views", "gt"))
+
+
+def cli_flash_vs_math(torch, CLI, L, batch) -> dict:
+    """The loss of the loader's first batch, images only, on the CLI's
+    initial weights, with flash and with math attention (no gradient)."""
+    from mapanything_tpu_torch.models import images_only_config
+    from mapanything_tpu_torch.train.losses import overall_loss
+
+    model = CLI.build_model(False, None, CLI_SEED)
+    dbatch = L.to_device(batch, "cuda")
+    losses = {}
+    with torch.no_grad():
+        for impl in ("auto", "math"):
+            model.set_attn_impl(impl)
+            preds = model(dbatch["views"], images_only_config())
+            losses[impl] = float(overall_loss(dbatch["gt"], preds)[0])
+            del preds
+    model.set_attn_impl("auto")
+    del model, dbatch
+    torch.cuda.empty_cache()
+    return {"loss_flash": losses["auto"], "loss_math": losses["math"],
+            "loss_rel_diff": abs(losses["auto"] - losses["math"])
+            / max(abs(losses["math"]), 1e-30)}
+
+
+def cli_training(torch, fa, fp, F):
+    """Phase 10. Returns (the training kernels' rows, the forward's rows,
+    the kernel counts of its runs, failure or None)."""
+    import gc
+
+    import numpy as np
+
+    from mapanything_tpu_torch.data import loader as DL
+    from mapanything_tpu_torch.models import aug_training_config
+    from mapanything_tpu_torch.train import __main__ as CLI
+    from mapanything_tpu_torch.train import loop as L
+    from mapanything_tpu_torch.train import step as T
+
+    # 10a: the training kernels at the loader's shapes
+    t0 = time.perf_counter()
+    rows = training_kernels_vs_plain(torch, fa, fp, F, LOADER_SHAPES,
+                                     seed=1000, baseline=False)
+    for kname, krows in rows.items():
+        for row in krows:
+            bad = {key: val for key, val in row.items()
+                   if key.endswith(("_max_abs_rel", "_rel_l2"))
+                   and not val <= ERR_LIMIT}
+            if bad:
+                return rows, [], [], (f"{kname} disagrees with plain at "
+                                      f"{row['at']}: {bad}")
+    # the lse-free forward at the validation batches' shapes (9a's method)
+    fwd_rows = kernel_vs_plain(torch, fa, fp, F, VALIDATION_SHAPES,
+                               seed=1100, baseline=False)
+    for name, row in fwd_rows:
+        row["at"] = name
+        if not max(row["max_abs_err"], row["rel_l2"]) <= ERR_LIMIT:
+            return rows, fwd_rows, [], (f"flash_attn_fwd disagrees with "
+                                        f"plain at {name}: {row}")
+    print(f"phase 10a, training kernels at the loader's shapes and the "
+          f"forward at the validation's ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+    counts = []
+    with tempfile.TemporaryDirectory() as folder:
+        t0 = time.perf_counter()
+        root = write_wai_tree(folder)
+        spec = wai_spec(WAI_SAMPLES, WAI_BUCKETS, seed=7)
+        val_spec = wai_spec(VAL_SAMPLES, WAI_BUCKETS[:1], seed=9)
+        res = {"tree_s": time.perf_counter() - t0, "sampler_seed": 0 + 788,
+               "dataset_spec": spec, "val_dataset_spec": val_spec}
+        # 10b: the loader is deterministic; the flash-vs-math gate on the
+        # CLI's initial weights
+        t0 = time.perf_counter()
+        first = first_loader_batch(DL, L.build_dataset_mix, spec, root)
+        again = first_loader_batch(DL, L.build_dataset_mix, spec, root)
+        res["two_loaders_s"] = time.perf_counter() - t0
+        if not batches_equal(first, again):
+            return (rows, fwd_rows, counts,
+                    "two loaders' first batches differ")
+        res["first_batch"] = {g: {k: list(v.shape) for k, v in d.items()}
+                              for g, d in first.items()}
+        res["flash_vs_math"] = cli_flash_vs_math(torch, CLI, L, first)
+        print(f"phase 10b: {json.dumps(res)}", flush=True)
+        if not res["flash_vs_math"]["loss_rel_diff"] <= ERR_LIMIT:
+            return rows, fwd_rows, counts, (
+                f"the first batch's loss, flash against math: "
+                f"{res['flash_vs_math']}")
+        del first, again
+        gc.collect()
+
+        # 10c: the CLI, in this process, with its loader, steps,
+        # validation and checkpoint saves instrumented
+        steps, val, saves, loaders = [], [], [], []
+        make_step, test_epoch = L.make_train_step, L.test_one_epoch
+        save, get_loader = L.save_train_state, DL.get_train_data_loader
+
+        def counted_step(*args, **kw):
+            step = make_step(*args, **kw)
+
+            def run(state, batch, generator=None):
+                fa.reset_launch_counts()
+                t_start = time.perf_counter()
+                state, metrics = step(state, batch, generator)
+                steps.append({"t": t_start, "loss": metrics["loss"],
+                              "shape": list(batch["views"]["img"].shape),
+                              "counts": launches_of(fa),
+                              "plain": fa.flash_attention.plain_launches})
+                return state, metrics
+            return run
+
+        def counted_eval(model, loader, *args, **kw):
+            fa.reset_launch_counts()
+            out = test_epoch(model, loader, *args, **kw)
+            val.append({"batches": len(loader), "counts": launches_of(fa),
+                        "plain": fa.flash_attention.plain_launches})
+            return out
+
+        def timed_save(path, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save(path, *args, **kw)
+            saves.append({"file": os.path.basename(path),
+                          "seconds": time.perf_counter() - t0,
+                          "gib": os.path.getsize(path) / 2**30})
+
+        def timed_loader(*args, **kw):
+            loaders.append(TimedLoader(get_loader(*args, **kw)))
+            return loaders[-1]
+
+        out_dir = os.path.join(folder, "run")
+        argv = ["--wai_root", root, "--dataset_spec", spec,
+                "--val_dataset_spec", val_spec,
+                "--max_imgs_per_device", str(WAI_IMGS), "--epochs", "1",
+                "--task", "aug_training", "--warmup_steps", "2",
+                "--total_steps", "100", "--print_freq", "1",
+                "--seed", str(CLI_SEED), "--output_dir", out_dir]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        L.make_train_step, L.test_one_epoch = counted_step, counted_eval
+        L.save_train_state, DL.get_train_data_loader = timed_save, timed_loader
+        t0 = time.perf_counter()
+        try:
+            state = CLI.main(argv)
+        finally:
+            L.make_train_step, L.test_one_epoch = make_step, test_epoch
+            L.save_train_state, DL.get_train_data_loader = save, get_loader
+        res = {"cli_s": time.perf_counter() - t0, "argv": argv[4:],
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+        losses = [float(s["loss"]) for s in steps]
+        heights = sorted({s["shape"][2] for s in steps})
+        walls = [(b["t"] - a["t"]) * 1e3 for a, b in zip(steps, steps[1:])]
+        loader = loaders[0]
+        res.update({
+            "steps": len(steps), "losses": losses,
+            "batch_shapes": [s["shape"] for s in steps],
+            "step_interval_ms": walls,
+            "step_interval_ms_median": (statistics.median(walls)
+                                        if walls else None),
+            "loader_wait_ms": [w * 1e3 for w in loader.wait_s],
+            "loader_host_ms_per_batch": [s * 1e3 for s in loader.load_s],
+            "checkpoint_saves": saves,
+            "validation": val,
+        })
+        bad = None
+        for i, s in enumerate(steps):
+            full = dict.fromkeys(fa.KERNELS, 0) | TRAIN_LAUNCHES
+            if s["counts"] != full or s["plain"] != 0:
+                bad = (f"CLI step {i}: kernel launches {s['counts']} and "
+                       f"{s['plain']} plain, expected {full} and 0")
+                break
+            counts.append(s["counts"])
+        for v in val:
+            full = dict.fromkeys(fa.KERNELS, 0) | {
+                "fwd": FORWARD_LAUNCHES * v["batches"]}
+            if not bad and (v["counts"] != full or v["plain"] != 0):
+                bad = (f"CLI validation: kernel launches {v['counts']} and "
+                       f"{v['plain']} plain, expected {full} and 0")
+            counts.append(v["counts"])
+        if not bad and len(steps) != WAI_SAMPLES * WAI_VIEWS // WAI_IMGS:
+            bad = f"{len(steps)} CLI steps"
+        elif not bad and (len(val) != 1
+                          or val[0]["batches"] != VAL_SAMPLES // 2):
+            bad = f"CLI validation runs {val}"
+        elif not bad and not all(math.isfinite(x) for x in losses):
+            bad = f"CLI losses {losses}"
+        elif not bad and heights != sorted(h for _, h in WAI_BUCKETS):
+            bad = f"the CLI's steps ran buckets of heights {heights} alone"
+        bad = bad or untouched_baseline(fp)
+        if bad:
+            print(f"phase 10c: {json.dumps(res)}", flush=True)
+            return rows, fwd_rows, counts, bad
+
+        # 10d: checkpoint-last against the final state, bitwise
+        t0 = time.perf_counter()
+        fresh = T.create_train_state(CLI.build_model(False, None, 1),
+                                     T.OptimConfig())
+        fresh, _, epoch = L.load_train_state(
+            os.path.join(out_dir, "checkpoint-last"), fresh)
+        res["checkpoint_load_s"] = time.perf_counter() - t0
+        same = (epoch == 1 and fresh.step == state.step
+                and fresh.optimizer.count == state.optimizer.count
+                and all(torch.equal(a, b) for a, b in zip(
+                    fresh.model.state_dict().values(),
+                    state.model.state_dict().values()))
+                and all(torch.equal(a, b) for a, b in zip(
+                    fresh.optimizer.mu + fresh.optimizer.nu,
+                    state.optimizer.mu + state.optimizer.nu)))
+        res["checkpoint_last_equal"] = same
+        del fresh
+        torch.cuda.empty_cache()
+        if not same:
+            print(f"phase 10c: {json.dumps(res)}", flush=True)
+            return (rows, fwd_rows, counts,
+                    "checkpoint-last differs from the final state")
+
+        # readings: TIMED_STEPS more steps on a loader batch, each ending
+        # in a synchronise (the step alone, no loader), then
+        # PROFILED_STEPS traced
+        batch = L.to_device(first_loader_batch(
+            DL, L.build_dataset_mix, spec, root), "cuda")
+        step = T.make_train_step(state.model, aug_training_config())
+        gen = torch.Generator(device="cuda").manual_seed(CLI_SEED)
+        alone = []
+        for _ in range(TIMED_STEPS):
+            t0 = time.perf_counter()
+            step(state, batch, gen)
+            torch.cuda.synchronize()
+            alone.append((time.perf_counter() - t0) * 1e3)
+        res["step_ms_alone"] = alone
+        wall = statistics.median(alone)
+        res["profile"] = profile_calls(torch, lambda: step(state, batch, gen),
+                                       wall, calls=PROFILED_STEPS)
+        res["profile_batch"] = list(batch["views"]["img"].shape)
+        del state, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    prof = res["profile"]
+    waits = res["loader_wait_ms"][1:]  # the first waits for the cold start
+    print(f"phase 10c, the CLI at full width: {res['steps']} steps, losses "
+          f"{[round(x, 4) for x in res['losses']]}, buckets {heights}; step "
+          f"interval in the loop {res['step_interval_ms_median']:.2f} ms "
+          f"median; the step alone "
+          f"{statistics.median(res['step_ms_alone']):.2f} ms median, device "
+          f"{prof.get('device_ms', float('nan')):.2f} ms, busy "
+          f"{prof.get('busy_share', float('nan')):.3f}, peak "
+          f"{res['peak_memory_gib']:.2f} GiB; loader host "
+          f"{statistics.median(res['loader_host_ms_per_batch']):.1f} ms a "
+          f"batch, wait after the first {max(waits) if waits else 0:.2f} ms "
+          f"at most; checkpoint saves "
+          f"{[round(s['seconds'], 2) for s in saves]} s", flush=True)
+    print(f"phase 10c: {json.dumps(res)}", flush=True)
+    return rows, fwd_rows, counts, untouched_baseline(fp)
+
+
 def timing(row):
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms", "mma_ms",
@@ -2274,7 +2713,7 @@ def timing(row):
 def kernels_summary(fp, attn, train_rows, ring_rows, merge, probe_rows,
                     phase_counts) -> list:
     """The kernels' JSON rows: each kernel at its main-path shape with its
-    launches in phases 3-9 (phase_counts: the kernel counts each of those
+    launches in phases 3-10 (phase_counts: the kernel counts each of those
     runs read, reset just before it), the baselines and the probes."""
     launches = {kname: sum(counts[key] for counts in phase_counts)
                 for kname, key in COUNTER.items()}
@@ -2407,7 +2846,6 @@ def main() -> int:
             train_step_flops,
         )
         from mapanything_tpu_torch.utils.inference import InferencePipeline
-        from mapanything_tpu_torch.utils.weights import random_normal_
     except ImportError as exc:
         return fail(f"the port is not importable next to this script: {exc}")
 
@@ -2508,14 +2946,12 @@ def main() -> int:
             return fail(f"probe {case} disagrees with its plain version: "
                         f"{row}")
 
-    # phases 3-9 run the main path: no probe and no baseline launch
+    # phases 3-10 run the main path: no probe and no baseline launch
     fp.reset_probe_counts()
 
     # phase 3: serving at full width
     t0 = time.perf_counter()
-    model = MapAnything(MapAnythingConfig())
-    random_normal_(model)
-    model.eval()
+    model = random_weights_model()
     pipe = InferencePipeline(model)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"model: {n_params / 1e6:.1f} M parameters, built in "
@@ -2570,9 +3006,7 @@ def main() -> int:
     group = init_distributed()
     try:
         t0 = time.perf_counter()
-        model = MapAnything(MapAnythingConfig())
-        random_normal_(model)
-        model.eval()
+        model = random_weights_model()
         print(f"ring model built in {time.perf_counter() - t0:.1f} s",
               flush=True)
         with tempfile.TemporaryDirectory() as folder:
@@ -2622,9 +3056,7 @@ def main() -> int:
     # phase 7: the rest of the serving API at full width, phase 3's weights
     t7 = time.perf_counter()
     torch.cuda.empty_cache()
-    model = MapAnything(MapAnythingConfig())
-    random_normal_(model)
-    model.eval()
+    model = random_weights_model()
     phase7_counts, b2_rows, bad = serving_api(torch, fa, F, fp, model,
                                               load_images)
     if bad:
@@ -2654,11 +3086,24 @@ def main() -> int:
           f"{time.perf_counter() - t9:.1f} s", flush=True)
     attn = attn + serve_rows
 
+    # phase 10: training from a WAI tree through the training CLI
+    t10 = time.perf_counter()
+    torch.cuda.empty_cache()
+    loader_rows, val_rows, phase10_counts, bad = cli_training(torch, fa, fp,
+                                                              F)
+    if bad:
+        return fail(f"phase 10: {bad}")
+    print(f"phase 10 (the training CLI on a WAI tree) took "
+          f"{time.perf_counter() - t10:.1f} s", flush=True)
+    for kname, rows in loader_rows.items():
+        train_rows[kname] += rows
+    attn = attn + val_rows
+
     phase_counts = [serving,
                     {key: train[f"{key}_launches"] for key in fa.KERNELS},
                     ring_res["kernel_counts"], block_res["kernel_counts"],
                     vs_train["launches"]] + (phase7_counts + phase8_counts
-                                             + phase9_counts)
+                                             + phase9_counts + phase10_counts)
     kernels = kernels_summary(fp, attn, train_rows, ring_rows, merge,
                               probe_rows, phase_counts)
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s",

@@ -6,7 +6,8 @@ by the average aspect ratio; each image is Lanczos-downscaled (bicubic when
 upscaling) to cover the bucket and cropped to it. With intrinsics the crop
 keeps the principal point where the camera put it and the intrinsics follow
 the scale and the crop (COLMAP pixel-centre convention); z-depth follows by
-a nearest-neighbour resize with OpenCV's index rule, written in numpy.
+a nearest-neighbour resize with OpenCV's index rule, written in numpy, as
+do the masks the datasets crop with it (`additional_quantities`).
 Images leave as (1, H, W, 3) float32 NHWC numpy arrays, normalised.
 """
 
@@ -106,10 +107,13 @@ def resize_nearest(arr: np.ndarray, size) -> np.ndarray:
 def rescale_image_and_other_optional_info(
         image: PIL.Image.Image, output_resolution,
         depthmap: Optional[np.ndarray] = None,
-        camera_intrinsics: Optional[np.ndarray] = None):
+        camera_intrinsics: Optional[np.ndarray] = None,
+        additional_quantities: Optional[List[np.ndarray]] = None):
     """Scale so the image covers `output_resolution` (W, H): Lanczos when
-    downscaling, bicubic when upscaling, nearest for the depth; the
-    intrinsics follow the scale."""
+    downscaling, bicubic when upscaling, nearest for the depth and each
+    additional (H, W, ...) quantity; the intrinsics follow the scale.
+    Returns (image, depthmap, intrinsics, additional quantities), None
+    where none was given."""
     input_resolution = np.array(image.size)  # (W, H)
     scale_final = max(np.array(output_resolution) / image.size) + 1e-8
     target = np.floor(input_resolution * scale_final).astype(int)
@@ -118,40 +122,52 @@ def rescale_image_and_other_optional_info(
     image = image.resize(tuple(target), resample=resample)
     if depthmap is not None:
         depthmap = resize_nearest(depthmap, target)
+    if additional_quantities is not None:
+        additional_quantities = [resize_nearest(q, target)
+                                 for q in additional_quantities]
     if camera_intrinsics is not None:
         camera_intrinsics = camera_matrix_of_crop(
             camera_intrinsics, input_resolution, target, scaling=scale_final)
-    return image, depthmap, camera_intrinsics
+    return image, depthmap, camera_intrinsics, additional_quantities
 
 
 def crop_image_and_other_optional_info(image, crop_bbox, depthmap=None,
-                                       camera_intrinsics=None):
-    """Crop the image and the depth to `crop_bbox`; the principal point
-    moves with the crop."""
+                                       camera_intrinsics=None,
+                                       additional_quantities=None):
+    """Crop the image, the depth and each additional quantity to
+    `crop_bbox`; the principal point moves with the crop. Returns (image,
+    depthmap, intrinsics, additional quantities)."""
     left, top, right, bottom = crop_bbox
     image = image.crop((left, top, right, bottom))
     if depthmap is not None:
         depthmap = depthmap[top:bottom, left:right]
+    if additional_quantities is not None:
+        additional_quantities = [q[top:bottom, left:right]
+                                 for q in additional_quantities]
     if camera_intrinsics is not None:
         camera_intrinsics = camera_intrinsics.copy()
         camera_intrinsics[0, 2] -= left
         camera_intrinsics[1, 2] -= top
-    return image, depthmap, camera_intrinsics
+    return image, depthmap, camera_intrinsics, additional_quantities
 
 
 def crop_resize_if_necessary(image, resolution,
                              depthmap: Optional[np.ndarray] = None,
-                             intrinsics: Optional[np.ndarray] = None):
+                             intrinsics: Optional[np.ndarray] = None,
+                             additional_quantities: Optional[
+                                 List[np.ndarray]] = None):
     """Cover `resolution` (W, H), then crop to it: centred without
     intrinsics; with them, the crop that keeps the principal point's offset
     (camera_matrix_of_crop at offset factor 0.5). Returns the image alone,
-    or a tuple of the image, then the depth and the intrinsics that were
+    or a tuple of the image, then the depth, the intrinsics and the list of
+    additional quantities (each resized and cropped as the depth) that were
     given."""
     if not isinstance(image, PIL.Image.Image):
         image = PIL.Image.fromarray(image)
 
-    image, depthmap, intrinsics = rescale_image_and_other_optional_info(
-        image, resolution, depthmap, intrinsics)
+    image, depthmap, intrinsics, additional_quantities = (
+        rescale_image_and_other_optional_info(
+            image, resolution, depthmap, intrinsics, additional_quantities))
 
     if intrinsics is not None:
         new_intrinsics = camera_matrix_of_crop(intrinsics, image.size,
@@ -164,9 +180,12 @@ def crop_resize_if_necessary(image, resolution,
         left, top = (w - tw) // 2, (h - th) // 2
         crop_bbox = (left, top, left + tw, top + th)
 
-    image, depthmap, intrinsics = crop_image_and_other_optional_info(
-        image, crop_bbox, depthmap, intrinsics)
-    out = (image,) + tuple(x for x in (depthmap, intrinsics) if x is not None)
+    image, depthmap, intrinsics, additional_quantities = (
+        crop_image_and_other_optional_info(image, crop_bbox, depthmap,
+                                           intrinsics, additional_quantities))
+    out = (image,) + tuple(x for x in (depthmap, intrinsics,
+                                       additional_quantities)
+                           if x is not None)
     return out if len(out) > 1 else out[0]
 
 

@@ -5,13 +5,17 @@ mask, and writes a COLMAP sparse model (sparse/cameras.bin, images.bin,
 points3D.bin): the feed-forward export path.
 
     python -m mapanything_tpu_torch.demo_colmap --image_folder PATH \
-        --output_dir colmap_out [--memory_efficient] [--conf_percentile 10] \
-        [--max_points 1000000] [--tiny] [--device cpu]
+        --output_dir colmap_out [--checkpoint FILE] [--memory_efficient] \
+        [--conf_percentile 10] [--max_points 1000000] [--tiny] [--device cpu]
 
-The port has no checkpoint reader yet (ROADMAP queue A item 0): the
-weights are seeded random normals (`--seed`). The refinement branch
-(`--ba`: tracks and bundle adjustment) and the GLB point cloud wait for
-their modules (ROADMAP queue A item 15).
+`--checkpoint` reads a file of the port's trainer (train/checkpoints.py:
+save_params, or the model of a save_train_state file) through
+models/pretrained.py::from_pretrained, for the architecture `--tiny`
+selects; a checkpoint in the reference's layout needs ROADMAP queue A item
+0 and raises. Without it the weights are seeded random normals (`--seed`),
+and a warning says so. The refinement branch (`--ba`: tracks and bundle
+adjustment) and the GLB point cloud wait for their modules (ROADMAP queue
+A item 15).
 """
 
 from __future__ import annotations
@@ -24,6 +28,9 @@ import numpy as np
 import torch
 
 BA_ITEM = "ROADMAP queue A item 15 (the COLMAP demo's --ba and GLB)"
+# the --tiny architecture (scripts/demo_colmap.py's)
+TINY_CONFIG = dict(encoder_size="small", trunk_dim=384, trunk_depth=4,
+                   trunk_num_heads=6, trunk_indices=(1, 2), dpt_feature_dim=32)
 
 
 def export_predictions(preds: List[Dict[str, torch.Tensor]],
@@ -69,6 +76,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--image_folder", required=True)
     ap.add_argument("--output_dir", default="colmap_out")
+    ap.add_argument("--checkpoint", default=None,
+                    help="a save_params or save_train_state file; seeded "
+                         "random weights without it")
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--memory_efficient", action="store_true")
     ap.add_argument("--conf_percentile", type=float, default=10.0)
@@ -84,17 +94,20 @@ def main(argv=None) -> int:
 
     from .data.image import load_images
     from .models import MapAnything, MapAnythingConfig
+    from .models.pretrained import from_pretrained
     from .utils.inference import InferencePipeline
     from .utils.weights import random_normal_
 
     views = load_images(args.image_folder, verbose=True)
-    cfg = (MapAnythingConfig(encoder_size="small", trunk_dim=384,
-                             trunk_depth=4, trunk_num_heads=6,
-                             trunk_indices=(1, 2), dpt_feature_dim=32)
-           if args.tiny else MapAnythingConfig())
-    model = random_normal_(MapAnything(cfg, device=args.device),
-                           seed=args.seed).eval()
-    print("WARNING: random weights (the port reads no checkpoint yet)")
+    overrides = TINY_CONFIG if args.tiny else {}
+    if args.checkpoint:
+        model = from_pretrained(args.checkpoint, torch.bfloat16, overrides,
+                                args.device)
+    else:
+        model = random_normal_(MapAnything(MapAnythingConfig(**overrides),
+                                           device=args.device),
+                               seed=args.seed).eval()
+        print("WARNING: random weights (no --checkpoint)")
     preds = InferencePipeline(model).infer(
         views, memory_efficient_inference=args.memory_efficient,
         apply_confidence_mask=True,

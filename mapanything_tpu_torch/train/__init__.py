@@ -1,6 +1,7 @@
 """Training slice of the PyTorch port: the released loss, AdamW, the train
-step and its view-sharded form, checkpoints and the training loop
-(counterpart of mapanything_tpu/train)."""
+step and its view-sharded form, checkpoints, the training loop and its
+CLI, `python -m mapanything_tpu_torch.train` (counterpart of
+mapanything_tpu/train and scripts/train.py)."""
 
 from . import criteria
 from .criteria import MultiLoss, released_criterion
@@ -30,7 +31,13 @@ from .checkpoints import (
     save_params,
     save_train_state,
 )
-from .loop import MetricLogger, SmoothedValue, TrainLoopConfig, train
+from .loop import (
+    MetricLogger,
+    SmoothedValue,
+    TrainLoopConfig,
+    build_dataset_mix,
+    train,
+)
 
 __all__ = [
     "AdamW",
@@ -44,6 +51,7 @@ __all__ = [
     "TrainLoopConfig",
     "TrainState",
     "bce_with_logits",
+    "build_dataset_mix",
     "cosine_schedule",
     "create_train_state",
     "criteria",

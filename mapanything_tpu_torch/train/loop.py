@@ -22,8 +22,9 @@ that step's batch and the (one step later) state and exits.
 
 Loaders yield batches {"views": {...}, "gt": {...}} of numpy arrays or
 tensors and have `set_epoch`, `__len__` and `__iter__`; batches move to
-the model's device. The dataset-mix DSL (`build_dataset_mix`) waits for
-the data layer (ROADMAP).
+the model's device. `build_dataset_mix` evaluates the dataset-mix DSL of
+the training CLI (train/__main__.py) over the WAI datasets of
+data/wai_datasets.py, whose loaders (data/loader.py) feed `train`.
 """
 
 from __future__ import annotations
@@ -314,6 +315,18 @@ def test_one_epoch(model, loader,
     return stats
 
 
+def build_dataset_mix(spec: str, **context):
+    """Evaluate a dataset-mix expression such as
+    "100 @ WAIDataset(spec='eth3d', ...) + 50 @ WAIDataset(...)": the DSL
+    of the reference's eval(dataset_str), over an explicit namespace of the
+    dataset constructors and `context` alone (no builtins)."""
+    from ..data.wai_datasets import WAIDataset, make_wai_dataset
+
+    namespace = {"WAIDataset": WAIDataset, "make_wai_dataset": make_wai_dataset}
+    namespace.update(context)
+    return eval(spec, {"__builtins__": {}}, namespace)  # noqa: S307
+
+
 def _dump_explosion(output_dir: str, batch, state, loss: float, epoch: int,
                     it: int):
     """Dump the batch of the exploded step and a checkpoint, then exit
@@ -341,6 +354,7 @@ __all__ = [
     "MetricLogger",
     "SmoothedValue",
     "TrainLoopConfig",
+    "build_dataset_mix",
     "epoch_generator",
     "test_one_epoch",
     "to_device",

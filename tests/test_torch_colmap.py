@@ -123,3 +123,51 @@ def test_demo_exports_infer_outputs(tmp_path):
 def test_demo_refuses_bundle_adjustment(tmp_path):
     with pytest.raises(NotImplementedError, match="queue A item 15"):
         demo_colmap.main(["--image_folder", str(tmp_path), "--ba"])
+
+
+def test_demo_runs_the_saved_checkpoint(tmp_path):
+    """--checkpoint runs the saved model: the CLI's export is byte for byte
+    the export of that model loaded and called directly, and not the
+    export of the seeded random weights the demo runs without it."""
+    import PIL.Image
+
+    from mapanything_tpu_torch.data.image import load_images
+    from mapanything_tpu_torch.models.pretrained import from_pretrained
+    from mapanything_tpu_torch.train import save_params
+
+    folder = tmp_path / "images"
+    folder.mkdir()
+    rng = np.random.default_rng(5)
+    for i in range(2):  # 310 x 100: the smallest bucket, 518 x 168
+        PIL.Image.fromarray(rng.integers(0, 255, (100, 310, 3),
+                                         dtype=np.uint8)).save(
+            folder / f"im{i}.png")
+    model = MapAnything(MapAnythingConfig(**demo_colmap.TINY_CONFIG),
+                        device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    ckpt = str(tmp_path / "params.pt")
+    save_params(ckpt, model)
+    args = ["--image_folder", str(folder), "--tiny", "--device", "cpu"]
+    assert demo_colmap.main(args + ["--output_dir", str(tmp_path / "cli"),
+                                    "--checkpoint", ckpt]) == 0
+
+    loaded = from_pretrained(ckpt, torch.bfloat16, demo_colmap.TINY_CONFIG,
+                             "cpu")
+    for (name, got), want in zip(loaded.state_dict().items(),
+                                 model.state_dict().values()):
+        assert torch.equal(got, want), name
+    views = load_images(str(folder))
+    preds = InferencePipeline(loaded).infer(
+        views, apply_confidence_mask=True, confidence_percentile=10.0)
+    demo_colmap.export_predictions(preds, demo_colmap.view_names(views),
+                                   str(tmp_path / "direct"))
+    files = ("cameras.bin", "images.bin", "points3D.bin")
+    for f in files:
+        cli = (tmp_path / "cli" / "sparse" / f).read_bytes()
+        assert cli == (tmp_path / "direct" / "sparse" / f).read_bytes(), f
+
+    assert demo_colmap.main(args + ["--output_dir",
+                                    str(tmp_path / "random")]) == 0
+    random = (tmp_path / "random" / "sparse" / "points3D.bin").read_bytes()
+    assert random != (tmp_path / "cli" / "sparse" / "points3D.bin"
+                      ).read_bytes()
