@@ -271,18 +271,43 @@ Phases, in order (any failure exits non-zero and prints no result line):
      steps, peak GiB, the loader's host ms per batch and the training
      thread's wait for each batch, each checkpoint's save seconds.
 
+ 11. The demo path at full width, from a checkpoint in the reference's
+     layout: the lse-free forward against its plain version at the demos'
+     global shape, (1, 8320) / 8289 real keys (B2; 9a's method and limits),
+     with device ms, bound, flash SDPA's time and host µs. 11a, phase 3's
+     weights written as a two-shard HF snapshot in the reference's layout
+     (tests/torch_reference_layout.py) and loaded with from_pretrained onto
+     the card: bitwise phase 3's, the inferred config the released one;
+     write and load seconds, GiB on disk, peak host RSS. 11b,
+     demo_images_only.main on 8 seeded 640x480 images (bucket 518x392):
+     the PLY and the GLB read back, the points bitwise the masked pts3d of
+     the loaded model's own infer call, one frustum a view, exactly 48
+     forward launches. 11c, demo_colmap.main --ba at the default flags:
+     sparse/ and sparse_ba/ read back (8 cameras and images, finite
+     points, orthonormal rotations), points.glb, rms_after <= rms_before,
+     exactly 48 + 24 forward launches (infer and the ranking's encoder
+     pass); each stage's wall. 11d, the tracker on 8 rendered views of a
+     textured plane at 518x392 (tests/torch_demo_scenes.py), 1024 points
+     from view 0 against the exact correspondences (mean endpoint error
+     <= 1 px), and bundle adjustment of 8 frames x 1024 points (0.1 px
+     noise, perturbed poses) on the card: rms_after < 0.25 px and <
+     rms_before / 8, the refined poses, intrinsics and points within 1e-3
+     of the CPU's. 0 plain, probe and baseline launches.
+
 The last two lines are the kernels' JSON summary (each kernel's launches:
-the counts phases 3-10 read, summed) and
+the counts phases 3-11 read, summed) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -895,12 +920,13 @@ def untouched_baseline(fp) -> str | None:
         else None
 
 
-def write_images(folder: str, n: int) -> list[str]:
+def write_images(folder: str, n: int, w: int = 518,
+                 h: int = 518) -> list[str]:
     import numpy as np
     import PIL.Image
 
     rng = np.random.default_rng(1)
-    yy, xx = np.mgrid[0:518, 0:518] / 518.0
+    yy, xx = np.mgrid[0:h, 0:w] / float(max(w, h))
     paths = []
     for i in range(n):
         base = np.stack([np.sin(6 * xx + i), np.cos(5 * yy - i),
@@ -2704,6 +2730,330 @@ def cli_training(torch, fa, fp, F):
     return rows, fwd_rows, counts, untouched_baseline(fp)
 
 
+# phase 11: the demo path at full width. 8 views of 640x480 go to the
+# 518x392 bucket (37 x 28 = 1036 patches a view): the global layer holds
+# 8 x 1036 + the scale token = 8289 real keys, padded to 8320 (B2)
+DEMO_VIEWS = 8
+DEMO_SHAPE = ("global_518x392_8view", (1, 8320, 16, 64), 8289)
+RANKING_LAUNCHES = 24  # the encoder's 24 blocks over the 8 frames at once
+DEMO_SIZE = (518, 392)
+TRACK_FOCAL = 480.0
+TRACK_GRID = 32  # 32 x 32 = 1024 query points
+EPE_LIMIT = 1.0  # px, as the JAX package's test of the same construction
+BA_RMS_LIMIT = 0.25  # px, as tests/test_ba.py
+CARD_VS_CPU = 1e-3
+
+
+def tests_on_path():
+    """tests/ on sys.path: its JAX-free helpers build phase 11's inputs
+    (torch_reference_layout.py, torch_demo_scenes.py)."""
+    tests = os.path.join(HERE, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+
+
+class PeakRSS:
+    """The process's peak resident set over a `with` block, sampled from
+    /proc/self/statm every 5 ms (GiB)."""
+
+    def __enter__(self):
+        import threading
+
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.peak = self.start = self.read()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self.sample, daemon=True)
+        self.thread.start()
+        return self
+
+    def read(self) -> float:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page / 2**30
+
+    def sample(self):
+        while not self.stop.wait(0.005):
+            self.peak = max(self.peak, self.read())
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+        self.peak = max(self.peak, self.read())
+
+
+def read_glb(path: str):
+    """(the JSON chunk, accessor 0's positions (N, 3)) of a GLB file, its
+    magic, version and length checked."""
+    import numpy as np
+
+    with open(path, "rb") as f:
+        raw = f.read()
+    magic, version, total = struct.unpack("<4sII", raw[:12])
+    n, kind = struct.unpack("<I4s", raw[12:20])
+    if (magic, version, total, kind) != (b"glTF", 2, len(raw), b"JSON"):
+        raise ValueError(f"{path}: not a GLB ({magic}, {version}, {total})")
+    gltf = json.loads(raw[20:20 + n])
+    binary = raw[20 + n + 8:]
+    view = gltf["bufferViews"][0]
+    pos = np.frombuffer(binary[view["byteOffset"]:view["byteOffset"]
+                               + view["byteLength"]], np.float32)
+    return gltf, pos.reshape(-1, 3)
+
+
+def run_demo(main, argv):
+    """A demo's main(argv) in this process; its printed lines are echoed
+    and returned."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    if rc != 0:
+        raise RuntimeError(f"demo exited with {rc}")
+    return text
+
+
+def reference_snapshot(torch, folder):
+    """11a: phase 3's weights as a two-shard HF snapshot in the reference's
+    layout, loaded with from_pretrained. Returns (readings, the loaded
+    model, its path, failure or None)."""
+    tests_on_path()
+    from torch_reference_layout import reference_state_dict, write_snapshot
+
+    from mapanything_tpu_torch.models import MapAnythingConfig
+    from mapanything_tpu_torch.models.pretrained import from_pretrained
+
+    if not _RANDOM_WEIGHTS:  # phase 11 alone: draw phase 3's weights
+        random_weights_model()
+        torch.cuda.empty_cache()
+    weights = _RANDOM_WEIGHTS
+    snap = os.path.join(folder, "snapshot")
+    t0 = time.perf_counter()
+    write_snapshot(snap, reference_state_dict(
+        weights, MapAnythingConfig().trunk_indices), shards=2)
+    res = {"write_s": time.perf_counter() - t0,
+           "files": sorted(os.listdir(snap)),
+           "disk_gib": sum(os.path.getsize(os.path.join(snap, f))
+                           for f in os.listdir(snap)) / 2**30}
+    with PeakRSS() as rss:
+        t0 = time.perf_counter()
+        model = from_pretrained(snap)
+        torch.cuda.synchronize()
+        res["load_s"] = time.perf_counter() - t0
+    res.update(rss_before_gib=rss.start, peak_rss_gib=rss.peak,
+               host_weights_gib=sum(v.numel() * v.element_size()
+                                    for v in weights.values()) / 2**30)
+    got = model.state_dict()
+    res["bitwise_equal"] = list(got) == list(weights) and all(
+        torch.equal(got[key].cpu(), weights[key]) for key in weights)
+    res["config_is_released"] = model.cfg == MapAnythingConfig()
+    res["device"] = next(model.parameters()).device.type
+    print(f"phase 11a, reference-layout snapshot: {json.dumps(res)}",
+          flush=True)
+    if not (res["bitwise_equal"] and res["config_is_released"]
+            and res["device"] == "cuda"):
+        return res, model, snap, f"11a: {res}"
+    return res, model, snap, None
+
+
+def images_only_demo(torch, fa, model, snap, images, folder):
+    """11b: demo_images_only.main on the snapshot; the PLY and the GLB read
+    back, the points bitwise the masked pts3d of `model`'s own infer call.
+    Returns (readings, launches, failure or None)."""
+    import numpy as np
+
+    from mapanything_tpu_torch import demo_images_only
+    from mapanything_tpu_torch.data.image import load_images
+    from mapanything_tpu_torch.demo_colmap import masked_points
+    from mapanything_tpu_torch.utils.inference import InferencePipeline
+
+    ply = os.path.join(folder, "reconstruction.ply")
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_demo(demo_images_only.main, ["--image_folder", images, "--output",
+                                     ply, "--checkpoint", snap])
+    res = {"wall_s": time.perf_counter() - t0}
+    counts = launches_of(fa)
+    bad = expect_launches(fa, {"fwd": FORWARD_LAUNCHES}, "11b")
+    gltf, pos = read_glb(os.path.splitext(ply)[0] + ".glb")
+    with open(ply) as f:
+        header = [next(f) for _ in range(10)]
+    preds = InferencePipeline(model).infer(load_images(images),
+                                           memory_efficient_inference=False)
+    want, _ = masked_points(preds)
+    res.update(points=len(pos), ply_vertices=int(header[2].split()[-1]),
+               glb_point_count=gltf["accessors"][0]["count"],
+               frustum_vertices=gltf["accessors"][2]["count"],
+               points_bitwise_infer=bool(np.array_equal(pos, want)))
+    print(f"phase 11b, images-only demo: {json.dumps(res)}", flush=True)
+    if bad:
+        return res, counts, bad
+    if not (res["points_bitwise_infer"] and 0 < len(pos)
+            == res["ply_vertices"] == res["glb_point_count"]
+            and res["frustum_vertices"] == DEMO_VIEWS * 16):
+        return res, counts, f"11b: {res}"
+    return res, counts, None
+
+
+def colmap_demo(torch, fa, snap, images, folder):
+    """11c: demo_colmap.main --ba on the snapshot at the default flags; both
+    sparse models and points.glb read back. Returns (readings, launches,
+    failure or None)."""
+    import re
+
+    import numpy as np
+
+    from mapanything_tpu_torch import demo_colmap
+    from mapanything_tpu_torch.utils import colmap_io
+
+    out = os.path.join(folder, "colmap")
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    text = run_demo(demo_colmap.main, ["--image_folder", images,
+                                       "--output_dir", out, "--checkpoint",
+                                       snap, "--ba"])
+    res = {"wall_s": time.perf_counter() - t0}
+    counts = launches_of(fa)
+    bad = expect_launches(fa, {"fwd": FORWARD_LAUNCHES + RANKING_LAUNCHES},
+                          "11c")
+    ba = re.search(r"BA: rms (\S+) px -> (\S+) px over (\d+) observations "
+                   r"of (\d+) tracks", text)
+    res.update(rms_before=float(ba.group(1)), rms_after=float(ba.group(2)),
+               observations=int(ba.group(3)), tracks=int(ba.group(4)),
+               stage_walls_s=json.loads(text.split("stage walls (s): ")[1]
+                                        .splitlines()[0]))
+    for sub in ("sparse", "sparse_ba"):
+        path = os.path.join(out, sub)
+        cams = colmap_io.read_cameras_bin(os.path.join(path, "cameras.bin"))
+        imgs = colmap_io.read_images_bin(os.path.join(path, "images.bin"))
+        pts, _ = colmap_io.read_points3d_bin(
+            os.path.join(path, "points3D.bin"))
+        rots = [colmap_io.quaternion_wxyz_to_matrix_np(im["qvec"])
+                for im in imgs]
+        res[sub] = {"cameras": len(cams), "images": len(imgs),
+                    "points": len(pts),
+                    "points_finite": bool(np.isfinite(pts).all()),
+                    "rotation_orthonormal_err": max(
+                        float(np.abs(r @ r.T - np.eye(3)).max())
+                        for r in rots)}
+    gltf, pos = read_glb(os.path.join(out, "points.glb"))
+    res["glb_points"] = len(pos)
+    print(f"phase 11c, COLMAP demo with --ba: {json.dumps(res)}", flush=True)
+    if bad:
+        return res, counts, bad
+    models_ok = all(
+        res[sub]["cameras"] == res[sub]["images"] == DEMO_VIEWS
+        and res[sub]["points"] > 0 and res[sub]["points_finite"]
+        and res[sub]["rotation_orthonormal_err"] <= 1e-4
+        for sub in ("sparse", "sparse_ba"))
+    if not (models_ok and res["glb_points"] == res["sparse"]["points"]
+            and gltf["accessors"][0]["count"] == len(pos)
+            and res["rms_after"] <= res["rms_before"]
+            and res["sparse_ba"]["points"] == res["tracks"]):
+        return res, counts, f"11c: {res}"
+    return res, counts, None
+
+
+def known_geometry(torch):
+    """11d: the tracker on 8 rendered views of a textured plane at 518x392
+    against the exact correspondences, and bundle adjustment of 8 frames x
+    1024 points on the card against the CPU. Returns (readings, failure or
+    None)."""
+    import numpy as np
+
+    tests_on_path()
+    from torch_demo_scenes import (
+        ba_problem,
+        grid_points,
+        plane_correspondences,
+        plane_views,
+    )
+
+    from mapanything_tpu_torch.utils import ba as BA
+    from mapanything_tpu_torch.utils.tracking import track_points
+
+    w, h = DEMO_SIZE
+    views, homs = plane_views(0, DEMO_VIEWS, h, w, TRACK_FOCAL)
+    query = grid_points(h, w, TRACK_GRID, 40)
+    truth = plane_correspondences(homs, query.astype(np.float64))
+    images, q = torch.from_numpy(views).cuda(), torch.from_numpy(query).cuda()
+    track_points(images, q)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tracks, vis = track_points(images, q)
+    torch.cuda.synchronize()
+    epe = np.linalg.norm(tracks.cpu().numpy() - truth, axis=-1)
+    res = {"points": len(query), "frames": DEMO_VIEWS,
+           "track_ms": (time.perf_counter() - t0) * 1e3,
+           "mean_epe_px": float(epe.mean()), "max_epe_px": float(epe.max()),
+           "mean_vis": float(vis.mean())}
+
+    arrays, _ = ba_problem(0, n_f=DEMO_VIEWS, n_p=len(query),
+                           intrinsics=(TRACK_FOCAL, TRACK_FOCAL, w / 2, h / 2))
+    cpu = BA.BAProblem(*(torch.from_numpy(np.array(a)) for a in arrays))
+    card = BA.BAProblem(*(t.cuda() for t in cpu))
+    BA.bundle_adjust(card, iters=2)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = BA.bundle_adjust(card, iters=20)
+    res.update(rms_before=float(out["rms_before"]),
+               rms_after=float(out["rms_after"]),
+               ba_ms=(time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    ref = BA.bundle_adjust(cpu, iters=20)
+    res["ba_cpu_ms"] = (time.perf_counter() - t0) * 1e3
+    res["card_vs_cpu"] = {}
+    for key in ("cam_quats", "cam_trans", "intrinsics", "points"):
+        want = ref[key].double().numpy()
+        res["card_vs_cpu"][key] = float(
+            np.abs(out[key].double().cpu().numpy() - want).max()
+            / max(1.0, np.abs(want).max()))
+    print(f"phase 11d, tracking and BA on known geometry: {json.dumps(res)}",
+          flush=True)
+    if not res["mean_epe_px"] <= EPE_LIMIT:
+        return res, f"11d: mean endpoint error {res['mean_epe_px']} px"
+    if not (res["rms_after"] < BA_RMS_LIMIT
+            and res["rms_after"] < res["rms_before"] / 8):
+        return res, f"11d: BA rms {res['rms_before']} -> {res['rms_after']}"
+    if not max(res["card_vs_cpu"].values()) <= CARD_VS_CPU:
+        return res, f"11d: card against the CPU {res['card_vs_cpu']}"
+    return res, None
+
+
+def demo_path(torch, fa, fp, F):
+    """Phase 11 (the forward at the demo's global shape, 11a-11d). Returns
+    (kernel rows, the kernel counts of the demos' runs, failure or None)."""
+    rows = kernel_vs_plain(torch, fa, fp, F, [DEMO_SHAPE], seed=1100,
+                           baseline=False)
+    for name, row in rows:
+        row["at"] = name
+        if not max(row["max_abs_err"], row["rel_l2"]) <= ERR_LIMIT:
+            return rows, [], f"kernel disagrees with plain at {name}: {row}"
+    counts = []
+    with tempfile.TemporaryDirectory() as folder:
+        res, model, snap, bad = reference_snapshot(torch, folder)
+        if bad:
+            return rows, counts, bad
+        images = os.path.join(folder, "images")
+        os.makedirs(images)
+        write_images(images, DEMO_VIEWS, 640, 480)
+        res, launched, bad = images_only_demo(torch, fa, model, snap, images,
+                                              folder)
+        counts.append(launched)
+        if bad:
+            return rows, counts, bad
+        del model
+        torch.cuda.empty_cache()
+        res, launched, bad = colmap_demo(torch, fa, snap, images, folder)
+        counts.append(launched)
+        if bad:
+            return rows, counts, bad
+    torch.cuda.empty_cache()
+    res, bad = known_geometry(torch)
+    if bad:
+        return rows, counts, bad
+    return rows, counts, untouched_baseline(fp)
+
+
 def timing(row):
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms", "mma_ms",
@@ -2713,7 +3063,7 @@ def timing(row):
 def kernels_summary(fp, attn, train_rows, ring_rows, merge, probe_rows,
                     phase_counts) -> list:
     """The kernels' JSON rows: each kernel at its main-path shape with its
-    launches in phases 3-10 (phase_counts: the kernel counts each of those
+    launches in phases 3-11 (phase_counts: the kernel counts each of those
     runs read, reset just before it), the baselines and the probes."""
     launches = {kname: sum(counts[key] for counts in phase_counts)
                 for kname, key in COUNTER.items()}
@@ -2946,7 +3296,7 @@ def main() -> int:
             return fail(f"probe {case} disagrees with its plain version: "
                         f"{row}")
 
-    # phases 3-10 run the main path: no probe and no baseline launch
+    # phases 3-11 run the main path: no probe and no baseline launch
     fp.reset_probe_counts()
 
     # phase 3: serving at full width
@@ -3099,11 +3449,22 @@ def main() -> int:
         train_rows[kname] += rows
     attn = attn + val_rows
 
+    # phase 11: the demo path: the reference's checkpoint layout, both demos
+    t11 = time.perf_counter()
+    torch.cuda.empty_cache()
+    demo_rows, phase11_counts, bad = demo_path(torch, fa, fp, F)
+    if bad:
+        return fail(f"phase 11: {bad}")
+    print(f"phase 11 (the demos from a reference-layout snapshot) took "
+          f"{time.perf_counter() - t11:.1f} s", flush=True)
+    attn = attn + demo_rows
+
     phase_counts = [serving,
                     {key: train[f"{key}_launches"] for key in fa.KERNELS},
                     ring_res["kernel_counts"], block_res["kernel_counts"],
                     vs_train["launches"]] + (phase7_counts + phase8_counts
-                                             + phase9_counts + phase10_counts)
+                                             + phase9_counts + phase10_counts
+                                             + phase11_counts)
     kernels = kernels_summary(fp, attn, train_rows, ring_rows, merge,
                               probe_rows, phase_counts)
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s",

@@ -14,7 +14,7 @@ dataset cover the same surface:
         [--spec eth3d] [--num_views 4] [--resolution 518 392]
 
 prints a few samples of one dataset (the reference's per-dataset QA step);
-its `--viz` waits for utils/viz.py (ROADMAP queue A item 15).
+`--viz` writes the first sample's valid points as sample.glb.
 """
 
 from __future__ import annotations
@@ -295,9 +295,6 @@ def make_wai_dataset(name: str, **kwargs) -> WAIDataset:
     return WAIDataset(spec=WAI_DATASET_SPECS[name], **kwargs)
 
 
-VIZ_ITEM = "ROADMAP queue A item 15 (utils/viz.py)"
-
-
 def main(argv=None) -> None:
     """Print a few samples of one dataset: view count, image shape, depth
     range, valid share and scene."""
@@ -310,11 +307,9 @@ def main(argv=None) -> None:
     ap.add_argument("--num_views", type=int, default=4)
     ap.add_argument("--resolution", type=int, nargs=2, default=(518, 392))
     ap.add_argument("--viz", action="store_true",
-                    help=f"not ported yet: {VIZ_ITEM}")
+                    help="write the first sample as sample.glb")
     ap.add_argument("--num_samples", type=int, default=3)
     args = ap.parse_args(argv)
-    if args.viz:
-        raise NotImplementedError(f"--viz: {VIZ_ITEM}")
 
     ds = WAIDataset(
         ROOT=args.root, spec=args.spec, num_views=args.num_views,
@@ -330,6 +325,19 @@ def main(argv=None) -> None:
               f"{float(np.max(v0['depthmap'])):.2f}], "
               f"valid {float(np.mean(v0['valid_mask'])):.1%}, "
               f"scene {v0['label']}")
+    if args.viz:
+        from ..utils.viz import write_glb_pointcloud
+        from .image import IMAGE_NORMALIZATION_DICT
+
+        views = ds[0]
+        valid = [np.asarray(v["valid_mask"], bool) for v in views]
+        pts = np.concatenate([v["pts3d"][m] for v, m in zip(views, valid)])
+        mean, std = IMAGE_NORMALIZATION_DICT["dinov2"]
+        cols = np.concatenate([
+            np.clip(np.asarray(v["img"]) * std + mean, 0, 1)[m]
+            for v, m in zip(views, valid)])
+        write_glb_pointcloud("sample.glb", pts, cols)
+        print(f"wrote sample.glb ({len(pts)} points)")
 
 
 if __name__ == "__main__":

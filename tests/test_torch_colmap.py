@@ -120,9 +120,27 @@ def test_demo_exports_infer_outputs(tmp_path):
     assert len(pts) == res["points"] and np.isfinite(pts).all()
 
 
-def test_demo_refuses_bundle_adjustment(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A item 15"):
-        demo_colmap.main(["--image_folder", str(tmp_path), "--ba"])
+def test_demo_runs_bundle_adjustment(tmp_path):
+    """--ba from frame 0 alone (no ranking): sparse_ba holds every view and
+    the tracked points."""
+    import PIL.Image
+
+    folder = tmp_path / "images"
+    folder.mkdir()
+    rng = np.random.default_rng(6)
+    for i in range(2):
+        PIL.Image.fromarray(rng.integers(0, 255, (100, 310, 3),
+                                         dtype=np.uint8)).save(
+            folder / f"im{i}.png")
+    assert demo_colmap.main(["--image_folder", str(folder), "--output_dir",
+                             str(tmp_path / "out"), "--tiny", "--device",
+                             "cpu", "--ba", "--num_query_frames", "1",
+                             "--max_query_pts", "40", "--ba_iters", "2"]) == 0
+    sparse = tmp_path / "out" / "sparse_ba"
+    imgs = PC.read_images_bin(str(sparse / "images.bin"))
+    assert [im["name"] for im in imgs] == ["im0.png", "im1.png"]
+    pts, _ = PC.read_points3d_bin(str(sparse / "points3D.bin"))
+    assert len(pts) == 40 and np.isfinite(pts).all()
 
 
 def test_demo_runs_the_saved_checkpoint(tmp_path):

@@ -652,11 +652,31 @@ def test_dataset_mix_refuses_terms_that_differ(wai_root, other):
         build_dataset_mix(spec, wai_root=wai_root)
 
 
-def test_inspector_prints_and_refuses_viz(wai_root, capsys):
+def test_inspector_prints_and_writes_viz(wai_root, capsys, tmp_path,
+                                        monkeypatch):
+    """--viz writes the first sample's valid points as sample.glb, in the
+    bytes of the JAX inspector's branch (wai_datasets.py's __main__) on
+    JAX's dataset."""
+    from mapanything_tpu.utils.viz import write_glb_pointcloud
+
     args = ["--root", wai_root, "--num_views", "2", "--resolution", "56",
             "42", "--num_samples", "2"]
+    monkeypatch.chdir(tmp_path)
     PD.main(args)
     out = capsys.readouterr().out
     assert "eth3d: 2 scenes" in out and "sample 1: 2 views" in out
-    with pytest.raises(NotImplementedError, match="item 15"):
-        PD.main(args + ["--viz"])
+    assert not (tmp_path / "sample.glb").exists()
+    PD.main(args + ["--viz"])
+    assert "wrote sample.glb" in capsys.readouterr().out
+    views = JD.WAIDataset(ROOT=wai_root, spec="eth3d", num_views=2,
+                          covisibility_thres=0.25, resolution=(56, 42),
+                          data_norm_type="dinov2", seed=0)[0]
+    valid = [np.asarray(v["valid_mask"], bool) for v in views]
+    mean, std = JI.IMAGE_NORMALIZATION_DICT["dinov2"]
+    write_glb_pointcloud(
+        str(tmp_path / "jax.glb"),
+        np.concatenate([v["pts3d"][m] for v, m in zip(views, valid)]),
+        np.concatenate([np.clip(np.asarray(v["img"]) * std + mean, 0, 1)[m]
+                        for v, m in zip(views, valid)]))
+    assert ((tmp_path / "sample.glb").read_bytes()
+            == (tmp_path / "jax.glb").read_bytes())

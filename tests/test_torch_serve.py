@@ -48,8 +48,12 @@ from mapanything_tpu_torch.train import (
     save_train_state,
 )
 from mapanything_tpu_torch.utils.inference import InferencePipeline
-from mapanything_tpu_torch.utils.weights import load_jax_params
+from mapanything_tpu_torch.utils.weights import (
+    load_jax_params,
+    write_safetensors,
+)
 from torch_jax_init import init_params
+from torch_reference_layout import reference_state_dict
 
 TINY = dict(encoder_size="test", trunk_dim=64, trunk_depth=2,
             trunk_num_heads=2, trunk_indices=(0, 1), dpt_feature_dim=32,
@@ -610,27 +614,41 @@ def test_from_pretrained_other_architecture_raises(tmp_path, source_model):
                         device="cpu")
 
 
-def _reference_pt(tmp_path):
-    path = tmp_path / "reference.pt"
-    torch.save({"model": {"encoder.patch_embed.proj.weight":
-                          torch.zeros(4, 3, 14, 14)}}, path)
+def _reference(model):
+    return reference_state_dict(model.state_dict(), TINY["trunk_indices"])
+
+
+def _reference_safetensors(tmp_path, model):
+    path = tmp_path / "model.safetensors"
+    write_safetensors(str(path), _reference(model))
     return path
 
 
-def _hf_snapshot(tmp_path):
+def _reference_pt(tmp_path, model):
+    path = tmp_path / "reference.pt"
+    torch.save({"model": _reference(model)}, path)
+    return path
+
+
+def _hf_snapshot(tmp_path, model):
     (tmp_path / "config.json").write_text("{}")
+    write_safetensors(str(tmp_path / "model.safetensors"), _reference(model))
     return tmp_path
 
 
-@pytest.mark.parametrize("make,match", [
-    (lambda p: p / "model.safetensors", "A0"),
-    (_reference_pt, "A0"),
-    (_hf_snapshot, "A0"),
-    (lambda p: p, "orbax"),
-])
-def test_from_pretrained_refuses_other_layouts(tmp_path, make, match):
-    with pytest.raises(NotImplementedError, match=match):
-        from_pretrained(str(make(tmp_path)), device="cpu")
+@pytest.mark.parametrize("make", [_reference_safetensors, _reference_pt,
+                                  _hf_snapshot])
+def test_from_pretrained_reads_the_reference_layouts(tmp_path, source_model,
+                                                     make):
+    model = from_pretrained(str(make(tmp_path, source_model)), torch.float32,
+                            TINY, device="cpu")
+    _assert_bitwise(model, source_model)
+
+
+def test_from_pretrained_refuses_orbax(tmp_path):
+    (tmp_path / "config.json").write_text("{}")
+    with pytest.raises(NotImplementedError, match="orbax"):
+        from_pretrained(str(tmp_path), device="cpu")
 
 
 @pytest.mark.parametrize("checkpoint", [True, False])

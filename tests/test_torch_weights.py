@@ -93,7 +93,15 @@ def test_import_does_not_load_jax():
     code = ("import sys, mapanything_tpu_torch, "
             "mapanything_tpu_torch.utils.inference, "
             "mapanything_tpu_torch.utils.weights, "
+            "mapanything_tpu_torch.utils.viz, "
+            "mapanything_tpu_torch.utils.tracking, "
+            "mapanything_tpu_torch.utils.ba, "
+            "mapanything_tpu_torch.models.pretrained, "
+            "mapanything_tpu_torch.demo_colmap, "
+            "mapanything_tpu_torch.demo_images_only, "
             "mapanything_tpu_torch.data.image; "
+            "sys.path.insert(0, 'tests'); "
+            "import torch_reference_layout, torch_demo_scenes; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'flax', 'mapanything_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
