@@ -293,9 +293,53 @@ Phases, in order (any failure exits non-zero and prints no result line):
      noise, perturbed poses) on the card: rms_after < 0.25 px and <
      rms_before / 8, the refined poses, intrinsics and points within 1e-3
      of the CPU's. 0 plain, probe and baseline launches.
+ 12. The evaluation path at full width (the benchmark CLIs, the adapter
+     seam, ModularDUSt3R): 12a, the lse-free forward against its plain
+     version (phase 2's limits, max-abs over the plain's max-abs) at the
+     shapes only this path gives it (EVAL_SHAPES: ModularDUSt3R-L at
+     512x384, 768 tokens, no class token, 16 heads in the encoder and 12
+     in the decoder, the cross-attention's k and v the strided halves of
+     one kv tensor, per pair and at batch 10; MapAnything at the dense
+     N-view batches of 10 x 2 and 10 x 4 views at 518x392, the 4-view
+     global layer on B2), with device ms, bound, flash SDPA's time and
+     host µs. Then a WAI tree (phase 10's) and phase 3's weights as a
+     save_params file. 12b, benchmark_dense_n_view.main in this process
+     (--views 2 4 --batch_sizes 10 10 --num_sets 10 at 518x392, both
+     --task images_only and all_priors): exactly 48 forward launches a
+     batch, nothing else; the summary and per-set JSON read back; the
+     card's _normalize_for_metrics against the CPU's in fp32 from the same
+     prediction tensors (1e-4 of each output's largest magnitude); flash
+     against math attention on a 10 x 2-view batch (pts3d rel-L2 1e-2);
+     the ground-truth oracle (tests/torch_eval_oracles.py) through
+     run_dense_n_view_benchmark: abs-rel errors <= 1e-5, inlier ratios
+     and AUC@5 1, ATE <= 1e-4. 12c, ModularDUSt3R(encoder_size="large")
+     with its seeded init through ModularDUSt3RAdapter and the unmodified
+     run_dense_n_view_benchmark on 10 two-view sets at 512x384: exactly
+     144 forward launches, finite factored outputs of the expected shapes,
+     view 1's quaternion the identity; at the model's own init, flash
+     and bf16 math each against an fp32 math forward of the same weights
+     at the encoder's first, middle and last block, dec_norm (the
+     decoder before the head) and pts3d: flash's rel-L2 at most 1.1x
+     bf16 math's at each (bf16's own floor there is ~1.3e-2, above 1e-2);
+     and flash against math on pts3d (rel-L2 1e-2) with every parameter
+     redrawn N(0, 0.02) on the card (the weak gate of phases 5, 7 and
+     8d);
+     rigid_points_registration of 8 x 1024 weighted points under a
+     known rotation, translation and scale on the card within 1e-4 of the
+     CPU and of the truth. 12d, benchmark_calibration.main (single views at
+     518x392, batches of 10): 48 launches a batch, a finite mean error; the
+     oracle's error 0 (<= 1e-4 deg) and, with every ray turned by 1 deg,
+     1 deg within 1e-3. 12e, benchmark_rmvd.main --selftest with the
+     checkpoint (image+intrinsics+pose, 2 samples of 2 views at 518^2),
+     then its adaptor on 2 samples of 1 key and 7 sources at 518x392 (the
+     global layer (1, 8320) / 8289): 48 launches a call, finite metrics,
+     input_adapter's rays and poses on the card within 1e-5 of the CPU's.
+     Each stage's wall (checkpoint load, forwards, metrics, JSON, the rest),
+     peak GiB, and the device ms of one (10, 4)-view forward and one
+     adapter call (torch.profiler). 0 plain, probe and baseline launches.
 
 The last two lines are the kernels' JSON summary (each kernel's launches:
-the counts phases 3-11 read, summed) and
+the counts phases 3-12 read, summed) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -312,6 +356,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ERR_LIMIT = 1e-2
@@ -3054,6 +3099,739 @@ def demo_path(torch, fa, fp, F):
     return rows, counts, untouched_baseline(fp)
 
 
+# phase 12: the evaluation path at full width. The forward at the shapes
+# it runs that no earlier phase held: ModularDUSt3R-L at 512x384 (768
+# tokens a view = 32 x 24 patches of 16, no class token; 16 heads in the
+# ViT-L encoder, 12 in the ViT-B decoder; the cross-attention's k and v the
+# strided halves of one (B, M, 2, H, D) tensor), per pair and at the
+# benchmark's batch of 10 pairs; MapAnything at the dense N-view batches of
+# 10 sets of 2 and 4 views at 518x392 (37 x 28 = 1036 patches a view)
+EVAL_SHAPES = [
+    # (name, (B, N, H, D), n_valid, layout: "qkv" fused, "cross" q + kv)
+    ("dust3r_encoder_pair", (2, 768, 16, 64), None, "qkv"),
+    ("dust3r_decoder_self_pair", (1, 768, 12, 64), None, "qkv"),
+    ("dust3r_decoder_cross_pair", (1, 768, 12, 64), None, "cross"),
+    ("dust3r_encoder_b10", (20, 768, 16, 64), None, "qkv"),
+    ("dust3r_decoder_self_b10", (10, 768, 12, 64), None, "qkv"),
+    ("dust3r_decoder_cross_b10", (10, 768, 12, 64), None, "cross"),
+    ("encoder_518x392_b10x2", (20, 1152, 16, 64), 1037, "qkv"),
+    ("frame_518x392_b10x2", (20, 1036, 16, 64), None, "qkv"),
+    ("global_518x392_b10x2", (10, 2176, 16, 64), 2073, "qkv"),
+    ("encoder_518x392_b10x4", (40, 1152, 16, 64), 1037, "qkv"),
+    ("frame_518x392_b10x4", (40, 1036, 16, 64), None, "qkv"),
+    ("global_518x392_b10x4", (10, 4224, 16, 64), 4145, "qkv"),
+]
+PLAIN_SCORE_BYTES = 3 * 2**30  # the plain version's score matrix, a slice
+EVAL_SIZE = (518, 392)
+EVAL_VIEWS, EVAL_BATCH, EVAL_SETS = (2, 4), 10, 10
+DUST3R_SIZE = (512, 384)
+# per ModularDUSt3RAdapter call: the pair and the swapped pair, each 24
+# encoder blocks and 12 decoder layers x 2 branches x (self + cross)
+DUST3R_LAUNCHES = 2 * (24 + 12 * 2 * 2)
+# at ModularDUSt3R-L's own init bf16 math itself lies ~1.3e-2 (rel-L2) from
+# an fp32 forward; flash may lie at most 1.1x as far at every tapped output
+DUST3R_FLOOR_RATIO = 1.1
+RMVD_SOURCES = 7  # rmvd's max_source_views: 1 key + 7 sources
+CPU_METRICS_LIMIT = 1e-4  # the card's _normalize_for_metrics against fp32 CPU
+REGISTRATION_LIMIT = 1e-4
+
+
+def eval_attention_inputs(torch, shape, n_valid, layout, seed):
+    """bf16 q, k, v: the fused-qkv views of nn/layers.py::Attention, or
+    nn/croco.py::CrossAttention's q of its own with k and v the strided
+    halves of one (B, N, 2, H, D) tensor."""
+    if layout == "qkv":
+        return attention_inputs(torch, shape, n_valid, seed)
+    b, n, h, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, n, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kv = torch.randn((b, n, 2, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    return (q, *kv.unbind(2))
+
+
+def eval_kernel_rows(torch, fa, F):
+    """12a: the forward kernel against its plain version at EVAL_SHAPES
+    (phase 2's limits: max-abs over the plain's max-abs and rel-L2 over
+    the real rows, 1e-2 each), with device ms, bound, flash SDPA's time
+    and host µs. The plain version runs a batch slice at a time where its
+    fp32 score matrix would pass PLAIN_SCORE_BYTES (its time is that of
+    the whole loop). Returns ([(name, row)], failure or None)."""
+    rows = []
+    for i, (name, shape, n_valid, layout) in enumerate(EVAL_SHAPES):
+        b, n, h, d = shape
+        q, k, v = eval_attention_inputs(torch, shape, n_valid, layout,
+                                        1200 + i)
+        real = n if n_valid is None else n_valid
+        step = max(1, min(b, PLAIN_SCORE_BYTES // (h * n * real * 4)))
+
+        def plain():
+            return torch.cat([fa.flash_attention_plain(
+                q[j:j + step], k[j:j + step], v[j:j + step], n_valid)
+                for j in range(0, b, step)])
+
+        out = fa.flash_attention(q, k, v, n_valid=n_valid)
+        ref = plain()
+        torch.cuda.synchronize()
+        o, r = out[:, :real].float(), ref[:, :real].float()
+        row = {
+            "shape": list(shape), "n_valid": n_valid, "layout": layout,
+            "strides": [list(x.stride()[:3]) for x in (q, k, v)],
+            "max_abs_err": float((o - r).abs().max()),
+            "max_abs_rel": max_abs_rel(o, r), "rel_l2": rel_l2(o, r),
+            "ms": kernel_ms(lambda: fa.flash_attention(q, k, v, n_valid)),
+            "plain_ms": plain_ms(plain), "plain_batch_slice": step,
+            "host_us": host_us(
+                lambda: fa._fwd_cuda(q, k, v, n_valid, with_lse=False)),
+        }
+        flops = fa.attention_flops(b, n, real, h, d)
+        row["tflops"] = flops / row["ms"] / 1e9
+        row.update(bound(F, "fwd", shape, real))
+        row["library_ms"] = library_fwd_ms(torch, *sdpa_layout(q, k, v, real))
+        row["at"] = name
+        print(f"12a attention {name} {tuple(shape)} n_valid={n_valid} "
+              f"{layout}: max_abs_rel={row['max_abs_rel']:.3e} "
+              f"rel_l2={row['rel_l2']:.3e} kernel {row['ms']:.4f} ms "
+              f"({row['tflops']:.2f} TFLOP/s) plain {row['plain_ms']:.4f} ms "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) library "
+              f"{row['library_ms']:.4f} ms; host {row['host_us']:.1f} us",
+              flush=True)
+        rows.append((name, row))
+        del q, k, v, out, ref, o, r
+        torch.cuda.empty_cache()
+        if not max(row["max_abs_rel"], row["rel_l2"]) <= ERR_LIMIT:
+            return rows, f"kernel disagrees with plain at {name}: {row}"
+    return rows, None
+
+
+class StageClock:
+    """The walls of the benchmark CLIs' stages, read by wrapping, for the
+    length of a `with` block, the functions each stage calls: the
+    checkpoint load (train/checkpoints.py::load_params,
+    models/pretrained.py::from_pretrained), every model forward
+    (MapAnything and ModularDUSt3RAdapter, a synchronise on each side; the
+    kernel launches of each call are kept), the metrics
+    (compute_metrics_for_batch, ray_angular_error_deg) and the JSON
+    writes; "rest" is the data loading and the set-up. `seen` holds the
+    (gt, preds) of each compute_metrics_for_batch call."""
+
+    def __init__(self, torch, fa):
+        self.torch, self.fa = torch, fa
+        self.walls = {}
+        self.forwards = []
+        self.seen = []
+
+    def timed(self, stage, fn, sync=False, forward=False, keep=False):
+        torch, fa = self.torch, self.fa
+
+        def run(*args, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            before = launches_of(fa)
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            self.walls[stage] = (self.walls.get(stage, 0.0)
+                                 + time.perf_counter() - t0)
+            if forward:
+                after = launches_of(fa)
+                self.forwards.append({key: after[key] - before[key]
+                                      for key in after
+                                      if after[key] != before[key]})
+            if keep:
+                self.seen.append(args[:2])
+            return out
+
+        return run
+
+    def __enter__(self):
+        from unittest import mock
+
+        from mapanything_tpu_torch.benchmarks import calibration as BC
+        from mapanything_tpu_torch.benchmarks import dense_n_view as BD
+        from mapanything_tpu_torch.models import MapAnything
+        from mapanything_tpu_torch.models import pretrained as PR
+        from mapanything_tpu_torch.models.adapters import (
+            ModularDUSt3RAdapter,
+        )
+        from mapanything_tpu_torch.train import checkpoints as CK
+
+        self.stack = contextlib.ExitStack()
+        for owner, name, stage, kw in (
+                (CK, "load_params", "load", {"sync": True}),
+                (PR, "from_pretrained", "load", {"sync": True}),
+                (MapAnything, "forward", "forward",
+                 {"sync": True, "forward": True}),
+                (ModularDUSt3RAdapter, "forward", "forward",
+                 {"sync": True, "forward": True}),
+                (BD, "compute_metrics_for_batch", "metrics", {"keep": True}),
+                (BC, "ray_angular_error_deg", "metrics", {"sync": True}),
+                (BD, "write_json", "json", {}),
+                (BC, "write_json", "json", {})):
+            self.stack.enter_context(mock.patch.object(
+                owner, name, self.timed(stage, getattr(owner, name), **kw)))
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.stack.close()
+        total = time.perf_counter() - self.t0
+        self.walls["rest"] = total - sum(self.walls.values())
+        self.walls["total"] = total
+
+
+def eval_loader(root: str, views: int, size, batch: int, sets: int,
+                norm: str = "dinov2"):
+    """A test loader as the benchmark CLIs build theirs."""
+    from mapanything_tpu_torch.data.loader import get_test_data_loader
+    from mapanything_tpu_torch.data.wai_datasets import WAIDataset
+
+    ds = WAIDataset(ROOT=root, spec="eth3d", split="test", num_views=views,
+                    covisibility_thres=0.25, resolution=tuple(size),
+                    data_norm_type=norm, seed=0)
+    return get_test_data_loader(sets @ ds, batch_size=batch, num_workers=2)
+
+
+def first_batch(loader):
+    loader.set_epoch(0)
+    it = iter(loader)
+    try:
+        return next(it)
+    finally:
+        it.close()
+
+
+def card_vs_cpu_metrics(torch, gt, preds) -> dict:
+    """_normalize_for_metrics on the card against the same function on the
+    CPU in fp32, from the same tensors: max |card - cpu| over max |cpu|
+    per output (a bool output: 0 if equal, else 1)."""
+    from mapanything_tpu_torch.benchmarks.dense_n_view import (
+        _normalize_for_metrics,
+    )
+
+    def cpu(d):
+        return {k: v.cpu() if v.dtype == torch.bool else v.float().cpu()
+                for k, v in d.items()}
+
+    with torch.inference_mode():
+        card = _normalize_for_metrics(gt, preds)
+        ref = _normalize_for_metrics(cpu(gt), cpu(preds))
+    errs = {}
+    for key, r in ref.items():
+        g = card[key].cpu()
+        errs[key] = (float(not torch.equal(g, r)) if r.dtype == torch.bool
+                     else max_abs_rel(g, r))
+    return errs
+
+
+def gt_oracle_dense(torch, BD, batches) -> tuple:
+    """The ground-truth oracle (tests/torch_eval_oracles.py) through
+    run_dense_n_view_benchmark on the card, over {views: host batch}: each
+    error at its floor."""
+    tests_on_path()
+    from torch_eval_oracles import (
+        GroundTruthOracle,
+        ListLoader,
+        RecordingLoader,
+    )
+
+    res = {}
+    for views, batch in batches.items():
+        loader = RecordingLoader(ListLoader([batch]))
+        res[views] = BD.run_dense_n_view_benchmark(
+            GroundTruthOracle(loader, "cuda"), loader, None)
+    bad = [f"{views} views: {s}" for views, s in res.items() if not (
+        s["num_sets"] == EVAL_SETS
+        and s["pointmaps_abs_rel"] <= 1e-5 and s["depth_abs_rel"] <= 1e-5
+        and s["pointmaps_inlier_thres_103"] == 1.0
+        and s["depth_inlier_thres_103"] == 1.0
+        and s["pose_ate_rmse"] <= 1e-4 and s["pose_auc_5"] == 1.0
+        and s["scale_abs_rel"] <= 1e-5)]
+    return res, (f"12b GT oracle: {bad}" if bad else None)
+
+
+def dense_cli(torch, fa, fp, ckpt, root, folder):
+    """12b: benchmark_dense_n_view.main, both tasks, over the tree with
+    phase 3's weights; the card's metrics against the CPU's, flash against
+    math, the GT oracle. Returns (readings, launch counts, failure)."""
+    import numpy as np
+
+    from mapanything_tpu_torch import benchmark_dense_n_view as CLI
+    from mapanything_tpu_torch.benchmarks import dense_n_view as BD
+    from mapanything_tpu_torch.models import images_only_config
+    from mapanything_tpu_torch.utils.device import to_device
+
+    res, counts, seen = {}, [], None
+    for task in ("images_only", "all_priors"):
+        out = os.path.join(folder, f"dense_{task}")
+        fa.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with StageClock(torch, fa) as clock:
+            summaries = CLI.main([
+                "--wai_root", root, "--checkpoint", ckpt, "--resolution",
+                *map(str, EVAL_SIZE), "--views", *map(str, EVAL_VIEWS),
+                "--batch_sizes", *[str(EVAL_BATCH)] * len(EVAL_VIEWS),
+                "--num_sets", str(EVAL_SETS), "--task", task,
+                "--output_dir", out])
+        counts.append(launches_of(fa))
+        r = {"walls_s": clock.walls, "forward_launches": clock.forwards,
+             "plain_launches": fa.flash_attention.plain_launches,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "summary": {str(k): v for k, v in summaries.items()}}
+        with open(os.path.join(out, "summary.json")) as f:
+            back = json.load(f)
+        per_set = {}
+        for views in EVAL_VIEWS:
+            with open(os.path.join(out, f"eth3d_{views}views.json")) as f:
+                per_set[views] = json.load(f)
+        r["json_read_back"] = (
+            back == json.loads(json.dumps(r["summary"]))
+            and all(len(per_set[v]["per_set"]) == EVAL_SETS
+                    and per_set[v]["summary"] == back[str(v)]
+                    for v in EVAL_VIEWS))
+        res[task] = r
+        print(f"12b dense N-view CLI, {task}: {json.dumps(r)}", flush=True)
+        want = [{"fwd": FORWARD_LAUNCHES}] * len(EVAL_VIEWS)
+        bad = expect_launches(fa, {"fwd": FORWARD_LAUNCHES * len(EVAL_VIEWS)},
+                              f"12b {task}") or untouched_baseline(fp)
+        if bad or clock.forwards != want:
+            return res, counts, bad or (f"12b {task}: forward launches "
+                                        f"{clock.forwards}, expected {want}")
+        if not r["json_read_back"] or not all(
+                s["num_sets"] == EVAL_SETS
+                and np.isfinite(s["pointmaps_abs_rel"])
+                for s in summaries.values()):
+            return res, counts, f"12b {task}: {r}"
+        seen = seen or clock.seen[-1]  # images only, the 4-view batch
+    errs = card_vs_cpu_metrics(torch, *seen)
+    res["card_vs_cpu_normalize"] = errs
+    print(f"12b _normalize_for_metrics card vs CPU: {json.dumps(errs)}",
+          flush=True)
+    del seen
+    if not max(errs.values()) <= CPU_METRICS_LIMIT:
+        return res, counts, f"12b card vs CPU metrics: {errs}"
+
+    # flash against math on one batch of 10 x 2 views, phase 3's weights;
+    # the (10, 4)-view forward traced; the batches as the CLI loaded them
+    batches = {views: first_batch(eval_loader(root, views, EVAL_SIZE,
+                                              EVAL_BATCH, EVAL_SETS))
+               for views in EVAL_VIEWS}
+    model = random_weights_model()
+    geom = images_only_config()
+    views2 = to_device(batches[EVAL_VIEWS[0]], "cuda")["views"]
+    views4 = to_device(batches[EVAL_VIEWS[-1]], "cuda")["views"]
+    with torch.inference_mode():
+        flash = model(views2, geom)["pts3d"]
+        model.set_attn_impl("math")
+        math_out = model(views2, geom)["pts3d"]
+        model.set_attn_impl("auto")
+        model(views4, geom)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(views4, geom)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        res["forward_b10x4"] = {"wall_ms": wall, **profile_calls(
+            torch, lambda: model(views4, geom), wall, calls=2)}
+    res["pts3d_rel_l2_vs_math"] = rel_l2(flash, math_out)
+    print(f"12b flash vs math (10 x 2 views): pts3d rel-L2 "
+          f"{res['pts3d_rel_l2_vs_math']:.3e}; the (10 x 4) forward: "
+          f"{json.dumps(res['forward_b10x4'])}", flush=True)
+    del model, flash, math_out, views2, views4
+    torch.cuda.empty_cache()
+    if not res["pts3d_rel_l2_vs_math"] <= ERR_LIMIT:
+        return res, counts, (f"12b flash vs math: "
+                             f"{res['pts3d_rel_l2_vs_math']}")
+    res["gt_oracle"], bad = gt_oracle_dense(torch, BD, batches)
+    print(f"12b GT oracle: {json.dumps(res['gt_oracle'])}", flush=True)
+    return res, counts, bad
+
+
+def registration_check(torch) -> tuple:
+    """12c: rigid_points_registration on the card against the CPU, 8 x 1024
+    weighted points under a known rotation, translation and scale."""
+    import numpy as np
+
+    from mapanything_tpu_torch.geometry import (
+        quaternion_to_rotation_matrix,
+        rigid_points_registration,
+    )
+
+    rng = np.random.default_rng(12)
+    q = torch.from_numpy(rng.normal(size=(8, 4)).astype(np.float32))
+    r_true = quaternion_to_rotation_matrix(q / q.norm(dim=-1, keepdim=True))
+    t_true = torch.from_numpy(rng.normal(size=(8, 3)).astype(np.float32))
+    s_true = torch.from_numpy(rng.uniform(0.5, 2.0, 8).astype(np.float32))
+    a = torch.from_numpy(rng.normal(size=(8, 1024, 3)).astype(np.float32))
+    rotated = (r_true[:, None] * a[..., None, :]).sum(-1)
+    w = torch.from_numpy(rng.uniform(0.1, 1.0, (8, 1024)).astype(np.float32))
+    res = {}
+    for with_scale in (False, True):
+        scale = s_true if with_scale else torch.ones(8)
+        target = scale[:, None, None] * rotated + t_true[:, None]
+        cpu = rigid_points_registration(a, target, w, with_scale)
+        card = rigid_points_registration(a.cuda(), target.cuda(), w.cuda(),
+                                         with_scale)
+        r = {"card_vs_cpu": max(float((g.cpu() - c).abs().max())
+                                for g, c in zip(card, cpu)),
+             "rotation_err": float((card[0].cpu() - r_true).abs().max()),
+             "translation_err": float((card[1].cpu() - t_true).abs().max())}
+        if with_scale:
+            r["scale_err"] = float((card[2].cpu() - s_true).abs().max())
+        res["with_scale" if with_scale else "rigid"] = r
+    bad = [key for key, r in res.items()
+           if not max(r.values()) <= REGISTRATION_LIMIT]
+    return res, (f"12c registration: {res}" if bad else None)
+
+
+def dust3r_outputs(torch, model, adapter, imgs, impl) -> dict:
+    """One adapter call with every attention on `impl`, in fp32 over both
+    forwards: the encoder's first block, its middle block and its output,
+    dec_norm's output (the decoder before the linear head and its expm1),
+    and pts3d."""
+    blocks = model.encoder.blocks
+    taps = {"encoder_block_1": blocks[0],
+            f"encoder_block_{len(blocks) // 2}": blocks[len(blocks) // 2 - 1],
+            "encoder": model.encoder, "dec_norm": model.dec_norm}
+    seen = {name: [] for name in taps}
+    hooks = [mod.register_forward_hook(
+        lambda mod, args, out, name=name: seen[name].append(out.float()))
+        for name, mod in taps.items()]
+    model.set_attn_impl(impl)
+    try:
+        with torch.inference_mode():
+            pts3d = adapter(imgs)["pts3d"].float()
+    finally:
+        model.set_attn_impl("auto")
+        for hook in hooks:
+            hook.remove()
+    out = {name: torch.cat([x.flatten() for x in xs])
+           for name, xs in seen.items()}
+    out["pts3d"] = pts3d
+    return out
+
+
+def dust3r_own_init(torch, model, adapter, imgs) -> dict:
+    """12c at ModularDUSt3R-L's own init (weights N(0, 0.02), LayerNorms 1,
+    biases 0), per output of dust3r_outputs: rel-L2 of flash against math
+    in bf16, and of each against a math forward of the same weights in
+    fp32, with "flash_over_math": flash's distance to fp32 over bf16
+    math's, held to DUST3R_FLOOR_RATIO."""
+    import dataclasses
+
+    from mapanything_tpu_torch.models import ModularDUSt3R
+    from mapanything_tpu_torch.models.adapters import ModularDUSt3RAdapter
+
+    runs = {impl: dust3r_outputs(torch, model, adapter, imgs, impl)
+            for impl in ("auto", "math")}
+    twin = ModularDUSt3R(dataclasses.replace(model.cfg,
+                                             dtype=torch.float32)).eval()
+    twin.load_state_dict(model.state_dict())
+    runs["fp32"] = dust3r_outputs(torch, twin, ModularDUSt3RAdapter(twin),
+                                  imgs, "math")
+    del twin
+    torch.cuda.empty_cache()
+    res = {}
+    for key in runs["fp32"]:
+        flash, math_bf16, fp32 = (runs[impl][key]
+                                  for impl in ("auto", "math", "fp32"))
+        res[key] = {"flash_vs_math": rel_l2(flash, math_bf16),
+                    "flash_vs_fp32": rel_l2(flash, fp32),
+                    "math_vs_fp32": rel_l2(math_bf16, fp32)}
+        res[key]["flash_over_math"] = (res[key]["flash_vs_fp32"]
+                                       / res[key]["math_vs_fp32"])
+    return res
+
+
+def dust3r_path(torch, fa, fp, root):
+    """12c: ModularDUSt3R-L through ModularDUSt3RAdapter and the unmodified
+    run_dense_n_view_benchmark. Returns (readings, counts, failure)."""
+    import numpy as np
+
+    from mapanything_tpu_torch.benchmarks import dense_n_view as BD
+    from mapanything_tpu_torch.models import (
+        ModularDUSt3R,
+        ModularDUSt3RConfig,
+    )
+    from mapanything_tpu_torch.models.adapters import (
+        FACTORED_PRED_KEYS,
+        ModularDUSt3RAdapter,
+    )
+
+    t0 = time.perf_counter()
+    model = ModularDUSt3R(ModularDUSt3RConfig(encoder_size="large"),
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(13)).eval()
+    torch.cuda.synchronize()
+    res = {"build_s": time.perf_counter() - t0,
+           "parameters_m": sum(p.numel() for p in model.parameters()) / 1e6}
+    adapter = ModularDUSt3RAdapter(model)
+    loader = eval_loader(root, 2, DUST3R_SIZE, EVAL_BATCH, EVAL_BATCH,
+                         norm="croco")
+    fa.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with StageClock(torch, fa) as clock:
+        summary = BD.run_dense_n_view_benchmark(adapter, loader, None)
+    counts = launches_of(fa)
+    res.update(walls_s=clock.walls, forward_launches=clock.forwards,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               summary=summary)
+    bad = expect_launches(fa, {"fwd": DUST3R_LAUNCHES}, "12c") \
+        or untouched_baseline(fp)
+    preds = clock.seen[-1][1]
+    b, (w, h) = EVAL_BATCH, DUST3R_SIZE
+    shapes = {"pts3d": (b, 2, h, w, 3), "pts3d_cam": (b, 2, h, w, 3),
+              "ray_directions": (b, 2, h, w, 3),
+              "depth_along_ray": (b, 2, h, w, 1), "cam_quats": (b, 2, 4),
+              "cam_trans": (b, 2, 3), "metric_scaling_factor": (b,),
+              "conf": (b, 2, h, w), "non_ambiguous_mask": (b, 2, h, w),
+              "non_ambiguous_mask_logits": (b, 2, h, w)}
+    res["outputs_ok"] = set(preds) == set(FACTORED_PRED_KEYS) and all(
+        tuple(preds[k].shape) == s and (
+            preds[k].dtype == torch.bool
+            or bool(torch.isfinite(preds[k]).all()))
+        for k, s in shapes.items())
+    res["view1_quat_identity"] = bool(torch.equal(
+        preds["cam_quats"][:, 0].cpu(),
+        torch.tensor([[0.0, 0.0, 0.0, 1.0]] * b)))
+    res["pts3d_abs_max"] = float(preds["pts3d"].abs().max())
+    del preds
+    imgs = {"img": torch.from_numpy(first_batch(loader)["views"]["img"])
+            .cuda()}
+
+    with torch.inference_mode():
+        adapter(imgs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adapter(imgs)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        res["adapter_call"] = {"wall_ms": wall, **profile_calls(
+            torch, lambda: adapter(imgs), wall, calls=2)}
+    res["own_init"] = dust3r_own_init(torch, model, adapter, imgs)
+    with torch.inference_mode():
+        # every parameter redrawn N(0, 0.02) on the card (phase 3's kind):
+        # ROADMAP's weak gate, held beside the own-init fp32-twin gate
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        for p in model.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+        res["pts3d_rel_l2_vs_math"] = rel_l2(*(
+            dust3r_outputs(torch, model, adapter, imgs, impl)["pts3d"]
+            for impl in ("auto", "math")))
+    res["registration"], reg_bad = registration_check(torch)
+    print(f"12c ModularDUSt3R-L: {json.dumps(res)}", flush=True)
+    del model, adapter, imgs
+    torch.cuda.empty_cache()
+    if bad:
+        return res, counts, bad
+    if clock.forwards != [{"fwd": DUST3R_LAUNCHES}]:
+        return res, counts, f"12c: forward launches {clock.forwards}"
+    if not (res["outputs_ok"] and res["view1_quat_identity"]
+            and summary["num_sets"] == EVAL_BATCH
+            and np.isfinite(summary["pointmaps_abs_rel"])):
+        return res, counts, f"12c outputs: {res}"
+    ratios = {key: r["flash_over_math"] for key, r in res["own_init"].items()}
+    if not (all(r <= DUST3R_FLOOR_RATIO for r in ratios.values())
+            and res["pts3d_rel_l2_vs_math"] <= ERR_LIMIT):
+        return res, counts, (
+            f"12c: flash's distance to fp32 over bf16 math's at own init "
+            f"{ratios}; pts3d flash vs math at N(0, 0.02) "
+            f"{res['pts3d_rel_l2_vs_math']}")
+    return res, counts, reg_bad
+
+
+def calibration_cli(torch, fa, fp, ckpt, root, folder):
+    """12d: benchmark_calibration.main with phase 3's weights, then the GT
+    oracle at 0 and at a 1-degree turn of every ray."""
+    import numpy as np
+
+    from mapanything_tpu_torch import benchmark_calibration as CLI
+    from mapanything_tpu_torch.benchmarks import calibration as BC
+
+    tests_on_path()
+    from torch_eval_oracles import (
+        GroundTruthOracle,
+        ListLoader,
+        RecordingLoader,
+    )
+
+    out = os.path.join(folder, "calibration")
+    fa.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with StageClock(torch, fa) as clock:
+        summary = CLI.main(["--wai_root", root, "--checkpoint", ckpt,
+                            "--resolution", *map(str, EVAL_SIZE),
+                            "--batch_size", str(EVAL_BATCH),
+                            "--output_dir", out])
+    counts = launches_of(fa)
+    res = {"walls_s": clock.walls, "forward_launches": clock.forwards,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "summary": summary}
+    with open(os.path.join(out, "eth3d_calibration.json")) as f:
+        back = json.load(f)
+    res["json_read_back"] = (back["summary"] == summary
+                             and len(back["per_image"])
+                             == summary["num_images"])
+    batches = len(clock.forwards)
+    bad = expect_launches(fa, {"fwd": FORWARD_LAUNCHES * batches}, "12d") \
+        or untouched_baseline(fp)
+    batch = first_batch(eval_loader(root, 2, EVAL_SIZE, EVAL_BATCH,
+                                    EVAL_BATCH))
+    for degrees in (0.0, 1.0):
+        loader = RecordingLoader(ListLoader([batch]))
+        res[f"oracle_{degrees:g}deg"] = BC.run_calibration_benchmark(
+            GroundTruthOracle(loader, "cuda", ray_rotation_deg=degrees),
+            loader, None)
+    print(f"12d calibration CLI: {json.dumps(res)}", flush=True)
+    if bad:
+        return res, counts, bad
+    if clock.forwards != [{"fwd": FORWARD_LAUNCHES}] * batches or not (
+            batches and res["json_read_back"]
+            and np.isfinite(summary["ray_angular_error_deg_mean"])):
+        return res, counts, f"12d: {res}"
+    zero = res["oracle_0deg"]["ray_angular_error_deg_mean"]
+    one = res["oracle_1deg"]["ray_angular_error_deg_mean"]
+    if not (zero <= 1e-4 and abs(one - 1.0) <= 1e-3):
+        return res, counts, f"12d oracle: 0 -> {zero}, 1 -> {one}"
+    return res, counts, None
+
+
+def rmvd_samples(count: int, w: int, h: int, views: int):
+    """RMVD samples of 1 key and views - 1 sources, as rmvd's mvd
+    evaluation hands them over: uint8 (1, 3, H, W) images, K, key_T_i
+    poses (a camera moving along x), the key view's depth; the key view
+    is not view 0 in the second sample."""
+    import numpy as np
+
+    rng = np.random.default_rng(14)
+    yy, xx = np.mgrid[0:h, 0:w] / float(max(w, h))
+    k = np.array([[[0.9 * w, 0, w / 2], [0, 0.9 * w, h / 2], [0, 0, 1]]],
+                 np.float32)
+    samples = []
+    for s in range(count):
+        key = 3 * s % views
+        images, poses = [], []
+        for i in range(views):
+            base = np.stack([np.sin(6 * xx + i + s), np.cos(5 * yy - i),
+                             np.sin(4 * (xx + yy))], 0)
+            img = 127.5 * (1 + 0.8 * base) + rng.normal(0, 8, base.shape)
+            images.append(np.clip(img, 0, 255).astype(np.uint8)[None])
+            pose = np.eye(4, dtype=np.float32)
+            pose[0, 3] = -0.1 * (i - key)  # key_T_i
+            poses.append(pose[None])
+        samples.append({"images": images, "keyview_idx": key,
+                        "poses": poses, "intrinsics": [k] * views,
+                        "gt_depth": (2.0 + np.sin(3 * xx) + 0.5 * yy)
+                        .astype(np.float32)})
+    return samples
+
+
+def rmvd_cli(torch, fa, fp, ckpt):
+    """12e: benchmark_rmvd.main --selftest with phase 3's weights, then the
+    same adaptor on samples of 1 key and RMVD_SOURCES sources at 518x392;
+    input_adapter on the card against the CPU."""
+    import argparse
+
+    import numpy as np
+
+    from mapanything_tpu_torch import benchmark_rmvd as CLI
+    from mapanything_tpu_torch.benchmarks.rmvd import (
+        RMVDAdaptor,
+        evaluate_mvs_depth,
+    )
+
+    res, counts = {}, []
+    cond = "image+intrinsics+pose"
+    fa.reset_launch_counts()
+    buf = io.StringIO()
+    with StageClock(torch, fa) as clock, contextlib.redirect_stdout(buf):
+        rc = CLI.main(["--selftest", "--checkpoint", ckpt, "--conditioning",
+                       cond, "--selftest-res", str(EVAL_SIZE[0])])
+    counts.append(launches_of(fa))
+    res["selftest"] = {"rc": rc, "walls_s": clock.walls,
+                       "metrics": json.loads(buf.getvalue().splitlines()[-1]),
+                       "forward_launches": clock.forwards}
+    bad = expect_launches(fa, {"fwd": FORWARD_LAUNCHES * 2}, "12e selftest")
+    if bad or rc != 0 or clock.forwards != [{"fwd": FORWARD_LAUNCHES}] * 2:
+        print(f"12e RMVD: {json.dumps(res)}", flush=True)
+        return res, counts, bad or f"12e selftest: {res}"
+
+    adaptor = CLI.build_adaptor(argparse.Namespace(
+        checkpoint=ckpt, conditioning=cond, views="multi_view", name="smoke",
+        device=None))
+    w, h = EVAL_SIZE
+    samples = rmvd_samples(2, w, h, 1 + RMVD_SOURCES)
+    s = samples[1]
+    args = (s["images"], s["keyview_idx"], s["poses"], s["intrinsics"])
+    card = adaptor.input_adapter(*args)
+    # the same adaptor code on the CPU: a stand-in without parameters
+    # names its device (benchmarks/dense_n_view.py::model_device)
+    cpu = RMVDAdaptor(types.SimpleNamespace(device="cpu"),
+                      inference_conditioning=cond).input_adapter(*args)
+    res["input_adapter_card_vs_cpu"] = {
+        key: float((card[key].cpu().float() - cpu[key].float()).abs().max())
+        for key in cpu}
+    fa.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with StageClock(torch, fa) as clock:
+        metrics = evaluate_mvs_depth(adaptor, samples)
+    counts.append(launches_of(fa))
+    res["key_plus_sources"] = {
+        "views": 1 + RMVD_SOURCES, "size": [w, h], "metrics": metrics,
+        "walls_s": clock.walls, "forward_launches": clock.forwards,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"12e RMVD: {json.dumps(res)}", flush=True)
+    del adaptor, card, cpu
+    torch.cuda.empty_cache()
+    bad = expect_launches(fa, {"fwd": FORWARD_LAUNCHES * len(samples)},
+                          "12e") or untouched_baseline(fp)
+    if bad:
+        return res, counts, bad
+    if not (max(res["input_adapter_card_vs_cpu"].values()) <= 1e-5
+            and metrics["num_samples"] == len(samples)
+            and np.isfinite(metrics["depth_abs_rel"])
+            and clock.forwards == [{"fwd": FORWARD_LAUNCHES}] * len(samples)):
+        return res, counts, f"12e: {res}"
+    return res, counts, None
+
+
+def evaluation_path(torch, fa, fp, F):
+    """Phase 12. Returns (kernel rows, the kernel counts of its runs,
+    failure or None)."""
+    from mapanything_tpu_torch.train.checkpoints import save_params
+
+    t0 = time.perf_counter()
+    rows, bad = eval_kernel_rows(torch, fa, F)
+    walls = {"12a_s": time.perf_counter() - t0}
+    counts = []
+    if bad:
+        return rows, counts, bad
+    with tempfile.TemporaryDirectory() as folder:
+        t0 = time.perf_counter()
+        root = write_wai_tree(folder)
+        ckpt = os.path.join(folder, "params.pt")
+        save_params(ckpt, random_weights_model())
+        torch.cuda.empty_cache()
+        walls["setup_s"] = time.perf_counter() - t0
+        for stage, run in (
+                ("12b", lambda: dense_cli(torch, fa, fp, ckpt, root, folder)),
+                ("12c", lambda: dust3r_path(torch, fa, fp, root)),
+                ("12d", lambda: calibration_cli(torch, fa, fp, ckpt, root,
+                                                folder)),
+                ("12e", lambda: rmvd_cli(torch, fa, fp, ckpt))):
+            t0 = time.perf_counter()
+            _, launched, bad = run()
+            walls[f"{stage}_s"] = time.perf_counter() - t0
+            counts += launched if isinstance(launched, list) else [launched]
+            torch.cuda.empty_cache()
+            if bad:
+                return rows, counts, f"phase {stage}: {bad}"
+    print(f"phase 12 walls: {json.dumps(walls)}", flush=True)
+    return rows, counts, None
+
+
 def timing(row):
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms", "mma_ms",
@@ -3063,7 +3841,7 @@ def timing(row):
 def kernels_summary(fp, attn, train_rows, ring_rows, merge, probe_rows,
                     phase_counts) -> list:
     """The kernels' JSON rows: each kernel at its main-path shape with its
-    launches in phases 3-11 (phase_counts: the kernel counts each of those
+    launches in phases 3-12 (phase_counts: the kernel counts each of those
     runs read, reset just before it), the baselines and the probes."""
     launches = {kname: sum(counts[key] for counts in phase_counts)
                 for kname, key in COUNTER.items()}
@@ -3296,7 +4074,7 @@ def main() -> int:
             return fail(f"probe {case} disagrees with its plain version: "
                         f"{row}")
 
-    # phases 3-11 run the main path: no probe and no baseline launch
+    # phases 3-12 run the main path: no probe and no baseline launch
     fp.reset_probe_counts()
 
     # phase 3: serving at full width
@@ -3459,12 +4237,22 @@ def main() -> int:
           f"{time.perf_counter() - t11:.1f} s", flush=True)
     attn = attn + demo_rows
 
+    # phase 12: the evaluation path: the benchmark CLIs, ModularDUSt3R-L
+    t12 = time.perf_counter()
+    torch.cuda.empty_cache()
+    eval_rows, phase12_counts, bad = evaluation_path(torch, fa, fp, F)
+    if bad:
+        return fail(f"phase 12: {bad}")
+    print(f"phase 12 (the benchmark CLIs and ModularDUSt3R-L) took "
+          f"{time.perf_counter() - t12:.1f} s", flush=True)
+    attn = attn + eval_rows
+
     phase_counts = [serving,
                     {key: train[f"{key}_launches"] for key in fa.KERNELS},
                     ring_res["kernel_counts"], block_res["kernel_counts"],
                     vs_train["launches"]] + (phase7_counts + phase8_counts
                                              + phase9_counts + phase10_counts
-                                             + phase11_counts)
+                                             + phase11_counts + phase12_counts)
     kernels = kernels_summary(fp, attn, train_rows, ring_rows, merge,
                               probe_rows, phase_counts)
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s",

@@ -10,7 +10,7 @@ DataLoader glue):
     replacement).
 
 Batches stay numpy: the trainer moves them to its device
-(train/loop.py::to_device), and only its thread touches the card.
+(utils/device.py::to_device), and only its thread touches the card.
 Threads (not processes) suffice because the heavy lifting is PIL, numpy and
 the native host ops, which release the GIL; this also keeps mmap'd
 covisibility matrices shared.

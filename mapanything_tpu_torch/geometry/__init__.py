@@ -1,5 +1,5 @@
 """Geometry of the PyTorch port (the inference and training slices' paths,
-the geometric priors)."""
+the geometric priors, the benchmarks' pose recovery)."""
 
 from .edges import depth_edge, max_pool_2d, points_normal_edges
 from .norm import (
@@ -12,6 +12,7 @@ from .norm import (
 from .pointmaps import (
     angle_diff_vec3,
     convert_ray_dirs_depth_along_ray_pose_trans_quats_to_pointmap,
+    rigid_points_registration,
 )
 from .quats import (
     pose_quats_trans_to_matrix,
@@ -49,6 +50,7 @@ __all__ = [
     "quaternion_multiply",
     "quaternion_to_rotation_matrix",
     "recover_pinhole_intrinsics_from_ray_directions",
+    "rigid_points_registration",
     "rotation_matrix_to_quaternion",
     "safe_norm",
     "standardize_quaternion",

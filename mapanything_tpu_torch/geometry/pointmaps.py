@@ -36,3 +36,42 @@ def angle_diff_vec3(v1: torch.Tensor, v2: torch.Tensor,
     norm has a zero subgradient where the vectors are parallel."""
     cross_norm = safe_norm(torch.linalg.cross(v1, v2, dim=-1)) + eps
     return torch.atan2(cross_norm, (v1 * v2).sum(-1))
+
+
+def rigid_points_registration(pts_a: torch.Tensor, pts_b: torch.Tensor,
+                              weights: torch.Tensor | None = None,
+                              with_scale: bool = False):
+    """Weighted Kabsch/Umeyama: the rigid transform (R, t[, s]) minimising
+    sum_i w_i || s R a_i + t - b_i ||^2, closed form through a 3x3 SVD,
+    batched over the leading axes, on the points' device.
+
+    pts_a, pts_b (..., N, 3); weights (..., N), nonnegative. Returns
+    (R (..., 3, 3), t (..., 3)) or, with_scale, (R, t, s (...,)).
+
+    The SVD's U and V are unique only up to sign (cuSOLVER and LAPACK may
+    differ); the det correction makes R, t and s agree. The fp32 products
+    run without TF32, as the JAX package's precision="highest".
+    """
+    from ..utils.device import full_fp32
+
+    if weights is None:
+        weights = torch.ones(pts_a.shape[:-1], dtype=pts_a.dtype,
+                             device=pts_a.device)
+    w = weights / weights.sum(-1, keepdim=True).clamp_min(1e-12)
+    with full_fp32():
+        mu_a = (pts_a * w[..., None]).sum(-2)  # (..., 3)
+        mu_b = (pts_b * w[..., None]).sum(-2)
+        ac = pts_a - mu_a[..., None, :]
+        bc = pts_b - mu_b[..., None, :]
+        cov = torch.einsum("...ni,...nj->...ij", bc * w[..., None], ac)
+        u, s, vt = torch.linalg.svd(cov)
+        det = torch.linalg.det(u @ vt)
+        d = torch.cat([torch.ones(det.shape + (2,), dtype=cov.dtype,
+                                  device=cov.device), det[..., None]], -1)
+        r = (u * d[..., None, :]) @ vt
+        rot_mu_a = (r * mu_a[..., None, :]).sum(-1)
+    if with_scale:
+        var_a = (w * (ac * ac).sum(-1)).sum(-1)
+        scale = (s * d).sum(-1) / var_a.clamp_min(1e-12)
+        return r, mu_b - scale[..., None] * rot_mu_a, scale
+    return r, mu_b - rot_mu_a

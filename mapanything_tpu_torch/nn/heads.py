@@ -1,8 +1,10 @@
-"""Pose and scale heads, counterparts of mapanything_tpu/nn/heads.py.
+"""Pose, scale and linear heads, counterparts of mapanything_tpu/nn/heads.py.
 
 PoseHead: token map -> 1x1 conv -> residual conv units -> mean over patches
 -> fc1 -> GELU (erf) -> fc_out in fp32 -> (trans 3, quat 4).
 MLPHead: scale token -> fc1 -> GELU (erf) -> fc2 in fp32.
+LinearFeature: per-patch fp32 Dense -> patch-size pixel shuffle (DUSt3R's
+linear head).
 """
 
 from __future__ import annotations
@@ -52,3 +54,23 @@ class MLPHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x)).float())
+
+
+class LinearFeature(nn.Module):
+    """(N, gh, gw, C) -> (N, gh*p, gw*p, out), fp32: one Dense to
+    out * p * p channels a patch, read as (p, p, out) per patch."""
+
+    def __init__(self, input_feature_dim: int = 1024, output_dim: int = 4,
+                 patch_size: int = 14, device=None):
+        super().__init__()
+        self.output_dim = output_dim
+        self.patch_size = patch_size
+        self.proj = Dense(input_feature_dim,
+                          output_dim * patch_size * patch_size,
+                          dtype=torch.float32, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, gh, gw, _ = x.shape
+        p, out = self.patch_size, self.output_dim
+        x = self.proj(x.float()).reshape(n, gh, gw, p, p, out)
+        return x.permute(0, 1, 3, 2, 4, 5).reshape(n, gh * p, gw * p, out)

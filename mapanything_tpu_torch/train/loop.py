@@ -46,7 +46,7 @@ from ..models import (
     aug_training_config,
     images_only_config,
 )
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_device
 from .checkpoints import load_train_state, save_train_state
 from .losses import OverallLossConfig, overall_loss
 from .step import OptimConfig, create_train_state, make_train_step
@@ -148,18 +148,6 @@ def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
     words = np.random.SeedSequence([seed, epoch + 1]).generate_state(2)
     return torch.Generator(device=device).manual_seed(
         (int(words[0]) << 32) | int(words[1]))
-
-
-def to_device(batch, device):
-    """The batch's numpy arrays and tensors on `device`, nested dicts
-    kept."""
-    if isinstance(batch, dict):
-        return {key: to_device(val, device) for key, val in batch.items()}
-    if isinstance(batch, np.ndarray):
-        return torch.from_numpy(batch).to(device)
-    if isinstance(batch, torch.Tensor):
-        return batch.to(device)
-    return batch
 
 
 class _HostCopy:

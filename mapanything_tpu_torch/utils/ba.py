@@ -26,11 +26,12 @@ and the shared (fx, fy, cx, cy).
 
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, NamedTuple
 
 import torch
 from torch.func import jacfwd, vmap
+
+from .device import full_fp32
 
 
 def _quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
@@ -94,20 +95,6 @@ def _huber_weight(r: torch.Tensor, delta: float) -> torch.Tensor:
     return torch.sqrt(torch.where(nrm <= delta, 1.0, delta / nrm))
 
 
-@contextlib.contextmanager
-def _full_fp32():
-    """TF32 off for matmuls and convs, the caller's setting restored."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
-
-
 @torch.no_grad()
 def bundle_adjust(problem: BAProblem, iters: int = 20, huber_px: float = 2.0,
                   lm_init: float = 1e-3,
@@ -119,7 +106,7 @@ def bundle_adjust(problem: BAProblem, iters: int = 20, huber_px: float = 2.0,
     intrinsics (4,), points (P, 3), rms_before, rms_after (0-d)}: the masked
     RMS reprojection error in pixels before and after, as device tensors.
     """
-    with _full_fp32():
+    with full_fp32():
         return _bundle_adjust(problem, iters, huber_px, lm_init,
                               optimize_intrinsics)
 

@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+import contextlib
+
+import numpy as np
 import torch
 
 
@@ -14,3 +17,30 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device: the port runs on the GPU unless the caller "
             "passes device='cpu'")
     return device
+
+
+def to_device(batch, device):
+    """The batch's numpy arrays and tensors on `device`, nested dicts
+    kept."""
+    if isinstance(batch, dict):
+        return {key: to_device(val, device) for key, val in batch.items()}
+    if isinstance(batch, np.ndarray):
+        return torch.from_numpy(batch).to(device)
+    if isinstance(batch, torch.Tensor):
+        return batch.to(device)
+    return batch
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """TF32 off for matmuls and convs, the caller's setting restored: fp32
+    products in full fp32, as the JAX package's precision="highest"."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved

@@ -328,6 +328,60 @@ def convert_dinov2(sd: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return params
 
 
+def convert_croco(sd: Mapping[str, Any],
+                  prefix: str = "") -> Tuple[Dict[str, Any], int]:
+    """A CroCo/DUSt3R torch encoder state dict (keys under `prefix`) -> the
+    JAX CroCoViT tree, and the count of tensors it consumed:
+
+      patch_embed.proj.{weight,bias}   the patch-embedding conv
+      enc_blocks.{i}.{norm1,attn.qkv,attn.proj,norm2,mlp.fc1,mlp.fc2}
+      enc_norm.{weight,bias}           the final LayerNorm
+
+    An `enc_pos_embed` buffer is counted as consumed and skipped: CroCoViT
+    computes the same sin-cos table (nn/croco.py). The tree loads onto the
+    port's CroCoViT through `from_jax_params`.
+    """
+    used = 0
+
+    def take(k):
+        nonlocal used
+        used += 1
+        return sd[prefix + k]
+
+    params: Dict[str, Any] = {
+        "patch_embed": conv(take("patch_embed.proj.weight"),
+                            take("patch_embed.proj.bias")),
+        "norm": layer_norm(take("enc_norm.weight"), take("enc_norm.bias")),
+    }
+    if prefix + "enc_pos_embed" in sd:
+        take("enc_pos_embed")
+
+    n_blocks = 0
+    while f"{prefix}enc_blocks.{n_blocks}.norm1.weight" in sd:
+        n_blocks += 1
+    for i in range(n_blocks):
+        b = f"enc_blocks.{i}."
+        params[f"blocks_{i}"] = {
+            "norm1": layer_norm(take(b + "norm1.weight"),
+                                take(b + "norm1.bias")),
+            "attn": {
+                "qkv": linear(take(b + "attn.qkv.weight"),
+                              take(b + "attn.qkv.bias")),
+                "proj": linear(take(b + "attn.proj.weight"),
+                               take(b + "attn.proj.bias")),
+            },
+            "norm2": layer_norm(take(b + "norm2.weight"),
+                                take(b + "norm2.bias")),
+            "mlp": {
+                "fc1": linear(take(b + "mlp.fc1.weight"),
+                              take(b + "mlp.fc1.bias")),
+                "fc2": linear(take(b + "mlp.fc2.weight"),
+                              take(b + "mlp.fc2.bias")),
+            },
+        }
+    return params, used
+
+
 class _SubDict:
     """View over sd restricted to one prefix, tracking consumed keys."""
 
