@@ -337,9 +337,38 @@ Phases, in order (any failure exits non-zero and prints no result line):
      Each stage's wall (checkpoint load, forwards, metrics, JSON, the rest),
      peak GiB, and the device ms of one (10, 4)-view forward and one
      adapter call (torch.profiler). 0 plain, probe and baseline launches.
+ 13. The model variants at full width and depth (encoder L, trunk 1024 x
+     24 x 16, DPT 256; bf16 with fp32 parameters), one model at a time:
+     13a, the lse-free forward against its plain version (phase 2's
+     limits) at the shapes only the variants give it (VARIANT_SHAPES: the
+     RoPE'd frame layer, its q and k new tensors beside the fused tensor's
+     strided v; the entropy-scaled 2-view global layer; a one-row q, the
+     extra token's self- and cross-attention; the cross trunk's gathered
+     contexts at 2 and 4 views; RADIO-L's ragged 769 tokens at 512x384),
+     with device ms, bound, flash SDPA's time and host µs. 13b, the
+     released model at 8 views as the yardstick, then the global trunk
+     (info_sharing_type="global") at 2 and 8 views at 518^2; 13c, the
+     ablations preset (no scale token, RoPE 100) at 2 views, its metric
+     scale exactly 1; 13d, the cross trunk at 2 and 4 views; 13e,
+     MapAnything with RADIO-L and with CroCo-L at 512x384, 2 views; 13f,
+     the four other scene-representation families (+confidence+mask) at 1
+     view. Each through InferencePipeline.infer: exactly 48 forward
+     launches a call (168 for the cross trunk: 24 encoder blocks and, per
+     layer, self- and cross-attention for the reference view, the batch
+     of the others and the token), no other kernel, no plain, probe or
+     baseline launch; finite outputs of the family's key set; at the
+     model's own init (13b-13e) flash at most 1.1x as far as bf16 math
+     from an fp32 math twin at the trunk's taps, its output, pts3d, rays,
+     the raw depth channel and depth over its metric scale, and depth at
+     most max(1.1x math's, 1e-2) (the scale is one number a scene);
+     with every parameter redrawn N(0, 0.02) flash against math within
+     1e-2 rel-L2 on pts3d, depth and rays; wall, device ms, busy share and
+     peak GiB. 13g, a one-shard snapshot in the reference's layout of a
+     RADIO-L model (tests/torch_reference_layout.py) read back through
+     from_pretrained bitwise, with the same config.
 
 The last two lines are the kernels' JSON summary (each kernel's launches:
-the counts phases 3-12 read, summed) and
+the counts phases 3-13 read, summed) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -3832,6 +3861,426 @@ def evaluation_path(torch, fa, fp, F):
     return rows, counts, None
 
 
+# phase 13: the model variants at full width and depth. The forward at the
+# shapes only they give it: (name, q (B, Nq, H, D), keys, n_valid, layout)
+# with layout "qkv" (the fused-qkv views of nn/layers.py::Attention),
+# "rope" (the frame layer's q and k rotated by nn/rope.py::apply_rope, new
+# tensors, v still the fused tensor's strided view), "entropy" (the global
+# layer's q times log(n_valid)/log(P), the rest fused) or "cross" (q of its
+# own, k and v the strided halves of one gathered (B, M, 2, H, D) kv
+# tensor: nn/croco.py::CrossAttention with a context_index)
+VARIANT_SHAPES = [
+    ("rope_frame_518", (2, 1369, 16, 64), 1369, None, "rope"),
+    ("entropy_global_2view_518", (1, 2816, 16, 64), 2816, 2739, "entropy"),
+    ("one_row_self", (1, 1, 16, 64), 1, None, "qkv"),
+    ("one_row_cross_2view_518", (1, 1, 16, 64), 2739, None, "cross"),
+    ("one_row_cross_4view_518", (1, 1, 16, 64), 5477, None, "cross"),
+    ("cross_2view_518", (1, 1369, 16, 64), 1370, None, "cross"),
+    ("cross_ref_4view_518", (1, 1369, 16, 64), 4108, None, "cross"),
+    ("cross_rest_4view_518", (3, 1369, 16, 64), 4108, None, "cross"),
+    ("radio_l_512x384", (2, 769, 16, 64), 769, None, "qkv"),
+]
+VARIANT_SEED = 13
+# per forward: 24 encoder blocks and 24 trunk layers, one launch each; the
+# cross trunk launches self- and cross-attention for the reference view,
+# the batch of the other views and the token in each of its 24 layers
+CROSS_LAUNCHES = 24 + 24 * 6
+# at a model's own init flash may lie at most this much farther than bf16
+# math from an fp32 math twin, at every tap (phase 12c's gate)
+FLOOR_RATIO = 1.1
+# the readings held to FLOOR_RATIO (by prefix): every one that no single
+# number of a scene (the metric scale, a view's pose) dominates
+RATIO_GATED = ("trunk_tap_", "trunk_final", "pts3d", "ray_directions",
+               "depth_over_scale", "depth_raw")
+# the dense head's raw depth channel of each family that has one
+DEPTH_CHANNEL = {"raydirs+depth+pose": 3, "raymap+depth": 6,
+                 "pointmap+raydirs+depth+pose": 6}
+FAMILIES = ("pointmap", "raymap+depth", "campointmap+pose",
+            "pointmap+raydirs+depth+pose")
+# the forward's keys of each family, +confidence+mask (the JAX package's
+# recombination, models/mapanything.py:587-664)
+_FACTORED = {"pts3d", "pts3d_cam", "ray_directions", "depth_along_ray",
+             "cam_trans", "cam_quats"}
+FAMILY_KEYS = {
+    "raydirs+depth+pose": _FACTORED,
+    "pointmap": {"pts3d"},
+    "raymap+depth": {"pts3d", "ray_origins", "ray_directions",
+                     "depth_along_ray"},
+    "campointmap+pose": _FACTORED,
+    "pointmap+raydirs+depth+pose": _FACTORED,
+}
+FAMILY_KEYS = {fam: keys | {"metric_scaling_factor", "conf",
+                            "non_ambiguous_mask", "non_ambiguous_mask_logits"}
+               for fam, keys in FAMILY_KEYS.items()}
+
+
+def variant_inputs(torch, shape, keys, n_valid, layout, seed):
+    """bf16 q, k, v in one of VARIANT_SHAPES' layouts."""
+    from mapanything_tpu_torch.nn.rope import apply_rope, rope_tables
+
+    b, n, h, d = shape
+    if layout == "cross":
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        q = torch.randn((b, n, h, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        kv = torch.randn((b, keys, 2, h, d), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        return (q, *kv.unbind(2))
+    q, k, v = attention_inputs(torch, shape, n_valid, seed)
+    if layout == "rope":
+        cos, sin = rope_tables(37, 37, d, 100.0, "cuda")
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    elif layout == "entropy":
+        q = q * (math.log(n_valid) / math.log(PATCHES))
+    return q, k, v
+
+
+def variant_kernel_rows(torch, fa, F):
+    """13a: the forward against its plain version at VARIANT_SHAPES (phase
+    2's limits, max-abs over the plain's max-abs and rel-L2 over the real
+    rows), with device ms, bound, flash SDPA's time and host µs. Returns
+    ([(name, row)], failure or None)."""
+    rows = []
+    for i, (name, shape, keys, n_valid, layout) in enumerate(VARIANT_SHAPES):
+        b, n, h, d = shape
+        q, k, v = variant_inputs(torch, shape, keys, n_valid, layout,
+                                 1300 + i)
+        real_q = n if n_valid is None else n_valid
+        real_k = keys if n_valid is None else n_valid
+        out = fa.flash_attention(q, k, v, n_valid=n_valid)
+        ref = fa.flash_attention_plain(q, k, v, n_valid)
+        torch.cuda.synchronize()
+        o, r = out[:, :real_q].float(), ref[:, :real_q].float()
+        row = {
+            "shape": list(shape), "keys": keys, "n_valid": n_valid,
+            "layout": layout,
+            "strides": [list(x.stride()[:3]) for x in (q, k, v)],
+            "max_abs_err": float((o - r).abs().max()),
+            "max_abs_rel": max_abs_rel(o, r), "rel_l2": rel_l2(o, r),
+            "ms": kernel_ms(lambda: fa.flash_attention(q, k, v, n_valid)),
+            "plain_ms": plain_ms(
+                lambda: fa.flash_attention_plain(q, k, v, n_valid)),
+            "host_us": host_us(
+                lambda: fa._fwd_cuda(q, k, v, n_valid, with_lse=False)),
+        }
+        row["tflops"] = (fa.attention_flops(b, n, real_k, h, d) / row["ms"]
+                         / 1e9)
+        row.update(bound(F, "fwd", shape, real_k))
+        row["library_ms"] = library_fwd_ms(
+            torch, q.transpose(1, 2).contiguous(),
+            k[:, :real_k].transpose(1, 2).contiguous(),
+            v[:, :real_k].transpose(1, 2).contiguous())
+        row["at"] = name
+        print(f"13a attention {name} {tuple(shape)} keys={keys} "
+              f"n_valid={n_valid} {layout}: max_abs_rel="
+              f"{row['max_abs_rel']:.3e} rel_l2={row['rel_l2']:.3e} kernel "
+              f"{row['ms']:.4f} ms ({row['tflops']:.2f} TFLOP/s) plain "
+              f"{row['plain_ms']:.4f} ms bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}) library {row['library_ms']:.4f} ms; "
+              f"host {row['host_us']:.1f} us", flush=True)
+        rows.append((name, row))
+        del q, k, v, out, ref, o, r
+        torch.cuda.empty_cache()
+        if not max(row["max_abs_rel"], row["rel_l2"]) <= ERR_LIMIT:
+            return rows, f"kernel disagrees with plain at {name}: {row}"
+    return rows, None
+
+
+def redraw_normal_(torch, model, seed: int) -> None:
+    """Every parameter N(0, 0.02) from a generator on the card, RADIO's
+    input conditioner kept (the weak gate's weights, drawn in
+    milliseconds)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            consts = getattr(mod, "init_constants", {})
+            for name, p in mod.named_parameters(recurse=False):
+                if name not in consts:
+                    p.normal_(0.0, 0.02, generator=gen)
+
+
+def variant_outputs(torch, model, pipe, views, impl, norm) -> dict:
+    """One infer call with every attention on `impl`, in fp32: the trunk's
+    taps, its final output and extra-token output, the dense head's raw
+    depth channel, and the infer outputs (unmasked), with depth also over
+    its metric scale and less its per-view mean."""
+    from mapanything_tpu_torch.models.mapanything import scene_rep_family
+
+    seen, raw = {}, []
+    channel = DEPTH_CHANNEL.get(scene_rep_family(model.cfg.scene_rep_type))
+
+    def trunk_hook(mod, args, out):
+        final, taps, tok = out
+        for i, tap in zip(mod.indices, taps):
+            seen[f"trunk_tap_{i}"] = tap.float()
+        seen["trunk_final"] = final.float()
+        if tok is not None and tok.numel():
+            seen["trunk_token"] = tok.float()
+
+    def head_hook(mod, args, out):
+        raw.append(out[..., channel].float())
+
+    handles = [model.info_sharing.register_forward_hook(trunk_hook)]
+    if channel is not None:
+        handles.append(model.dense_head.register_forward_hook(head_hook))
+    model.set_attn_impl(impl)
+    try:
+        out = pipe.infer(views, apply_mask=False, data_norm_type=norm)
+    finally:
+        model.set_attn_impl("auto")
+        for handle in handles:
+            handle.remove()
+    for key in ("pts3d", "depth_along_ray", "ray_directions",
+                "metric_scaling_factor"):
+        if key in out[0]:
+            seen[key] = torch.cat([o[key].float() for o in out])
+    if raw:
+        seen["depth_raw"] = torch.cat(raw)
+    if "depth_along_ray" in seen:
+        depth = seen["depth_along_ray"]
+        scale = seen["metric_scaling_factor"].reshape(-1, 1, 1, 1)
+        seen["depth_over_scale"] = depth / scale
+        seen["depth_less_mean"] = depth - depth.mean(dim=(1, 2, 3),
+                                                     keepdim=True)
+    return seen
+
+
+def own_init_gate(torch, model, views, norm) -> tuple:
+    """At the model's own init: flash and bf16 math each against a math
+    forward of an fp32 twin of the same weights, at every reading of
+    `variant_outputs`. Flash's rel-L2 at most FLOOR_RATIO x math's at
+    RATIO_GATED; depth's at most max(FLOOR_RATIO x math's, ERR_LIMIT):
+    depth is the metric scale times exp(raw), and the scale is one number
+    a scene, so there flash's and math's distances are two single rounding
+    draws whose ratio spreads. The extra token, the scale and depth less
+    its mean are read, not gated."""
+    import dataclasses
+
+    from mapanything_tpu_torch.models import MapAnything
+    from mapanything_tpu_torch.utils.inference import InferencePipeline
+
+    pipe = InferencePipeline(model)
+    runs = {impl: variant_outputs(torch, model, pipe, views, impl, norm)
+            for impl in ("auto", "math")}
+    twin = MapAnything(dataclasses.replace(model.cfg, dtype=torch.float32)
+                       ).eval()
+    twin.load_state_dict(model.state_dict())
+    runs["fp32"] = variant_outputs(torch, twin, InferencePipeline(twin),
+                                   views, "math", norm)
+    del twin
+    torch.cuda.empty_cache()
+    res = {}
+    for key in runs["fp32"]:
+        flash, math_bf16, fp32 = (runs[impl][key]
+                                  for impl in ("auto", "math", "fp32"))
+        r = {"flash_vs_math": rel_l2(flash, math_bf16),
+             "flash_vs_fp32": rel_l2(flash, fp32),
+             "math_vs_fp32": rel_l2(math_bf16, fp32)}
+        r["flash_over_math"] = (  # 0 / 0: a scale of exactly 1
+            r["flash_vs_fp32"] / r["math_vs_fp32"] if r["math_vs_fp32"]
+            else 0.0 if not r["flash_vs_fp32"] else math.inf)
+        res[key] = r
+    bad = {key: r for key, r in res.items() if (
+        key.startswith(RATIO_GATED)
+        and not r["flash_over_math"] <= FLOOR_RATIO) or (
+        key == "depth_along_ray" and not r["flash_vs_fp32"]
+        <= max(FLOOR_RATIO * r["math_vs_fp32"], ERR_LIMIT))}
+    return res, (f"own init: flash farther than {FLOOR_RATIO} x bf16 math "
+                 f"from fp32: {bad}" if bad else None)
+
+
+def variant_views(torch, load_images, folder, n, size, norm):
+    """n seeded views at `size`, loaded as a user loads them (the 518 or
+    512 resolution set, the encoder's normalisation)."""
+    w, h = size
+    sub = os.path.join(folder, f"{n}_{w}x{h}")
+    os.makedirs(sub, exist_ok=True)
+    return load_images(write_images(sub, n, w, h), norm_type=norm,
+                       resolution_set=518 if w in (518, 392) else 512)
+
+
+def variant_run(torch, fa, fp, name, cfg, views_by_n, launches, norm,
+                twin: bool):
+    """One variant model: at its own init the fp32-twin gate (with
+    `twin`); then at N(0, 0.02) weights, for each view count, one infer
+    call with exactly `launches` forward launches and nothing else, finite
+    outputs of the expected shapes and keys, flash against math (rel-L2
+    <= 1e-2 on pts3d, depth and rays), its wall, device ms, busy share and
+    peak GiB. Returns (readings, [counts], failure or None)."""
+    from mapanything_tpu_torch.models import MapAnything
+    from mapanything_tpu_torch.models.mapanything import scene_rep_family
+    from mapanything_tpu_torch.utils.inference import InferencePipeline
+
+    t0 = time.perf_counter()
+    model = MapAnything(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(VARIANT_SEED)).eval()
+    pipe = InferencePipeline(model)
+    res = {"build_s": time.perf_counter() - t0,
+           "parameters_m": sum(p.numel() for p in model.parameters()) / 1e6}
+    counts = []
+    first = next(iter(views_by_n))
+    if twin:
+        res["own_init"], bad = own_init_gate(torch, model,
+                                             views_by_n[first], norm)
+        print(f"13 {name} own init vs fp32 twin ({first} views): "
+              f"{json.dumps(res['own_init'])}", flush=True)
+        if bad:
+            return res, counts, f"{name}: {bad}"
+    redraw_normal_(torch, model, VARIANT_SEED + 1)
+    family = scene_rep_family(cfg.scene_rep_type)
+    for n, views in views_by_n.items():
+        r = {}
+        h, w = views[0]["img"].shape[1:3]
+        pipe.infer(views, data_norm_type=norm)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = pipe.infer(views, data_norm_type=norm)
+        torch.cuda.synchronize()
+        r["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        counts.append(launches_of(fa))
+        bad = (expect_launches(fa, {"fwd": launches}, f"{name} {n} views")
+               or untouched_baseline(fp))
+        if bad:
+            return res, counts, bad
+        from mapanything_tpu_torch.utils.inference import stack_views
+        with torch.inference_mode():
+            raw = model(stack_views(views, "cuda"))
+        r["keys"] = sorted(raw)
+        if not cfg.use_scale_token and not all(
+                bool((view["metric_scaling_factor"] == 1).all())
+                for view in out):
+            return res, counts, f"{name}: metric scale not 1 without a token"
+        if set(raw) != FAMILY_KEYS[family]:
+            return res, counts, (f"{name}: keys {sorted(raw)}, expected "
+                                 f"{sorted(FAMILY_KEYS[family])}")
+        for i, view in enumerate(out):
+            for key, t in view.items():
+                if t.dtype != torch.bool and not torch.isfinite(t).all():
+                    return res, counts, f"{name}: view {i} {key} not finite"
+            if tuple(view["pts3d"].shape) != (1, h, w, 3):
+                return res, counts, (f"{name}: pts3d "
+                                     f"{tuple(view['pts3d'].shape)}")
+        flash = variant_outputs(torch, model, pipe, views, "auto", norm)
+        maths = variant_outputs(torch, model, pipe, views, "math", norm)
+        for key in ("pts3d", "depth_along_ray", "ray_directions"):
+            if key in flash:
+                r[f"{key}_rel_l2_vs_math"] = rel_l2(flash[key], maths[key])
+        del flash, maths
+        r["profile"] = profile_calls(
+            torch, lambda: pipe.infer(views, data_norm_type=norm),
+            r["wall_ms"], calls=2)
+        res[f"{n}_views"] = r
+        print(f"13 {name} {n} views: {json.dumps(r)}", flush=True)
+        worst = max(val for key, val in r.items()
+                    if key.endswith("_rel_l2_vs_math"))
+        if not worst <= ERR_LIMIT:
+            return res, counts, f"{name} {n} views flash vs math: {r}"
+    del model, pipe
+    torch.cuda.empty_cache()
+    return res, counts, None
+
+
+def radio_checkpoint(torch, folder, cfg) -> tuple:
+    """13g: a one-shard snapshot in the reference's layout of a RADIO-L
+    MapAnything (tests/torch_reference_layout.py) read back through
+    from_pretrained, bitwise. Returns (readings, failure or None)."""
+    tests_on_path()
+    from torch_reference_layout import reference_state_dict, write_snapshot
+
+    from mapanything_tpu_torch.models import MapAnything
+    from mapanything_tpu_torch.models.pretrained import from_pretrained
+
+    model = MapAnything(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(VARIANT_SEED))
+    redraw_normal_(torch, model, VARIANT_SEED + 1)
+    state = {key: val.detach().cpu() for key, val in
+             model.state_dict().items()}
+    del model
+    snap = os.path.join(folder, "radio_snapshot")
+    t0 = time.perf_counter()
+    write_snapshot(snap, reference_state_dict(state, cfg.trunk_indices))
+    res = {"write_s": time.perf_counter() - t0,
+           "gib": os.path.getsize(os.path.join(snap, "model.safetensors"))
+           / 2**30}
+    overrides = {key: getattr(cfg, key) for key in (
+        "encoder_type", "encoder_size", "patch_size", "data_norm_type")}
+    t0 = time.perf_counter()
+    loaded = from_pretrained(snap, config_overrides=overrides)
+    torch.cuda.synchronize()
+    res["load_s"] = time.perf_counter() - t0
+    got = loaded.state_dict()
+    res["bitwise"] = (set(got) == set(state) and all(
+        torch.equal(got[key].cpu(), val) for key, val in state.items()))
+    res["config_equal"] = loaded.cfg == cfg
+    del loaded, got, state
+    torch.cuda.empty_cache()
+    print(f"13g RADIO-L reference-layout snapshot: {json.dumps(res)}",
+          flush=True)
+    if not (res["bitwise"] and res["config_equal"]):
+        return res, f"13g: {res}"
+    return res, None
+
+
+def variants_path(torch, fa, fp, F, load_images):
+    """Phase 13. Returns (kernel rows, the kernel counts of its runs,
+    failure or None)."""
+    from mapanything_tpu_torch.models import (
+        MapAnythingConfig,
+        dense_dim_for,
+        mapanything_ablations_config,
+    )
+
+    walls = {}
+    t0 = time.perf_counter()
+    rows, bad = variant_kernel_rows(torch, fa, F)
+    walls["13a_s"] = time.perf_counter() - t0
+    counts = []
+    if bad:
+        return rows, counts, bad
+    fam = {f: f + "+confidence+mask" for f in FAMILIES}
+    runs = [  # (stage, name, config, views, size, norm, launches, twin)
+        ("13b", "released", MapAnythingConfig(), (8,), (518, 518), "dinov2",
+         FORWARD_LAUNCHES, False),  # the yardstick of the global trunk
+        ("13b", "global", MapAnythingConfig(info_sharing_type="global"),
+         (2, 8), (518, 518), "dinov2", FORWARD_LAUNCHES, True),
+        ("13c", "ablations", mapanything_ablations_config(), (2,),
+         (518, 518), "dinov2", FORWARD_LAUNCHES, True),
+        ("13d", "cross", MapAnythingConfig(info_sharing_type="cross"),
+         (2, 4), (518, 518), "dinov2", CROSS_LAUNCHES, True),
+        ("13e", "radio_l", MapAnythingConfig(
+            encoder_type="radio", patch_size=16, data_norm_type="radio"),
+         (2,), (512, 384), "radio", FORWARD_LAUNCHES, True),
+        ("13e", "croco_l", MapAnythingConfig(
+            encoder_type="croco", patch_size=16, data_norm_type="croco"),
+         (2,), (512, 384), "croco", FORWARD_LAUNCHES, True),
+    ] + [("13f", f, MapAnythingConfig(scene_rep_type=srt,
+                                      dense_output_dim=dense_dim_for(srt)),
+          (1,), (518, 518), "dinov2", FORWARD_LAUNCHES, False)
+         for f, srt in fam.items()]
+    with tempfile.TemporaryDirectory() as folder:
+        for stage, name, cfg, views, size, norm, launches, twin in runs:
+            t0 = time.perf_counter()
+            views_by_n = {n: variant_views(torch, load_images, folder, n,
+                                           size, norm) for n in views}
+            _, launched, bad = variant_run(torch, fa, fp, name, cfg,
+                                           views_by_n, launches, norm, twin)
+            walls[f"{stage}_{name}_s"] = time.perf_counter() - t0
+            counts += launched
+            torch.cuda.empty_cache()
+            if bad:
+                return rows, counts, f"phase {stage}: {bad}"
+        t0 = time.perf_counter()
+        _, bad = radio_checkpoint(torch, folder, runs[4][2])
+        walls["13g_s"] = time.perf_counter() - t0
+        if bad:
+            return rows, counts, bad
+    print(f"phase 13 walls: {json.dumps(walls)}", flush=True)
+    return rows, counts, None
+
+
 def timing(row):
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms", "mma_ms",
@@ -3841,7 +4290,7 @@ def timing(row):
 def kernels_summary(fp, attn, train_rows, ring_rows, merge, probe_rows,
                     phase_counts) -> list:
     """The kernels' JSON rows: each kernel at its main-path shape with its
-    launches in phases 3-12 (phase_counts: the kernel counts each of those
+    launches in phases 3-13 (phase_counts: the kernel counts each of those
     runs read, reset just before it), the baselines and the probes."""
     launches = {kname: sum(counts[key] for counts in phase_counts)
                 for kname, key in COUNTER.items()}
@@ -4074,7 +4523,7 @@ def main() -> int:
             return fail(f"probe {case} disagrees with its plain version: "
                         f"{row}")
 
-    # phases 3-12 run the main path: no probe and no baseline launch
+    # phases 3-13 run the main path: no probe and no baseline launch
     fp.reset_probe_counts()
 
     # phase 3: serving at full width
@@ -4247,12 +4696,24 @@ def main() -> int:
           f"{time.perf_counter() - t12:.1f} s", flush=True)
     attn = attn + eval_rows
 
+    # phase 13: the model variants at full width and depth
+    t13 = time.perf_counter()
+    torch.cuda.empty_cache()
+    variant_rows, phase13_counts, bad = variants_path(torch, fa, fp, F,
+                                                      load_images)
+    if bad:
+        return fail(f"phase 13: {bad}")
+    print(f"phase 13 (the model variants) took "
+          f"{time.perf_counter() - t13:.1f} s", flush=True)
+    attn = attn + variant_rows
+
     phase_counts = [serving,
                     {key: train[f"{key}_launches"] for key in fa.KERNELS},
                     ring_res["kernel_counts"], block_res["kernel_counts"],
                     vs_train["launches"]] + (phase7_counts + phase8_counts
                                              + phase9_counts + phase10_counts
-                                             + phase11_counts + phase12_counts)
+                                             + phase11_counts + phase12_counts
+                                             + phase13_counts)
     kernels = kernels_summary(fp, attn, train_rows, ring_rows, merge,
                               probe_rows, phase_counts)
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s",

@@ -92,6 +92,16 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def luma_histograms(images: torch.Tensor, bins: int = 64) -> torch.Tensor:
+    """(V, H, W, 3) images in [0, 1] -> (V, bins) fp32 counts of their luma
+    over [0, 1]: the JAX demo's frame descriptors for a model without a
+    DINOv2 encoder."""
+    from .utils.tracking import to_gray
+
+    return torch.stack([torch.histc(to_gray(im.float()), bins=bins, min=0.0,
+                                    max=1.0) for im in images])
+
+
 def refine(preds: List[Dict[str, torch.Tensor]], images: torch.Tensor,
            encoder: Optional[Callable[[torch.Tensor], torch.Tensor]],
            max_query_pts: int = 1024, num_query_frames: int = 3,
@@ -103,9 +113,10 @@ def refine(preds: List[Dict[str, torch.Tensor]], images: torch.Tensor,
         preds: infer's per-view outputs (sample 0 is used).
         images: (V, H, W, 3) the normalised images the model saw, for the
             query-frame ranking.
-        encoder: the model's DINOv2 encoder, (F', H, W, 3) -> patch tokens;
-            the reference's luma-histogram ranking for other encoders needs
-            ROADMAP queue A item 10 and None raises where it would run.
+        encoder: the model's DINOv2 encoder, (F', H, W, 3) -> patch
+            tokens, whose features rank the query frames; None (a CroCo or
+            RADIO model) ranks them by 64-bin luma histograms of the images,
+            as the JAX demo does.
         max_query_pts, num_query_frames, vis_thresh, ba_iters: the CLI's
             flags.
 
@@ -136,10 +147,9 @@ def refine(preds: List[Dict[str, torch.Tensor]], images: torch.Tensor,
     query_frames = [0]
     if num_query_frames > 1 and v > 1:
         if encoder is None:
-            raise NotImplementedError(
-                "query-frame ranking without a DINOv2 encoder (the "
-                "reference's luma histograms): ROADMAP queue A item 10")
-        feats = frame_features_from_encoder(encoder, images.to(device))
+            feats = luma_histograms(imgs)
+        else:
+            feats = frame_features_from_encoder(encoder, images.to(device))
         ranked = rank_query_frames(feats, num_query_frames)
         query_frames += [i for i in ranked if i != 0]
         query_frames = query_frames[:num_query_frames]
@@ -258,7 +268,9 @@ def main(argv=None) -> int:
 
     if args.ba:
         images = torch.from_numpy(np.concatenate([v["img"] for v in views]))
-        refined = refine(preds, images, model.encoder,
+        refined = refine(preds, images,
+                         model.encoder if model.cfg.encoder_type == "dinov2"
+                         else None,
                          max_query_pts=args.max_query_pts,
                          num_query_frames=args.num_query_frames,
                          vis_thresh=args.vis_thresh, ba_iters=args.ba_iters)

@@ -11,6 +11,7 @@ from .mapanything import (
     MapAnythingConfig,
     MemoryPolicy,
     aug_training_config,
+    dense_dim_for,
     images_only_config,
     resolve_memory_policy,
 )
@@ -38,6 +39,14 @@ def model_factory(model_str: str = "mapanything", device=None, generator=None,
     return _MODELS[cls](cls(**overrides), device=device, generator=generator)
 
 
+def mapanything_ablations_config(**overrides) -> MapAnythingConfig:
+    """The reference's MapAnythingAblations preset: no metric-scale token
+    and RoPE2D at frequency 100 on the trunk's frame layers (the JAX
+    package's mapanything_ablations_config)."""
+    return MapAnythingConfig(**{"use_scale_token": False,
+                                "trunk_rope_freq": 100.0, **overrides})
+
+
 __all__ = [
     "GeometricInputConfig",
     "MODEL_CONFIGS",
@@ -48,7 +57,9 @@ __all__ = [
     "ModularDUSt3RConfig",
     "TASK_NAMES",
     "aug_training_config",
+    "dense_dim_for",
     "images_only_config",
+    "mapanything_ablations_config",
     "model_factory",
     "resolve_memory_policy",
     "task_config",

@@ -1,16 +1,22 @@
 """MapAnything model; counterpart of mapanything_tpu/models/mapanything.py.
 
-The forward runs the released architecture on (B, V, H, W, 3) normalised
-NHWC images and the optional geometric priors:
+The forward runs the model family on (B, V, H, W, 3) normalised NHWC
+images and the optional geometric priors:
 
-  1. DINOv2 encoder over all B*V views;
+  1. the image encoder over all B*V views: DINOv2 (released), CroCo or
+     RADIO (`encoder_type`);
   2. the geometric priors fused into the encoder features in fp32
      (`fuse_geometric_priors`), then the fp32 fusion LayerNorm;
-  3. the metric-scale token;
-  4. the alternating frame/global trunk;
+  3. the metric-scale token, unless `use_scale_token=False` (the
+     ablations: no token, a metric scale of 1);
+  4. the trunk (`info_sharing_type`): alternating frame/global (released,
+     with the view PE, RoPE2D options), global, or cross-attention;
   5. the DPT dense head on [fused encoder features, IFR taps, final];
-  6. the pose head on the final features and the scale MLP on the token;
-  7. the released adaptors and the factored recombination into pointmaps.
+  6. the pose head on the final features (the `*pose` scene
+     representations only) and the scale MLP on the token;
+  7. the adaptors and the recombination of `scene_rep_type`: one of five
+     families, each with or without confidence and mask (the reference's 20
+     arms; `dense_dim_for` gives the dense head's width).
 
 Input views (all but img optional):
   img                (B, V, H, W, 3)  normalised images
@@ -22,8 +28,11 @@ Input views (all but img optional):
   ray_dirs_valid / depth_valid / pose_valid  (B, V) bool, which samples
       provide each prior (all, when absent)
 
-`MapAnythingConfig` has the JAX package's fields and defaults. Values the
-port does not run raise NotImplementedError naming their ROADMAP item.
+`MapAnythingConfig` has the JAX package's fields and defaults; the two the
+port does not take (`trunk_seq_axis`, `scan_layers`) raise. With
+`use_view_pe`, the view-PE rows are the view indices at inference; a
+forward given a generator draws the non-reference views' rows from it, as
+the JAX package draws them from its rng.
 `encoder_/trunk_gradient_checkpointing` recompute each block's activations
 in the backward (torch.utils.checkpoint).
 
@@ -71,16 +80,44 @@ from ..nn.adaptors import (
     pose_adaptor,
     scale_adaptor,
 )
+from ..nn.croco import CroCoViT, CrossAttention
 from ..nn.dinov2 import DinoViT
 from ..nn.dpt import DPTFeature, DPTRegressionProcessor
 from ..nn.encoders import DenseRepEncoder, GlobalRepEncoder
 from ..nn.heads import MLPHead, PoseHead
 from ..nn.layers import Attention, FusedLayerNorm, init_weights_
-from ..nn.trunk import AlternatingAttentionTrunk
+from ..nn.radio import RadioViT
+from ..nn.trunk import (AlternatingAttentionTrunk, CrossAttentionTrunk,
+                        GlobalAttentionTrunk)
 from ..ops.ring_attention import all_gather, all_reduce
 from ..utils.device import resolve_device
 
 RELEASED_SCENE_REP = "raydirs+depth+pose+confidence+mask"
+
+# scene-representation family -> dense channels before confidence and mask
+_SCENE_REP_BASE_CHANNELS = {
+    "pointmap": 3,
+    "raymap+depth": 7,  # origins 3 + directions 3 + depth 1
+    "raydirs+depth+pose": 4,
+    "campointmap+pose": 3,
+    "pointmap+raydirs+depth+pose": 7,  # pointmap 3 + directions 3 + depth 1
+}
+ENCODERS = {"dinov2": DinoViT, "croco": CroCoViT, "radio": RadioViT}
+TRUNKS = {"alternating": AlternatingAttentionTrunk,
+          "global": GlobalAttentionTrunk, "cross": CrossAttentionTrunk}
+
+
+def scene_rep_family(scene_rep_type: str) -> str:
+    """The family of a scene_rep_type: its name without the +confidence and
+    +mask flags."""
+    return scene_rep_type.replace("+confidence", "").replace("+mask", "")
+
+
+def dense_dim_for(scene_rep_type: str) -> int:
+    """The dense head's output channels for a scene_rep_type."""
+    return (_SCENE_REP_BASE_CHANNELS[scene_rep_family(scene_rep_type)]
+            + int("+confidence" in scene_rep_type)
+            + int("+mask" in scene_rep_type))
 
 # view keys that carry geometric priors (inputs of fuse_geometric_priors)
 PRIOR_VIEW_KEYS = ("ray_directions_cam", "depth_along_ray",
@@ -173,22 +210,10 @@ class MapAnythingConfig:
         return getattr(torch, self.heads_dtype)
 
     def check_supported(self) -> None:
-        """Raise NotImplementedError for values outside this slice."""
-        default = MapAnythingConfig()
-        unsupported = {
-            "encoder_type": "ROADMAP queue A item 10 (CroCo/RADIO encoders)",
-            "info_sharing_type": "ROADMAP queue A item 10 (other trunks)",
-            "use_view_pe": "ROADMAP queue A item 10 (view PE)",
-            "trunk_rope_freq": "ROADMAP queue A item 10 (RoPE2D)",
-            "use_scale_token": "ROADMAP queue A item 10 (ablations)",
-            "scene_rep_type": "ROADMAP queue A item 4 (other scene reps)",
-            "fold_layerscale": "ROADMAP queue A item 2 (fold_layerscale)",
-        }
-        for field, item in unsupported.items():
-            if getattr(self, field) != getattr(default, field):
-                raise NotImplementedError(
-                    f"MapAnythingConfig.{field}={getattr(self, field)!r} is "
-                    f"not ported yet: {item}")
+        """Raise for the values the port does not take (`trunk_seq_axis`,
+        `scan_layers`) and for an unknown encoder, trunk or scene
+        representation, or a dense width the representation does not
+        have (ValueError, as the JAX package's init)."""
         if self.trunk_seq_axis is not None:
             raise ValueError(
                 "trunk_seq_axis names a JAX mesh axis; the port takes the "
@@ -200,6 +225,27 @@ class MapAnythingConfig:
             raise NotImplementedError(
                 "scan_layers is an XLA compile-time tool; the port runs the "
                 "layers as a plain loop (ROADMAP queue A, do-not-port list)")
+        if self.encoder_type not in ENCODERS:
+            raise ValueError(f"unknown encoder_type {self.encoder_type!r}; "
+                             f"options: {sorted(ENCODERS)}")
+        if self.info_sharing_type not in TRUNKS:
+            raise ValueError(
+                f"unknown info_sharing_type {self.info_sharing_type!r}; "
+                f"options: {sorted(TRUNKS)}")
+        family = scene_rep_family(self.scene_rep_type)
+        if family not in _SCENE_REP_BASE_CHANNELS:
+            raise ValueError(
+                f"unknown scene_rep_type {self.scene_rep_type!r}; families: "
+                f"{sorted(_SCENE_REP_BASE_CHANNELS)} (+confidence, +mask)")
+        if self.dense_output_dim != dense_dim_for(self.scene_rep_type):
+            raise ValueError(
+                f"dense_output_dim={self.dense_output_dim} but "
+                f"{self.scene_rep_type!r} needs "
+                f"{dense_dim_for(self.scene_rep_type)}")
+
+    def has_pose_head(self) -> bool:
+        """The `*pose` scene representations predict camera poses."""
+        return scene_rep_family(self.scene_rep_type).endswith("pose")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -297,6 +343,63 @@ def draw_prior_masks(geom_cfg: GeometricInputConfig, batch: int, views: int,
     return masks
 
 
+def scene_rep_outputs(scene_rep_type: str, raw: torch.Tensor,
+                      metric_scale: torch.Tensor, pose: Optional[dict],
+                      use_factored_global_pointmaps: bool = True
+                      ) -> Dict[str, torch.Tensor]:
+    """The outputs of one scene representation from the dense head's raw
+    channels (B, V, H, W, C) fp32, the metric scale (B,) and, for the
+    `*pose` families, pose_adaptor's {"trans", "quats"} (B, V, ...): the
+    JAX package's recombination of the five families, each with or
+    without confidence and mask. Metric quantities are scaled."""
+    family = scene_rep_family(scene_rep_type)
+    c = _SCENE_REP_BASE_CHANNELS[family]
+    s = metric_scale[:, None, None, None, None]
+    out = {"metric_scaling_factor": metric_scale}
+    if pose is not None:
+        out["cam_trans"] = pose["trans"] * metric_scale[:, None, None]
+        out["cam_quats"] = pose["quats"]
+
+    def factored(ray_dirs, depth_along_ray, pts3d=None):
+        if pts3d is None:
+            pts3d = (convert_ray_dirs_depth_along_ray_pose_trans_quats_to_pointmap(
+                ray_dirs, depth_along_ray, pose["trans"], pose["quats"]))
+        out.update(pts3d=pts3d * s, pts3d_cam=ray_dirs * depth_along_ray * s,
+                   ray_directions=ray_dirs,
+                   depth_along_ray=depth_along_ray * s)
+
+    if family == "pointmap":  # a world-frame pointmap
+        out["pts3d"] = raw[..., 0:3] * s
+    elif family == "raymap+depth":  # ray origins, directions and depth
+        origins, ray_dirs = raw[..., 0:3], raw[..., 3:6]
+        depth_along_ray = depth_adaptor(raw[..., 6:7])
+        out.update(pts3d=(origins + ray_dirs * depth_along_ray) * s,
+                   ray_origins=origins * s, ray_directions=ray_dirs,
+                   depth_along_ray=depth_along_ray * s)
+    elif family == "raydirs+depth+pose":  # the released factored form
+        factored(normalize_to_unit_sphere(raw[..., 0:3]),
+                 depth_adaptor(raw[..., 3:4]))
+    elif family == "campointmap+pose":  # directions and depth from points
+        pts3d_cam = raw[..., 0:3]
+        depth_along_ray = torch.linalg.vector_norm(pts3d_cam, dim=-1,
+                                                   keepdim=True)
+        factored(pts3d_cam / depth_along_ray.clamp_min(1e-8),
+                 depth_along_ray)
+        out["pts3d_cam"] = pts3d_cam * s
+    else:  # "pointmap+raydirs+depth+pose"
+        factored(normalize_to_unit_sphere(raw[..., 3:6]),
+                 depth_adaptor(raw[..., 6:7]),
+                 None if use_factored_global_pointmaps else raw[..., 0:3])
+    if "+confidence" in scene_rep_type:
+        out["conf"] = confidence_adaptor(raw[..., c:c + 1])[..., 0]
+        c += 1
+    if "+mask" in scene_rep_type:
+        mask = mask_adaptor(raw[..., c:c + 1])
+        out["non_ambiguous_mask"] = mask["mask"][..., 0] > 0.5
+        out["non_ambiguous_mask_logits"] = mask["logits"][..., 0]
+    return out
+
+
 class _DenseHead(nn.Module):
     """DPT feature + regression tail."""
 
@@ -340,31 +443,46 @@ class MapAnything(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         dt = cfg.dtype
-        self.encoder = DinoViT(
-            size=cfg.encoder_size, patch_size=cfg.patch_size, dtype=dt,
-            pad_tokens_to=cfg.encoder_pad_tokens_to,
-            gradient_checkpointing=cfg.encoder_gradient_checkpointing,
-            device=device)
+        enc_kw = dict(size=cfg.encoder_size, patch_size=cfg.patch_size,
+                      dtype=dt, device=device)
+        if cfg.encoder_type == "dinov2":
+            enc_kw.update(pad_tokens_to=cfg.encoder_pad_tokens_to,
+                          fold_layerscale=cfg.fold_layerscale)
+        elif cfg.encoder_type == "radio":
+            enc_kw.update(img_size=cfg.encoder_img_size)
+        if cfg.encoder_type != "croco":
+            enc_kw.update(gradient_checkpointing=(
+                cfg.encoder_gradient_checkpointing))
+        self.encoder = ENCODERS[cfg.encoder_type](**enc_kw)
         enc_dim = self.encoder.embed_dim
         self.fusion_norm = FusedLayerNorm(enc_dim, dtype=torch.float32,
                                           device=device)
-        self.scale_token = nn.Parameter(torch.empty(enc_dim, device=device))
-        self.info_sharing = AlternatingAttentionTrunk(
-            input_embed_dim=enc_dim, dim=cfg.trunk_dim, depth=cfg.trunk_depth,
-            num_heads=cfg.trunk_num_heads, indices=tuple(cfg.trunk_indices),
-            distinguish_ref_and_non_ref_views=(
-                cfg.distinguish_ref_and_non_ref_views),
-            dtype=dt, pad_tokens_to=cfg.trunk_pad_tokens_to,
-            gradient_checkpointing=cfg.trunk_gradient_checkpointing,
-            device=device)
+        self.scale_token = (nn.Parameter(torch.empty(enc_dim, device=device))
+                            if cfg.use_scale_token else None)
+        trunk_kw = dict(input_embed_dim=enc_dim, dim=cfg.trunk_dim,
+                        depth=cfg.trunk_depth, num_heads=cfg.trunk_num_heads,
+                        indices=tuple(cfg.trunk_indices), dtype=dt,
+                        device=device)
+        if cfg.info_sharing_type != "cross":
+            trunk_kw.update(
+                distinguish_ref_and_non_ref_views=(
+                    cfg.distinguish_ref_and_non_ref_views),
+                pad_tokens_to=cfg.trunk_pad_tokens_to,
+                gradient_checkpointing=cfg.trunk_gradient_checkpointing)
+        if cfg.info_sharing_type == "alternating":
+            trunk_kw.update(use_view_pe=cfg.use_view_pe,
+                            rope_freq=cfg.trunk_rope_freq)
+        self.info_sharing = TRUNKS[cfg.info_sharing_type](**trunk_kw)
         self.dense_head = _DenseHead(cfg, enc_dim, device=device)
-        self.pose_head = PoseHead(
+        self.pose_head = (PoseHead(
             input_feature_dim=cfg.trunk_dim,
             num_resconv_block=cfg.pose_num_resconv,
             dtype=cfg.resolved_heads_dtype(), device=device)
-        self.scale_head = MLPHead(input_feature_dim=cfg.trunk_dim,
-                                  output_dim=1, dtype=torch.float32,
-                                  device=device)
+            if cfg.has_pose_head() else None)
+        self.scale_head = (MLPHead(input_feature_dim=cfg.trunk_dim,
+                                   output_dim=1, dtype=torch.float32,
+                                   device=device)
+                           if cfg.use_scale_token else None)
         # the prior encoders, fp32, registered last: a seeded init draws the
         # other parameters as it did before they existed
         p = cfg.patch_size
@@ -382,7 +500,7 @@ class MapAnything(nn.Module):
         """Switch every encoder and trunk attention to `impl`: "auto" |
         "flash" | "math" (ops/attention.py::sdpa)."""
         for mod in self.modules():
-            if isinstance(mod, Attention):
+            if isinstance(mod, (Attention, CrossAttention)):
                 mod.attn_impl = impl
 
     def forward(self, views: Dict[str, torch.Tensor],
@@ -410,6 +528,10 @@ class MapAnything(nn.Module):
                 model's own by default.
         """
         cfg = self.cfg
+        if seq_group is not None and cfg.info_sharing_type != "alternating":
+            raise ValueError(
+                "a view-sharded forward (seq_group) runs the alternating "
+                f"trunk only, not {cfg.info_sharing_type!r}")
         chunks = chunking or cfg
         mlp_chunk = chunks.mlp_token_chunk if memory_efficient else None
         imgs = views["img"]
@@ -422,9 +544,18 @@ class MapAnything(nn.Module):
             enc.reshape(b, v, gh, gw, enc_dim).float(), views, geom_cfg,
             generator, seq_group)
         fused = self.fusion_norm(fused)
-        tok = self.scale_token[None, None, :].expand(b, 1, enc_dim)
-        final, intermediates, tok_out = self.info_sharing(
-            fused.to(cfg.dtype), tok, seq_group, mlp_chunk)
+        if self.scale_token is not None:
+            tok = self.scale_token[None, None, :].expand(b, 1, enc_dim)
+        else:  # the ablations: no extra token
+            tok = fused.new_zeros((b, 0, enc_dim))
+        trunk_in = fused.to(cfg.dtype)
+        if cfg.info_sharing_type == "alternating":
+            final, intermediates, tok_out = self.info_sharing(
+                trunk_in, tok, seq_group, mlp_chunk,
+                self.view_pe_indices(b, v, generator, seq_group))
+        else:
+            final, intermediates, tok_out = self.info_sharing(
+                trunk_in, tok, mlp_chunk)
 
         # hook 0 is the fused, normed encoder features
         hooks = [fused.to(cfg.dtype)] + intermediates + [final]
@@ -443,31 +574,37 @@ class MapAnything(nn.Module):
             raw_dense = torch.cat(parts)
             del parts
         else:
-            raw_dense = self.dense_head(hooks, (h, w))  # (B*V, H, W, 6) fp32
-        raw_pose = self.pose_head(hooks[-1])  # (B*V, 7) fp32
-        raw_scale = self.scale_head(tok_out[:, 0, :].float())  # (B, 1)
-
+            raw_dense = self.dense_head(hooks, (h, w))  # (B*V, H, W, C) fp32
         raw = raw_dense.reshape(b, v, h, w, cfg.dense_output_dim)
-        metric_scale = scale_adaptor(raw_scale)[:, 0]  # (B,)
-        s = metric_scale[:, None, None, None, None]
-        pose = pose_adaptor(raw_pose.reshape(b, v, 7))
-        ray_dirs = normalize_to_unit_sphere(raw[..., 0:3])
-        depth_along_ray = depth_adaptor(raw[..., 3:4])
-        pts3d = convert_ray_dirs_depth_along_ray_pose_trans_quats_to_pointmap(
-            ray_dirs, depth_along_ray, pose["trans"], pose["quats"])
-        mask = mask_adaptor(raw[..., 5:6])
-        return {
-            "metric_scaling_factor": metric_scale,
-            "cam_trans": pose["trans"] * metric_scale[:, None, None],
-            "cam_quats": pose["quats"],
-            "pts3d": pts3d * s,
-            "pts3d_cam": ray_dirs * depth_along_ray * s,
-            "ray_directions": ray_dirs,
-            "depth_along_ray": depth_along_ray * s,
-            "conf": confidence_adaptor(raw[..., 4:5])[..., 0],
-            "non_ambiguous_mask": mask["mask"][..., 0] > 0.5,
-            "non_ambiguous_mask_logits": mask["logits"][..., 0],
-        }
+        if self.scale_head is not None:
+            raw_scale = self.scale_head(tok_out[:, 0, :].float())  # (B, 1)
+            metric_scale = scale_adaptor(raw_scale)[:, 0]  # (B,)
+        else:
+            metric_scale = torch.ones((b,), device=raw.device)
+        pose = None
+        if self.pose_head is not None:
+            pose = pose_adaptor(self.pose_head(hooks[-1]).reshape(b, v, 7))
+        return scene_rep_outputs(cfg.scene_rep_type, raw, metric_scale, pose,
+                                 cfg.use_factored_global_pointmaps)
+
+    def view_pe_indices(self, b: int, v: int,
+                        generator: Optional[torch.Generator],
+                        seq_group=None) -> Optional[torch.Tensor]:
+        """The view-PE rows of a call: None (the view indices) without a
+        generator or without view PE; with one, (B, V) rows drawn uniformly
+        from [1, max_views_for_pe) for every view but the global view 0,
+        whose row is 0. A view-sharded call draws all the views' rows and
+        keeps its own, so p ranks draw what one does."""
+        trunk = self.info_sharing
+        if generator is None or getattr(trunk, "view_pe", None) is None:
+            return None
+        ranks, rank = ((1, 0) if seq_group is None else
+                       (dist.get_world_size(seq_group),
+                        dist.get_rank(seq_group)))
+        idx = torch.randint(1, trunk.max_views_for_pe, (b, v * ranks),
+                            generator=generator, device=generator.device)
+        idx[:, 0] = 0
+        return idx[:, rank * v:(rank + 1) * v].to(trunk.view_pe.device)
 
     def fuse_geometric_priors(self, fused: torch.Tensor,
                               views: Dict[str, torch.Tensor],

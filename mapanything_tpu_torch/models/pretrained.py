@@ -9,7 +9,12 @@ mapanything_tpu/models/pretrained.py.
     "model" / "state_dict"). utils/weights.py::convert_mapanything_checkpoint
     turns it into the JAX package's param tree and from_jax_params takes
     that onto the model; infer_model_config reads the architecture's
-    dimensions from the tensor shapes where the caller sets none;
+    dimensions from the tensor shapes where the caller sets none. The
+    encoder's family (DINOv2, CroCo, RADIO) is found by its keys; the
+    config's other variant fields (`encoder_type`, `info_sharing_type`,
+    `scene_rep_type`, `use_scale_token`, ...) come from
+    `config_overrides`, and `fold_layerscale` folds DINOv2's LayerScale
+    into its layers as the checkpoint converts;
   * the port's own files: a state dict written by
     train/checkpoints.py::save_params, or the "model" entry of a
     save_train_state file (the trainer's checkpoint-best and
@@ -149,7 +154,8 @@ def from_pretrained(path: str, dtype: Any = torch.bfloat16,
             overrides.setdefault(key, val)
     cfg = MapAnythingConfig(dtype=dtype, **overrides)
     tree = convert_mapanything_checkpoint(
-        state, trunk_indices=_conversion_taps(state, cfg))
+        state, trunk_indices=_conversion_taps(state, cfg),
+        fold_layerscale=cfg.fold_layerscale)
     del state
     unconverted = tree.pop("_unconverted", [])
     tree.pop("_aliases", None)

@@ -9,6 +9,13 @@ ops/attention.py::sdpa, so on the card the self- and cross-attentions run
 the flash forward kernel: the cross-attention hands it q from one
 projection and k, v as the strided halves of another, (B, M, 2, H, D).
 
+The cross-attention takes the JAX package's `key_mask` (the math path:
+dense scores, the yardstick) or a `context_index` (G, M') that gathers,
+for each of G query groups, the context rows it attends to from one kv
+projection of the whole context: the same softmax over the same keys,
+through the kernel, with no score matrix in memory (the N-view
+cross-attention trunk, nn/trunk.py::CrossAttentionTrunk).
+
 Submodules carry the JAX package's flax scope names (utils/weights.py).
 """
 
@@ -31,7 +38,6 @@ CROCO_CONFIGS = {
     "base": dict(embed_dim=768, depth=12, num_heads=12),
     "large": dict(embed_dim=1024, depth=24, num_heads=16),
 }
-MASK_ITEM = "ROADMAP queue A item 7 (A1: sdpa with a key mask)"
 
 
 def sincos_pos_embed_2d(gh: int, gw: int, dim: int) -> np.ndarray:
@@ -68,24 +74,39 @@ class CrossAttention(nn.Module):
         self.proj = Dense(dim, dim, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
-                key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if key_mask is not None:
-            raise NotImplementedError(
-                f"attention with a key mask is {MASK_ITEM}; ModularDUSt3R "
-                "passes none")
-        b, n, _ = x.shape
-        m = context.shape[1]
+                key_mask: Optional[torch.Tensor] = None,
+                context_index: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """x (B, N, C) queries, context (B, M, C).
+
+        key_mask: (M,) or (B, M) bool, True = attendable (ops/attention.py
+            ::sdpa: the math path).
+        context_index: (G, M') long; x is then (B, G, N, C) and group g
+            attends to the context rows context_index[g]. Returns the
+            shape of x.
+        """
         hd = self.dim // self.num_heads
+        kv = self.kv(context)  # (B, M, 2C), one projection for all groups
+        if context_index is not None:
+            b, g, n, _ = x.shape
+            kv = kv[:, context_index].reshape(b * g, -1, 2 * self.dim)
+            x = x.reshape(b * g, n, self.dim)
+        b, n, _ = x.shape
         q = self.q(x).view(b, n, self.num_heads, hd)
         # k and v: strided (B, M, H, D) views of one (B, M, 2, H, D) tensor
-        k, v = self.kv(context).view(b, m, 2, self.num_heads, hd).unbind(2)
-        out = sdpa(q, k, v, impl=self.attn_impl)
-        return self.proj(out.reshape(b, n, self.dim))
+        k, v = kv.view(b, kv.shape[1], 2, self.num_heads, hd).unbind(2)
+        out = self.proj(sdpa(q, k, v, impl=self.attn_impl, key_mask=key_mask
+                             ).reshape(b, n, self.dim))
+        if context_index is not None:
+            out = out.reshape(-1, context_index.shape[0], n, self.dim)
+        return out
 
 
 class DecoderBlock(nn.Module):
     """CroCo/DUSt3R decoder block: self-attention, cross-attention to the
-    other view's (normed) tokens, MLP; pre-norm, residual."""
+    other view's (normed) tokens, MLP; pre-norm, residual. `key_mask` and
+    `context_index` are CrossAttention's (x is (B, G, N, C) with the
+    latter)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -101,10 +122,14 @@ class DecoderBlock(nn.Module):
                        device=device)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
-                key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.self_attn(self.norm1(x))
+                key_mask: Optional[torch.Tensor] = None,
+                context_index: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        h = self.self_attn(self.norm1(x.reshape(-1, *x.shape[-2:])))
+        x = x + h.reshape(x.shape)
         x = x + self.cross_attn(self.norm2(x), self.norm_context(context),
-                                key_mask=key_mask)
+                                key_mask=key_mask,
+                                context_index=context_index)
         return x + self.mlp(self.norm3(x))
 
 
@@ -127,7 +152,10 @@ class CroCoViT(nn.Module):
             for _ in range(cfg["depth"]))
         self.norm = FusedLayerNorm(dim, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                mlp_chunk: Optional[int] = None) -> torch.Tensor:
+        """`mlp_chunk` bounds the rows each MLP runs at once
+        (layers.py::Mlp)."""
         b, h, w, _ = x.shape
         gh, gw = h // self.patch_size, w // self.patch_size
         x = self.patch_embed(x.permute(0, 3, 1, 2))  # (B, C, gh, gw)
@@ -135,5 +163,5 @@ class CroCoViT(nn.Module):
         pos = torch.from_numpy(sincos_pos_embed_2d(gh, gw, self.embed_dim))
         x = x + pos.to(x.device, self.dtype)[None]
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, None, mlp_chunk)
         return self.norm(x).reshape(b, gh, gw, self.embed_dim)

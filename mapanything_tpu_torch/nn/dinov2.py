@@ -1,9 +1,13 @@
 """DINOv2 ViT encoder, counterpart of mapanything_tpu/nn/dinov2.py::DinoViT.
 
-Torch-hub DINOv2 (patch 14, img_size 518, LayerScale init 1.0, no register
-tokens, pos-embed interpolation with the +0.1 offset). Inputs are NHWC
-images already normalised with the encoder's mean/std; the output is the
-(B, H/14, W/14, C) patch-token map after the final norm.
+Torch-hub DINOv2 (patch 14, img_size 518, LayerScale init 1.0, pos-embed
+interpolation with the +0.1 offset), optionally with register tokens
+(`num_register_tokens`, no pos-embed, between the class token and the
+patches). Inputs are NHWC images already normalised with the encoder's
+mean/std; the output is the (B, H/14, W/14, C) patch-token map after the
+final norm. With `fold_layerscale` the blocks hold no LayerScale: the
+conversion folds each gamma into the layer before it (`proj`, `fc2`;
+utils/weights.py::convert_dinov2), a serving-only form.
 
 The patch pos-embed resize uses the same torch-exact bicubic matrices as the
 JAX package (numpy, cubic convolution a = -0.75, border clamp), applied as
@@ -109,7 +113,9 @@ class DinoViT(nn.Module):
     def __init__(self, size: str = "large", patch_size: int = 14,
                  dtype: torch.dtype = torch.float32,
                  pad_tokens_to: Optional[int] = None,
-                 gradient_checkpointing: bool = False, device=None):
+                 gradient_checkpointing: bool = False,
+                 num_register_tokens: int = 0, fold_layerscale: bool = False,
+                 device=None):
         super().__init__()
         cfg = DINOV2_CONFIGS[size]
         self.gradient_checkpointing = gradient_checkpointing
@@ -124,8 +130,14 @@ class DinoViT(nn.Module):
         self.cls_token = nn.Parameter(torch.empty(1, 1, dim, device=device))
         self.pos_embed = nn.Parameter(
             torch.empty(1 + self.grid * self.grid, dim, device=device))
+        self.num_register_tokens = num_register_tokens
+        self.register_tokens = (
+            nn.Parameter(torch.empty(1, num_register_tokens, dim,
+                                     device=device))
+            if num_register_tokens else None)
         self.blocks = nn.ModuleList(
-            Block(dim, cfg["num_heads"], layerscale_init=LAYERSCALE_INIT,
+            Block(dim, cfg["num_heads"],
+                  layerscale_init=None if fold_layerscale else LAYERSCALE_INIT,
                   dtype=dtype, device=device)
             for _ in range(cfg["depth"]))
         for blk in self.blocks:
@@ -147,7 +159,11 @@ class DinoViT(nn.Module):
             self.pos_embed[1:], (self.grid, self.grid), (gh, gw))
         x = x + patch_pos[None].to(self.dtype)
         cls = (self.cls_token + self.pos_embed[:1][None]).to(self.dtype)
-        x = torch.cat([cls.expand(b, 1, dim), x], dim=1)
+        tokens = [cls.expand(b, 1, dim)]
+        if self.register_tokens is not None:
+            tokens.append(self.register_tokens.to(self.dtype).expand(
+                b, self.num_register_tokens, dim))
+        x = torch.cat(tokens + [x], dim=1)
 
         n_tok = x.shape[1]
         n_valid = None
@@ -161,5 +177,6 @@ class DinoViT(nn.Module):
                 x = checkpointed(blk, x, n_valid, mlp_chunk)
             else:
                 x = blk(x, n_valid, mlp_chunk)
+        start = 1 + self.num_register_tokens
         x = self.norm(x)
-        return x[:, 1:1 + gh * gw].reshape(b, gh, gw, dim)
+        return x[:, start:start + gh * gw].reshape(b, gh, gw, dim)

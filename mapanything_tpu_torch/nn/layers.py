@@ -21,15 +21,18 @@ mechanical.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import ring_attention as ring
 from ..ops.attention import sdpa
+from .rope import apply_rope
 
 
 def checkpointed(fn, *args):
@@ -167,7 +170,14 @@ class Attention(nn.Module):
     """Multi-head self-attention with a fused qkv projection.
 
     `attn_impl` picks the ops/attention.py::sdpa path; it is "auto" unless
-    models/mapanything.py::MapAnything.set_attn_impl switches it."""
+    models/mapanything.py::MapAnything.set_attn_impl switches it.
+
+    `rope` (a (cos, sin) pair of (N, D) tables, nn/rope.py) rotates q and k
+    before the attention; v stays a strided view of the fused qkv tensor.
+    With `entropy_scaling_base`, q is multiplied by log(n)/log(base) when
+    the count n of real tokens exceeds the base (the JAX package's
+    entropy-invariant scaling of the global layers; the trunk passes the
+    patches per view, known at call time)."""
 
     def __init__(self, dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -178,8 +188,9 @@ class Attention(nn.Module):
         self.qkv = Dense(dim, 3 * dim, dtype=dtype, device=device)
         self.proj = Dense(dim, dim, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor,
-                n_valid: Optional[int] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, n_valid: Optional[int] = None,
+                rope: Optional[tuple] = None,
+                entropy_scaling_base: Optional[int] = None) -> torch.Tensor:
         b, n, _ = x.shape
         qkv = self.qkv(x)
         if n_valid is not None and n_valid < n:
@@ -188,6 +199,11 @@ class Attention(nn.Module):
             qkv[:, n_valid:] = 0
         qkv = qkv.view(b, n, 3, self.num_heads, self.dim // self.num_heads)
         q, k, v = qkv.unbind(2)  # strided (B, N, H, D) views
+        if rope is not None:
+            q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+        n_eff = n if n_valid is None else n_valid
+        if entropy_scaling_base is not None and n_eff > entropy_scaling_base:
+            q = q * (math.log(n_eff) / math.log(entropy_scaling_base))
         out = sdpa(q, k, v, impl=self.attn_impl, n_valid=n_valid)
         return self.proj(out.reshape(b, n, self.dim))
 
@@ -210,8 +226,10 @@ class Block(nn.Module):
             self.ls1 = self.ls2 = None
 
     def forward(self, x: torch.Tensor, n_valid: Optional[int] = None,
-                mlp_chunk: Optional[int] = None) -> torch.Tensor:
-        h = self.attn(self.norm1(x), n_valid=n_valid)
+                mlp_chunk: Optional[int] = None, rope: Optional[tuple] = None,
+                entropy_scaling_base: Optional[int] = None) -> torch.Tensor:
+        h = self.attn(self.norm1(x), n_valid=n_valid, rope=rope,
+                      entropy_scaling_base=entropy_scaling_base)
         if self.ls1 is not None:
             h = self.ls1(h)
         x = x + h
@@ -234,9 +252,11 @@ class _RingAttention(nn.Module):
         self-attention: every rank computes the same token rows.
     """
 
-    def __init__(self, attn: Attention):
+    def __init__(self, attn: Attention,
+                 entropy_scaling_base: Optional[int] = None):
         super().__init__()
         self.attn = attn
+        self.entropy_scaling_base = entropy_scaling_base
 
     def forward(self, x: torch.Tensor, tok: torch.Tensor, group):
         a = self.attn
@@ -249,10 +269,19 @@ class _RingAttention(nn.Module):
                           dim // a.num_heads).unbind(2)
 
         qx, kx, vx = split(x)
+        factor = 1.0
+        if self.entropy_scaling_base is not None:
+            # the global sequence's real tokens over every rank
+            n_global = nl * dist.get_world_size(group) + t
+            factor = max(math.log(n_global)
+                         / math.log(self.entropy_scaling_base), 1.0)
+            qx = qx * factor
         if not t:
             out_x = ring.ring_flash_attention(qx, kx, vx, group)
             return a.proj(out_x.reshape(b, nl, dim)), tok
         qt, kt, vt = split(tok)
+        if factor != 1.0:
+            qt = qt * factor
 
         # patch rows: 2^lse_p is the ring side's softmax mass, (acc, m, l)
         # of the tokens their exact side
@@ -289,13 +318,11 @@ class RingGlobalBlock(nn.Module):
     output counts it once per rank; divide that term by the group size.
     """
 
-    def __init__(self, block: Block, entropy_scaling_base: Optional[int] = None):
+    def __init__(self, block: Block,
+                 entropy_scaling_base: Optional[int] = None):
         super().__init__()
-        if entropy_scaling_base is not None:
-            raise NotImplementedError(
-                "entropy scaling is not ported yet: ROADMAP queue A item 10")
         self.block = block
-        self.attn = _RingAttention(block.attn)
+        self.attn = _RingAttention(block.attn, entropy_scaling_base)
 
     def forward(self, x: torch.Tensor, tok: torch.Tensor, group,
                 mlp_chunk: Optional[int] = None):
@@ -315,10 +342,15 @@ class RingGlobalBlock(nn.Module):
 def init_weights_(module: nn.Module, generator: torch.Generator,
                   std: float = 0.02) -> nn.Module:
     """Random init from an explicit generator: every weight and embedding
-    ~ N(0, std^2), biases 0, LayerNorm and LayerScale at their constants."""
+    ~ N(0, std^2), biases 0, LayerNorm and LayerScale at their constants,
+    and a module's `init_constants` ({parameter name: array}, e.g. RADIO's
+    input conditioner) at theirs."""
     for mod in module.modules():
+        consts = getattr(mod, "init_constants", {})
         for name, p in mod.named_parameters(recurse=False):
-            if name == "bias":
+            if name in consts:
+                p.copy_(torch.as_tensor(consts[name]))
+            elif name == "bias":
                 p.zero_()
             elif isinstance(mod, FusedLayerNorm):
                 p.fill_(1.0)

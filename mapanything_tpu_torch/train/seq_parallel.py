@@ -57,7 +57,7 @@ from .losses import (
     compute_gradient_matching_loss,
     compute_normal_loss,
 )
-from .step import TrainState, global_norm
+from .step import TrainState, check_released_scene_rep, global_norm
 
 # parameter gradients are summed over the ranks in flat buckets of this many
 # elements (one all_reduce each)
@@ -383,6 +383,8 @@ def make_view_sharded_train_step(
     before clipping. Runs where the model lives: the card, or the CPU with
     a gloo group.
     """
+
+    check_released_scene_rep(model)
 
     def train_step(state: TrainState, batch: Dict,
                    generator: Optional[torch.Generator] = None):

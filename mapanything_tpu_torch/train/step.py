@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from ..models import GeometricInputConfig, MapAnything
+from ..models.mapanything import RELEASED_SCENE_REP
 from .losses import OverallLossConfig, overall_loss
 
 
@@ -170,11 +171,25 @@ def create_train_state(model: MapAnything,
     return TrainState(model=model, optimizer=make_optimizer(optim_cfg, model))
 
 
+def check_released_scene_rep(model: MapAnything) -> None:
+    """Raise NotImplementedError for a model whose scene representation
+    the released criterion cannot take (it reads the factored rays, depth
+    and pose): the criteria of the other families are ROADMAP queue A
+    item 6 (A9)."""
+    srt = model.cfg.scene_rep_type
+    if srt != RELEASED_SCENE_REP:
+        raise NotImplementedError(
+            f"training scene_rep_type {srt!r}: the released criterion takes "
+            f"{RELEASED_SCENE_REP!r}; the other families' criteria are "
+            "ROADMAP queue A item 6 (A9)")
+
+
 def make_loss_fn(model: MapAnything, geom_cfg: GeometricInputConfig,
                  loss_cfg: OverallLossConfig = OverallLossConfig()):
     """(batch, generator=None) -> (loss, details): the model on the batch's
     views with `geom_cfg` (its masks drawn from `generator`), then the
     released criterion against the batch's GT."""
+    check_released_scene_rep(model)
 
     def loss_fn(batch: Dict, generator: Optional[torch.Generator] = None
                 ) -> tuple:

@@ -210,7 +210,13 @@ def postprocess_outputs(
 ) -> Dict[str, torch.Tensor]:
     """Derived fields and the combined mask, on the device of `preds`:
     de-normalised images, depth_z, intrinsics recovered from the rays,
-    camera pose matrices, the confidence-percentile and edge masks.
+    camera pose matrices, the confidence-percentile and edge masks. Each
+    is made where the scene representation gives its inputs: no pose
+    matrices without cam_quats/cam_trans (the pose-less families), no
+    depth_z and no edge mask without pts3d_cam (the pointmap and
+    raymap+depth families, whose depth_z the JAX package's edge step
+    reads and fails on); other keys, ray_origins among them, pass
+    through.
 
     Every step is per view (the confidence quantile too), so `view_chunk`
     runs the views in chunks of the largest divisor of V not above it,
@@ -260,7 +266,7 @@ def postprocess_outputs(
             thresh = quantile_threshold(conf.flatten(2),
                                         confidence_percentile / 100.0)
             final_mask = final_mask & (conf > thresh[..., None, None])
-        if mask_edges and "pts3d" in out:
+        if mask_edges and "depth_z" in out:  # a family with pts3d_cam
             normal_edges = G.points_normal_edges(
                 out["pts3d"], tol=edge_normal_threshold, mask=final_mask)
             depth_edges = G.depth_edge(

@@ -2,7 +2,8 @@
 
 The port names its submodules after the JAX package's flax scopes, so a flax
 path maps to a state-dict key mechanically: scopes join with ".",
-`blocks_{i}` and `layers_{i}` index ModuleLists (`blocks.{i}`, `layers.{i}`),
+`blocks_{i}`, `layers_{i}` and `ref_layers_{i}` index ModuleLists
+(`blocks.{i}`, `layers.{i}`, `ref_layers.{i}`),
 a Dense or Conv `kernel` becomes `weight`, and a LayerNorm `scale` becomes
 `weight`. The layouts are the reverse of the rules in
 mapanything_tpu/utils/weights.py (`linear`, `conv`, `conv_transpose`):
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
-_LIST_SCOPE = re.compile(r"^(blocks|layers)_(\d+)$")
+_LIST_SCOPE = re.compile(r"^(blocks|layers|ref_layers)_(\d+)$")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: tuple = ()):
@@ -128,11 +129,17 @@ def random_normal_(model: nn.Module, seed: int = 0,
     """Every parameter ~ N(0, std^2) from a seeded numpy generator: the same
     weights on every device and in every process. (Unlike
     nn/layers.py::init_weights_, LayerNorm scales and biases are random
-    too.)"""
+    too.) A module's `init_constants` (RADIO's input conditioner) keep
+    their values and draw nothing."""
     rng = np.random.default_rng(seed)
-    for p in model.parameters():
-        host = rng.standard_normal(tuple(p.shape), dtype=np.float32)
-        p.copy_(torch.from_numpy(host * np.float32(std)))
+    for mod in model.modules():
+        consts = getattr(mod, "init_constants", {})
+        for name, p in mod.named_parameters(recurse=False):
+            if name in consts:
+                p.copy_(torch.as_tensor(consts[name]))
+                continue
+            host = rng.standard_normal(tuple(p.shape), dtype=np.float32)
+            p.copy_(torch.from_numpy(host * np.float32(std)))
     return model
 
 
@@ -238,9 +245,6 @@ def write_safetensors(path: str, tensors: Mapping[str, Any]) -> None:
 # that no rule takes is reported, never dropped silently.
 # ---------------------------------------------------------------------------
 
-ENCODER_ITEM = "ROADMAP queue A item 10 (CroCo/RADIO encoders)"
-
-
 def _t(x) -> np.ndarray:
     """torch tensor or array -> numpy array (a view where possible; bf16
     tensors widen to fp32)."""
@@ -281,9 +285,29 @@ def layer_norm(w, b) -> Dict[str, np.ndarray]:
     return {"scale": _t(w), "bias": _t(b)}
 
 
-def convert_dinov2(sd: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+def _vit_block(take, b: str) -> Dict[str, Any]:
+    """The tree of a timm/DINOv2 pre-norm block whose keys start with `b`
+    (norm1, attn.qkv, attn.proj, norm2, mlp.fc1, mlp.fc2), read through
+    `take(key)`."""
+
+    def lin(name):
+        return linear(take(b + name + ".weight"), take(b + name + ".bias"))
+
+    return {"norm1": layer_norm(take(b + "norm1.weight"),
+                                take(b + "norm1.bias")),
+            "attn": {"qkv": lin("attn.qkv"), "proj": lin("attn.proj")},
+            "norm2": layer_norm(take(b + "norm2.weight"),
+                                take(b + "norm2.bias")),
+            "mlp": {"fc1": lin("mlp.fc1"), "fc2": lin("mlp.fc2")}}
+
+
+def convert_dinov2(sd: Mapping[str, Any], prefix: str = "",
+                   fold_layerscale: bool = False) -> Dict[str, Any]:
     """A torch-hub DINOv2 ViT state dict (keys under `prefix`) -> the JAX
-    DinoViT tree."""
+    DinoViT tree. With `fold_layerscale` each block's LayerScale gammas are
+    multiplied into the layer that feeds them (ls1 into attn.proj, ls2 into
+    mlp.fc2, kernel and bias) and the tree holds no ls1/ls2: the tree of a
+    DinoViT(fold_layerscale=True)."""
 
     def take(k):
         return sd[prefix + k]
@@ -303,27 +327,17 @@ def convert_dinov2(sd: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
         n_blocks += 1
     for i in range(n_blocks):
         b = f"blocks.{i}."
-        block = {
-            "norm1": layer_norm(take(b + "norm1.weight"),
-                                take(b + "norm1.bias")),
-            "attn": {
-                "qkv": linear(take(b + "attn.qkv.weight"),
-                              take(b + "attn.qkv.bias")),
-                "proj": linear(take(b + "attn.proj.weight"),
-                               take(b + "attn.proj.bias")),
-            },
-            "norm2": layer_norm(take(b + "norm2.weight"),
-                                take(b + "norm2.bias")),
-            "mlp": {
-                "fc1": linear(take(b + "mlp.fc1.weight"),
-                              take(b + "mlp.fc1.bias")),
-                "fc2": linear(take(b + "mlp.fc2.weight"),
-                              take(b + "mlp.fc2.bias")),
-            },
-        }
+        block = _vit_block(take, b)
         if f"{prefix}{b}ls1.gamma" in sd:
-            block["ls1"] = {"gamma": _t(take(b + "ls1.gamma"))}
-            block["ls2"] = {"gamma": _t(take(b + "ls2.gamma"))}
+            g1, g2 = _t(take(b + "ls1.gamma")), _t(take(b + "ls2.gamma"))
+            if fold_layerscale:  # gamma scales the output of proj / fc2
+                for layer, g in ((block["attn"]["proj"], g1),
+                                 (block["mlp"]["fc2"], g2)):
+                    layer["kernel"] = layer["kernel"] * g[None, :]
+                    layer["bias"] = layer["bias"] * g
+            else:
+                block["ls1"] = {"gamma": g1}
+                block["ls2"] = {"gamma": g2}
         params[f"blocks_{i}"] = block
     return params
 
@@ -361,25 +375,56 @@ def convert_croco(sd: Mapping[str, Any],
         n_blocks += 1
     for i in range(n_blocks):
         b = f"enc_blocks.{i}."
-        params[f"blocks_{i}"] = {
-            "norm1": layer_norm(take(b + "norm1.weight"),
-                                take(b + "norm1.bias")),
-            "attn": {
-                "qkv": linear(take(b + "attn.qkv.weight"),
-                              take(b + "attn.qkv.bias")),
-                "proj": linear(take(b + "attn.proj.weight"),
-                               take(b + "attn.proj.bias")),
-            },
-            "norm2": layer_norm(take(b + "norm2.weight"),
-                                take(b + "norm2.bias")),
-            "mlp": {
-                "fc1": linear(take(b + "mlp.fc1.weight"),
-                              take(b + "mlp.fc1.bias")),
-                "fc2": linear(take(b + "mlp.fc2.weight"),
-                              take(b + "mlp.fc2.bias")),
-            },
-        }
+        params[f"blocks_{i}"] = _vit_block(take, b)
     return params, used
+
+
+def convert_radio(sd: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """A torch-hub RADIO (AM-RADIO RADIOModel) state dict (keys under
+    `prefix`) -> the JAX RadioViT tree (JAX utils/weights.py::
+    convert_radio):
+
+      input_conditioner.norm_mean / norm_std        (1, 3, 1, 1)
+      model.patch_generator.embedder.{weight,bias}  Linear (dim, p*p*3)
+      model.patch_generator.pos_embed               (1, N, dim)
+      model.patch_generator.cls_token.token         (k, dim): token 0 the
+          class token, tokens 1..k-1 the register tokens
+      model.blocks.{i}.{norm1,attn.qkv,attn.proj,norm2,mlp.fc1,mlp.fc2}
+      model.norm.{weight,bias}
+
+    The embedder flattens each patch in (p1, p2, c) order, the HWIO order
+    of a conv kernel, so its weight reshapes to the patch conv's."""
+
+    def take(k):
+        return sd[prefix + k]
+
+    pos = _t(take("model.patch_generator.pos_embed"))
+    ew = _t(take("model.patch_generator.embedder.weight"))  # (dim, p*p*3)
+    dim = ew.shape[0]
+    p = int(round((ew.shape[1] // 3) ** 0.5))
+    patch_embed: Dict[str, np.ndarray] = {
+        "kernel": ew.T.reshape(p, p, 3, dim)}
+    if prefix + "model.patch_generator.embedder.bias" in sd:
+        patch_embed["bias"] = _t(take("model.patch_generator.embedder.bias"))
+    tok = _t(take("model.patch_generator.cls_token.token")).reshape(1, -1, dim)
+    params: Dict[str, Any] = {
+        "norm_mean": _t(take("input_conditioner.norm_mean")).reshape(3),
+        "norm_std": _t(take("input_conditioner.norm_std")).reshape(3),
+        "pos_embed": pos.reshape(-1, pos.shape[-1]),
+        "norm": layer_norm(take("model.norm.weight"), take("model.norm.bias")),
+        "patch_embed": patch_embed,
+        "cls_token": tok[:, :1],
+    }
+    if tok.shape[1] > 1:
+        params["register_tokens"] = tok[:, 1:]
+
+    n_blocks = 0
+    while f"{prefix}model.blocks.{n_blocks}.norm1.weight" in sd:
+        n_blocks += 1
+    for i in range(n_blocks):
+        b = f"model.blocks.{i}."
+        params[f"blocks_{i}"] = _vit_block(take, b)
+    return params
 
 
 class _SubDict:
@@ -631,8 +676,8 @@ def _reference_keys(sd: Mapping[str, Any]) -> Mapping[str, Any]:
 
 
 def convert_mapanything_checkpoint(
-        sd: Mapping[str, Any],
-        trunk_indices: Tuple[int, ...] = (11, 17)) -> Dict[str, Any]:
+        sd: Mapping[str, Any], trunk_indices: Tuple[int, ...] = (11, 17),
+        fold_layerscale: bool = False) -> Dict[str, Any]:
     """The reference's full state dict -> the JAX MapAnything param tree
     (the inner tree, numpy leaves), with two bookkeeping entries that
     callers pop:
@@ -642,6 +687,10 @@ def convert_mapanything_checkpoint(
           re-registrations of the DPT heads, and DINOv2's mask_token, which
           inference never reads).
 
+    The encoder is found by its family's signature keys, RADIO
+    (input_conditioner), CroCo (enc_blocks) and else DINOv2, under any
+    prefix. `fold_layerscale` folds a DINOv2 encoder's LayerScale into its
+    layers (convert_dinov2), for a MapAnythingConfig(fold_layerscale=True).
     A checkpoint that holds the DPT heads only under dense_head.{0,1} is
     read as if they were under their own names (`_reference_keys`).
     """
@@ -666,22 +715,23 @@ def convert_mapanything_checkpoint(
                 return m.group(1)
         return None
 
-    # the encoder, by its family's signature keys
-    for family, pattern in (
-            ("RADIO", r"^(encoder\..*?|)input_conditioner\.norm_mean$"),
-            ("CroCo", r"^(encoder\..*?|)enc_blocks\.0\.norm1\.weight$")):
-        if find_prefix(pattern) is not None:
-            raise NotImplementedError(
-                f"a checkpoint with a {family} encoder: {ENCODER_ITEM}")
-    enc_prefix = find_prefix(r"^(encoder\..*?|)patch_embed\.proj\.weight$")
-    if enc_prefix is not None:
-        out["encoder"] = convert_dinov2(sd, enc_prefix)
-        for k in sd:
-            if k.startswith(enc_prefix):
-                if k.endswith("mask_token"):
-                    aliases.append(k)  # frozen, unused at inference
-                else:
-                    consumed.add(k)
+    # the encoder, by its family's signature keys (disjoint; first wins)
+    for pattern, convert in (
+            (r"^(encoder\..*?|)input_conditioner\.norm_mean$", convert_radio),
+            (r"^(encoder\..*?|)enc_blocks\.0\.norm1\.weight$",
+             lambda sd, prefix: convert_croco(sd, prefix)[0]),
+            (r"^(encoder\..*?|)patch_embed\.proj\.weight$",
+             lambda sd, prefix: convert_dinov2(sd, prefix, fold_layerscale))):
+        enc_prefix = find_prefix(pattern)
+        if enc_prefix is not None:
+            out["encoder"] = convert(sd, enc_prefix)
+            for k in sd:
+                if k.startswith(enc_prefix):
+                    if k.endswith("mask_token"):
+                        aliases.append(k)  # frozen, unused at inference
+                    else:
+                        consumed.add(k)
+            break
 
     for name in _DENSE_REP_ENCODERS:
         res = run(f"{name}.", convert_dense_rep_encoder)

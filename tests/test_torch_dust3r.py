@@ -108,10 +108,19 @@ def test_cross_attention_matches_jax(n, m):
 
 
 def test_cross_attention_refuses_key_mask():
-    pmod = PC.CrossAttention(64, 4, device="cpu")
-    x = torch.zeros(1, 4, 64)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pmod(x, x, key_mask=torch.ones(1, 4, dtype=torch.bool))
+    """A key mask on CPU tensors runs the math path and gives JAX's masked
+    cross-attention; on the card it is refused unless "math" is asked for
+    (tests/test_torch_variants_cuda.py)."""
+    x, ctx = randn(2, 12, 64, seed=7), randn(2, 14, 64, seed=8)
+    mask = np.arange(14) % 3 != 1
+    jmod = JC.CrossAttention(64, 4)
+    params = perturbed(jax_init(jmod, x, ctx), 9)
+    ref = jax_apply(jmod, params, x, ctx, jnp.asarray(mask))
+    pmod = port(PC.CrossAttention(64, 4, device="cpu"), params)
+    with torch.no_grad():
+        got = pmod(torch.from_numpy(x), torch.from_numpy(ctx),
+                   key_mask=torch.from_numpy(mask))
+    assert rel_max(got, ref) <= BLOCK_TOL
 
 
 def test_decoder_block_matches_jax():

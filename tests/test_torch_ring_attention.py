@@ -10,9 +10,10 @@ each rank writes its results and this process gathers them and holds them
 against JAX on a CPU mesh of the same ring size: the forward against
 `ring_sdpa`, the lse-free ring's gradients against
 `ring_flash_attention_trainable`'s, the with-lse ring's gradients for both
-outputs against `ring_flash_attention_with_lse`'s, and RingGlobalBlock with
-the scale token against the JAX Block's gradient on [x; tok]. JAX is imported inside the
-tests and fixtures only, so the spawned ranks load torch alone.
+outputs against `ring_flash_attention_with_lse`'s, RingGlobalBlock with the
+scale token against the JAX Block's gradient on [x; tok], and with entropy
+scaling against the JAX Block's forward on [x; tok]. JAX is imported inside
+the tests and fixtures only, so the spawned ranks load torch alone.
 
 Everything is fp32; the JAX side runs under
 jax.default_matmul_precision("highest"). Tolerances: 2e-5 abs / 2e-4 rel for
@@ -147,13 +148,36 @@ def test_pair_bwd_fp32_matches_jax_pallas():
 
 
 def test_entropy_scaling_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        PL.RingGlobalBlock(PL.Block(64, 2), entropy_scaling_base=4)
+    """Entropy scaling on the ring at p = 1 (the name is the test's from
+    before the scaling was ported): the ring block with base 16
+    over 48 patches and the token equals the plain Block with the same
+    base on [patches; token] (the scaling counts every rank's patches and
+    the token; tests/test_torch_variants.py holds Block against JAX)."""
+    from mapanything_tpu_torch.parallel import init_distributed
+
+    torch.manual_seed(0)
+    blk = PL.init_weights_(PL.Block(64, 2), torch.Generator().manual_seed(1))
+    x, tok = torch.randn(1, 48, 64), torch.randn(1, 1, 64)
+    group = init_distributed(device="cpu")
+    try:
+        with torch.no_grad():
+            got_x, got_t = PL.RingGlobalBlock(blk, entropy_scaling_base=16)(
+                x, tok, group)
+            ref = blk(torch.cat([x, tok], dim=1), entropy_scaling_base=16)
+            plain = blk(torch.cat([x, tok], dim=1))
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.testing.assert_close(torch.cat([got_x, got_t], dim=1), ref,
+                               **FWD_TOL)
+    assert (ref - plain).abs().max() > 1e-5  # the scaling took effect
 
 
 # --- the ring over gloo ----------------------------------------------------
 
 N, DIM, HEADS = 256, 64, 2  # tokens of the ring tests; the block's width
+# below N + 1, so that the scaling takes effect; counting one rank's
+# patches instead of every rank's would give another factor
+ENTROPY_BASE = 16
 
 
 def _ring_rank(group, folder):
@@ -188,6 +212,9 @@ def _ring_rank(group, folder):
     with torch.no_grad():  # no extra token: the lse-free ring
         res["out_no_token"] = PL.RingGlobalBlock(blk)(
             x, tok[:, :0], group)[0].numpy()
+        res["entropy_x"], res["entropy_tok"] = (
+            out.numpy() for out in PL.RingGlobalBlock(
+                blk, entropy_scaling_base=ENTROPY_BASE)(x, tok, group))
     out_x, out_t = PL.RingGlobalBlock(blk)(x, tok, group)
     # the token output is replicated: count it once over the ranks
     ((out_x**2).sum() + (out_t**2).sum() / p).backward()
@@ -367,6 +394,30 @@ def test_ring_block_with_token_matches_jax_block(ring_run):
                                    **GRAD_TOL)
     np.testing.assert_allclose(_cat(run, "dx"), np.asarray(gx), **GRAD_TOL)
     np.testing.assert_allclose(got["dtok"], np.asarray(gt), **GRAD_TOL)
+
+
+def test_ring_entropy_scaling_matches_jax_block(ring_run):
+    """RingGlobalBlock with entropy scaling (base 16 over 256 patches and
+    the token, sharded over 2 and 4 ranks) against the JAX Block with the
+    same base on the concatenated [x; tok]: the patches' and the token's
+    outputs, the token's on every rank."""
+    import jax.numpy as jnp
+
+    from mapanything_tpu.nn.layers import Block as JaxBlock
+
+    run = ring_run
+    seq = jnp.concatenate([run["x"], run["tok"]], axis=1)
+    with _highest():
+        ref = np.asarray(JaxBlock(
+            DIM, HEADS, attn_impl="xla",
+            entropy_scaling_base=ENTROPY_BASE).apply(run["params"], seq))
+        plain = np.asarray(JaxBlock(DIM, HEADS, attn_impl="xla").apply(
+            run["params"], seq))
+    assert np.abs(ref - plain).max() > 1e-3  # the scaling took effect
+    np.testing.assert_allclose(_cat(run, "entropy_x"), ref[:, :N],
+                               **FWD_TOL)
+    for r in run["ranks"]:
+        np.testing.assert_allclose(r["entropy_tok"], ref[:, N:], **FWD_TOL)
 
 
 def test_ring_block_without_token_matches_block(ring_run):

@@ -4,7 +4,10 @@
 (mapanything_tpu_torch/utils/weights.py::convert_mapanything_checkpoint
 followed by from_jax_params): the port's state dict renamed to the keys of
 the reference model (the names the rules read), in the same torch layouts,
-so each value is a view of the port's tensor. `write_snapshot` writes such
+so each value is a view of the port's tensor (RADIO's embedder and tokens
+are reshaped copies). The encoder is written in its family's layout:
+DINOv2 (torch hub, under encoder.model.), CroCo (patch_embed.proj,
+enc_blocks, enc_norm) or RADIO (the hub RADIOModel's). `write_snapshot` writes such
 a state dict as an HF snapshot directory. The parity tests and chip_smoke.py
 phase 11a build their checkpoints with these two; neither imports JAX.
 """
@@ -63,8 +66,20 @@ def reference_state_dict(state: Dict[str, torch.Tensor],
     """
     taps = {int(i): k for k, i in enumerate(trunk_indices)}
     out: Dict[str, torch.Tensor] = {}
+    if "encoder.norm_mean" in state:
+        out.update(_radio_encoder(state))
     for key, val in state.items():
-        if key.startswith("encoder."):
+        if key.startswith("encoder.") and "encoder.norm_mean" in state:
+            continue  # RADIO, above
+        if key.startswith("encoder.") and "encoder.cls_token" not in state:
+            # CroCo: patch_embed.proj, enc_blocks, enc_norm
+            rest = key[len("encoder."):]
+            for ours, ref in (("patch_embed.", "patch_embed.proj."),
+                              ("blocks.", "enc_blocks."),
+                              ("norm.", "enc_norm.")):
+                if rest.startswith(ours):
+                    out["encoder." + ref + rest[len(ours):]] = val
+        elif key.startswith("encoder."):
             rest = key[len("encoder."):]
             if rest.startswith("patch_embed."):
                 rest = "patch_embed.proj." + rest[len("patch_embed."):]
@@ -103,8 +118,39 @@ def reference_state_dict(state: Dict[str, torch.Tensor],
                                                     "dpt_regressor_head."))]:
             head = "0" if key.startswith("dpt_feature_head.") else "1"
             out[f"dense_head.{head}.{key.split('.', 1)[1]}"] = out[key]
-        dim = state["encoder.cls_token"].shape[-1]
-        out["encoder.model.mask_token"] = torch.zeros(1, dim)
+        if "encoder.pos_embed" in state and "encoder.norm_mean" not in state:
+            dim = state["encoder.cls_token"].shape[-1]
+            out["encoder.model.mask_token"] = torch.zeros(1, dim)
+    return out
+
+
+def _radio_encoder(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A port RadioViT's parameters in the torch-hub RADIOModel's layout
+    under encoder.model.: the conditioner's (1, 3, 1, 1) buffers, the
+    embedder Linear over (p1, p2, c)-flattened patches, the (1, N, C)
+    pos-embed, the class and register tokens as one (k, C) token."""
+    pre = "encoder.model."
+    w = state["encoder.patch_embed.weight"]  # (C, 3, p, p)
+    tokens = [state["encoder.cls_token"].reshape(1, -1)]
+    if "encoder.register_tokens" in state:
+        tokens.append(state["encoder.register_tokens"][0])
+    out = {
+        pre + "input_conditioner.norm_mean":
+            state["encoder.norm_mean"].reshape(1, 3, 1, 1),
+        pre + "input_conditioner.norm_std":
+            state["encoder.norm_std"].reshape(1, 3, 1, 1),
+        pre + "model.patch_generator.embedder.weight":
+            w.permute(0, 2, 3, 1).reshape(w.shape[0], -1),
+        pre + "model.patch_generator.embedder.bias":
+            state["encoder.patch_embed.bias"],
+        pre + "model.patch_generator.pos_embed":
+            state["encoder.pos_embed"][None],
+        pre + "model.patch_generator.cls_token.token": torch.cat(tokens),
+    }
+    for key, val in state.items():
+        for ours in ("encoder.blocks.", "encoder.norm."):
+            if key.startswith(ours):
+                out[pre + "model." + key[len("encoder."):]] = val
     return out
 
 
