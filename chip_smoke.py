@@ -366,9 +366,35 @@ Phases, in order (any failure exits non-zero and prints no result line):
      peak GiB. 13g, a one-shard snapshot in the reference's layout of a
      RADIO-L model (tests/torch_reference_layout.py) read back through
      from_pretrained bitwise, with the same config.
+ 14. The offline data-processing path (tests/torch_offline_scenes.py
+     builds its inputs): the forward against its plain version at the
+     self-labelling shapes (8 frames at 518x392). 14a, a raw ScanNet++ v2
+     scene (OPENCV_FISHEYE DSLR frames of 1752x1168 with anonymisation
+     masks, a closed room mesh of 52272 triangles whose depth has a closed
+     form) through convert_dataset.main with --undistort and
+     --render-depth, no --device: the tree read back through the port's
+     reader, every rendered frame within 1e-4 of the closed form where
+     hit (and hit but for 1e-3 of the pixels), a window of frame 0 ray-cast
+     on the CPU within 1e-5 of the card's; each stage's wall, the render's
+     ms per frame and (pixel, triangle) pairs per second. 14b,
+     compute_pairwise_covisibility on the card over 256 closed-form
+     depths at 1752x1168 (224 inside): the diagonal 1, the frame facing
+     away 0, a 32-frame subset within 4 pixels' share of the CPU's, the
+     depth-consistency confidence of 32 noisy frames at 360 differing from
+     the CPU's on at most 1e-2 of the pixels; ms and peak GiB; the
+     rendered scene's covisibility stored for the loader. 14c,
+     run_pseudo_depth_stage with MapAnythingAdapter over phase 3's
+     weights on an 8-frame 518x392 scene, one call: 48 forward launches,
+     no plain, probe or baseline launch, the stored depth, mask and
+     confidence bitwise the adapter's outputs; the forward's wall, device
+     ms and busy share; run_depth_consistency_stage on the labels and on
+     the closed-form depth, each on the card within 1e-2 of the pixels of
+     the CPU's. 14d, one loader batch (2 x 2 views
+     at 518x336) of the converted scene through the `scannetpp` spec:
+     finite, of the expected shapes.
 
 The last two lines are the kernels' JSON summary (each kernel's launches:
-the counts phases 3-13 read, summed) and
+the counts phases 3-14 read, summed) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -4281,6 +4307,466 @@ def variants_path(torch, fa, fp, F, load_images):
     return rows, counts, None
 
 
+# phase 14: the offline data-processing path at the sizes its users run. A
+# raw ScanNet++ v2 DSLR scene (OPENCV_FISHEYE frames of 1752 x 1168, their
+# anonymisation masks, a closed room mesh of 12 x 66^2 = 52272 triangles
+# with a closed-form depth) through convert_dataset's conversion,
+# undistortion and mesh render; covisibility of 256 frames of that size;
+# MapAnything self-labelling an 8-frame 518 x 392 scene and the
+# consistency filter; the converted scene through the loader
+SNPP_SIZE = (1752, 1168)  # ScanNet++ v2's DSLR frames, (w, h)
+OFFLINE_FRAMES = 4  # cut: a scan's hundreds of frames; 4 fit the budget
+OFFLINE_YAW = math.radians(15.0)  # a sweep: neighbours overlap
+ROOM_CELLS = 66
+COVIS_FRAMES, COVIS_SUBSET = 256, 32
+LABEL_FRAMES, LABEL_SIZE = 8, (518, 392)
+CPU_WINDOW = (32, 64)  # rows, columns of 14a's card-vs-CPU render
+OFFLINE_SHAPES = [  # the self-labelling forward: 8 frames at 518 x 392
+    ("encoder_518x392_8frames", (8, 1152, 16, 64), 1037),
+    ("frame_518x392_8frames", (8, 1036, 16, 64), None),
+    ("global_518x392_8frames", (1, 8320, 16, 64), 8289),
+]
+
+
+@contextlib.contextmanager
+def stage_walls(torch, walls: dict, targets):
+    """For the length of the block, each (owner, name, stage) function adds
+    its wall (a synchronise on each side) to walls[stage] and one to
+    walls[stage + "_calls"]."""
+    from unittest import mock
+
+    def timed(stage, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            walls[stage] = walls.get(stage, 0.0) + time.perf_counter() - t0
+            walls[stage + "_calls"] = walls.get(stage + "_calls", 0) + 1
+            return out
+
+        return run
+
+    with contextlib.ExitStack() as stack:
+        for owner, name, stage in targets:
+            stack.enter_context(mock.patch.object(
+                owner, name, timed(stage, getattr(owner, name))))
+        yield walls
+
+
+def room_depth_card(torch, K, poses, hw):
+    """tests/torch_offline_scenes.py::room_depth on the card, float64, for
+    (F, 4, 4) poses and one K: (F, H, W) float32 on the host."""
+    from torch_offline_scenes import ROOM
+
+    h, w = hw
+    dev = "cuda"
+    K = torch.as_tensor(K, dtype=torch.float64, device=dev)
+    half = torch.tensor(ROOM, dtype=torch.float64, device=dev) / 2
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float64, device=dev),
+                            torch.arange(w, dtype=torch.float64, device=dev),
+                            indexing="ij")
+    cam = torch.stack([(xs - K[0, 2]) / K[0, 0], (ys - K[1, 2]) / K[1, 1],
+                       torch.ones_like(xs)], -1)
+    out = []
+    for pose in poses:
+        c2w = torch.as_tensor(pose, dtype=torch.float64, device=dev)
+        dirs = cam @ c2w[:3, :3].T
+        best = torch.full((h, w), math.inf, dtype=torch.float64, device=dev)
+        for axis in range(3):
+            for sign in (-1.0, 1.0):
+                t = (sign * half[axis] - c2w[axis, 3]) / dirs[..., axis]
+                best = torch.where((t > 0) & (t < best), t, best)
+        out.append(best.float().cpu())
+    return torch.stack(out).numpy()
+
+
+def offline_conversion(torch, folder):
+    """14a: convert_dataset.main on a raw ScanNet++ v2 scene with
+    --undistort and --render-depth, no --device (the card). Gates: the
+    tree reads back through the port's reader; every frame's rendered
+    depth within ANALYTIC_RTOL of the room's closed form where hit, and
+    hit on all but HIT_SHARE of the pixels; a CPU_WINDOW window of frame
+    0 rendered on the CPU within RENDER_RTOL of the card's. Returns
+    (readings, the scene root, failure or None)."""
+    tests_on_path()
+    import numpy as np
+    from torch_offline_scenes import (
+        ANALYTIC_RTOL,
+        HIT_SHARE,
+        RENDER_RTOL,
+        room_cameras,
+        room_mesh,
+        write_scannetpp_raw,
+    )
+
+    from mapanything_tpu_torch import convert_dataset as CLI
+    from mapanything_tpu_torch.data import converters as CV
+    from mapanything_tpu_torch.data import rendering as RD
+    from mapanything_tpu_torch.data.wai import load_frame, load_scene_meta
+
+    w, h = SNPP_SIZE
+    raw, out = os.path.join(folder, "raw"), os.path.join(folder, "wai")
+    walls = {}
+    t0 = time.perf_counter()
+    mesh = room_mesh(cells=ROOM_CELLS)
+    poses = room_cameras(OFFLINE_FRAMES, step=OFFLINE_YAW)
+    write_scannetpp_raw(raw, "scene0", poses, w, h, mesh=mesh)
+    walls["raw_write_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with stage_walls(torch, walls, [
+            (CV, "convert_scannetppv2_scene", "convert_s"),
+            (CV, "undistort_scene", "undistort_s"),
+            (CV, "render_scene_depth_stage", "render_stage_s"),
+            (RD, "render_mesh_depth", "render_frame_s")]):
+        roots = CLI.main(["scannetppv2", raw, out, "--undistort",
+                          "--render-depth"])
+    walls["cli_s"] = time.perf_counter() - t0
+    walls["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    root = str(roots[0])
+    n_tri = len(mesh[1])
+    res = {"frames": OFFLINE_FRAMES, "size": [w, h], "triangles": n_tri,
+           **walls}
+    res["render_ms_per_frame"] = (1e3 * walls["render_frame_s"]
+                                  / walls["render_frame_s_calls"])
+    res["render_pairs_per_s"] = (w * h * n_tri * walls["render_frame_s_calls"]
+                                 / walls["render_frame_s"])
+
+    meta = load_scene_meta(os.path.join(root, "scene_meta.json"))
+    errs, misses = [], []
+    frames = []
+    for i in range(len(meta["frames"])):
+        fr = load_frame(root, i, ["image", "anon_mask", "rendered_depth"],
+                        scene_meta=meta)
+        frames.append(fr)
+        exact = room_depth_card(torch, fr["intrinsics"],
+                                fr["extrinsics"][None], (h, w))[0]
+        d = fr["rendered_depth"]
+        hit = d > 0
+        misses.append(float(1 - hit.mean()))
+        errs.append(float((np.abs(d[hit] - exact[hit]) / exact[hit]).max()))
+    res.update(camera_model=meta["camera_model"],
+               image_shape=list(frames[0]["image"].shape),
+               analytic_max_rel=max(errs), miss_share=max(misses))
+
+    y0, x0 = h // 2 - CPU_WINDOW[0] // 2, w // 2 - CPU_WINDOW[1] // 2
+    K = frames[0]["intrinsics"].astype(np.float64)
+    K[0, 2] -= x0
+    K[1, 2] -= y0
+    verts, faces = CV.read_ply(os.path.join(root, "mesh_aligned.ply"))
+    t0 = time.perf_counter()
+    cpu = RD.render_mesh_depth(verts, faces, K, frames[0]["extrinsics"],
+                               CPU_WINDOW, device="cpu")
+    res["cpu_window_s"] = time.perf_counter() - t0
+    card = frames[0]["rendered_depth"][y0:y0 + CPU_WINDOW[0],
+                                       x0:x0 + CPU_WINDOW[1]]
+    both = (card > 0) & (cpu > 0)
+    res["card_vs_cpu_max_rel"] = float(
+        (np.abs(card[both] - cpu[both]) / cpu[both]).max())
+    res["card_vs_cpu_hit_differ"] = float(((card > 0) != (cpu > 0)).mean())
+    print(f"phase 14a, conversion: {json.dumps(res)}", flush=True)
+    if not (len(meta["frames"]) == OFFLINE_FRAMES
+            and res["camera_model"] == "PINHOLE"
+            and res["image_shape"] == [h, w, 3]
+            and res["analytic_max_rel"] <= ANALYTIC_RTOL
+            and res["miss_share"] <= HIT_SHARE
+            and res["card_vs_cpu_max_rel"] <= RENDER_RTOL
+            and res["card_vs_cpu_hit_differ"] <= HIT_SHARE):
+        return res, root, f"14a: {res}"
+    return res, root, None
+
+
+def offline_covisibility(torch, root):
+    """14b: compute_pairwise_covisibility on the card over COVIS_FRAMES
+    closed-form depths at SNPP_SIZE (downsampled to 224 inside). Gates: the
+    diagonal 1, the frame facing away 0, a COVIS_SUBSET-frame subset within
+    COVIS_PIXELS / (h w) of the CPU's; the depth-consistency confidence of
+    those frames (depth scaled by seeded noise of +-5%) within CONF_SHARE
+    of the CPU's. Then the rendered scene's covisibility goes where the
+    loader reads it. Returns (readings, failure or None)."""
+    import numpy as np
+    from torch_offline_scenes import CONF_SHARE, COVIS_PIXELS, room_cameras
+
+    from mapanything_tpu_torch.data import covisibility as CO
+    from mapanything_tpu_torch.data.wai import (
+        load_frame,
+        load_scene_meta,
+        store_data,
+    )
+
+    w, h = SNPP_SIZE
+    meta = load_scene_meta(os.path.join(root, "scene_meta.json"))
+    K = load_frame(root, 0, [], scene_meta=meta)["intrinsics"]
+    poses = room_cameras(COVIS_FRAMES).astype(np.float32)
+    Ks = np.tile(K.astype(np.float32), (COVIS_FRAMES, 1, 1))
+    t0 = time.perf_counter()
+    depths = room_depth_card(torch, K, poses, (h, w))
+    res = {"frames": COVIS_FRAMES, "size": [w, h],
+           "depth_write_s": time.perf_counter() - t0}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    covis = CO.compute_pairwise_covisibility(depths, Ks, poses)
+    res["covis_ms"] = 1e3 * (time.perf_counter() - t0)
+    res["covis_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["resident_before_gib"] = before / 2**30
+    dh, dw = CO._downsample(depths[:1], Ks[:1], 224)[0].shape[1:]
+    half = COVIS_FRAMES // 2
+    res["diag_max_err"] = float(np.abs(np.diag(covis) - 1).max())
+    res["facing_away_max"] = float(max(
+        covis[k, (k + half) % COVIS_FRAMES] for k in range(COVIS_FRAMES)))
+    res["mean_covis"] = float(covis.mean())
+    sub = np.arange(0, COVIS_FRAMES, COVIS_FRAMES // COVIS_SUBSET)
+    t0 = time.perf_counter()
+    cpu = CO.compute_pairwise_covisibility(depths[sub], Ks[sub], poses[sub],
+                                           device="cpu")
+    res["covis_cpu_subset_s"] = time.perf_counter() - t0
+    res["subset_max_abs"] = float(np.abs(covis[np.ix_(sub, sub)]
+                                         - cpu).max())
+    res["subset_limit"] = COVIS_PIXELS / (dh * dw)
+
+    noisy = depths[sub] * np.random.default_rng(14).uniform(
+        0.95, 1.05, size=depths[sub].shape).astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    conf = CO.compute_depth_consistency_confidence(noisy, Ks[sub],
+                                                   poses[sub])
+    res["conf_ms"] = 1e3 * (time.perf_counter() - t0)
+    res["conf_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    conf_cpu = CO.compute_depth_consistency_confidence(
+        noisy, Ks[sub], poses[sub], device="cpu")
+    res["conf_cpu_s"] = time.perf_counter() - t0
+    res["conf_shape"] = list(conf.shape)
+    res["conf_differ_share"] = float((np.abs(conf - conf_cpu) > 1e-6).mean())
+    res["conf_mean"] = float(conf.mean())
+    del depths, noisy
+
+    # the rendered scene's own covisibility, where data/wai.py reads it
+    recs = [load_frame(root, i, ["rendered_depth"], scene_meta=meta)
+            for i in range(len(meta["frames"]))]
+    scene_covis = CO.compute_pairwise_covisibility(
+        np.stack([r["rendered_depth"] for r in recs]),
+        np.stack([r["intrinsics"] for r in recs]),
+        np.stack([r["extrinsics"] for r in recs]))
+    store_data(os.path.join(root, "covisibility", "v0", "covis.npy"),
+               scene_covis, "mmap")
+    res["scene_covis"] = scene_covis.round(4).tolist()
+    print(f"phase 14b, covisibility: {json.dumps(res)}", flush=True)
+    if not (res["diag_max_err"] <= 1e-6 and res["facing_away_max"] == 0.0
+            and res["subset_max_abs"] <= res["subset_limit"]
+            and res["conf_differ_share"] <= CONF_SHARE
+            and 0.0 < res["conf_mean"] < 1.0):
+        return res, f"14b: {res}"
+    return res, None
+
+
+class RecordingAdapter(types.SimpleNamespace):
+    """Forwards to an adapter and keeps what each call returned."""
+
+    def __call__(self, views, **kw):
+        out = self.adapter(views, **kw)
+        self.calls.append(out)
+        return out
+
+    def parameters(self):
+        return self.adapter.parameters()
+
+
+def offline_labelling(torch, fa, fp, folder):
+    """14c: run_pseudo_depth_stage with MapAnythingAdapter over phase 3's
+    weights on an 8-frame 518 x 392 WAI scene of the room, one call, then
+    run_depth_consistency_stage on the card and on the CPU, over the labels
+    and over the scene's closed-form depth. Gates: the stored depth, mask
+    and confidence are the adapter's own outputs (bitwise: EXR holds fp32);
+    FORWARD_LAUNCHES forward launches, 0 plain, probe and baseline; each
+    card confidence within CONF_SHARE of the CPU's, the closed form's
+    mostly consistent. Returns (readings, the stage's launches, failure or
+    None)."""
+    import shutil
+
+    import numpy as np
+    from torch_offline_scenes import CONF_SHARE, room_cameras, room_depth
+
+    from mapanything_tpu_torch.data import pseudo_depth as PD
+    from mapanything_tpu_torch.data.wai import (
+        load_frame,
+        load_scene_meta,
+        write_scene,
+    )
+    from mapanything_tpu_torch.models.adapters import MapAnythingAdapter
+
+    w, h = LABEL_SIZE
+    K = np.array([[400.0, 0, w / 2], [0, 400.0, h / 2], [0, 0, 1]])
+    poses = room_cameras(LABEL_FRAMES, step=OFFLINE_YAW)
+    rng = np.random.default_rng(14)
+    frames = [{"frame_name": f"frame{i}",
+               "image": rng.integers(0, 255, (h, w, 3), np.uint8),
+               "depth": room_depth(K, poses[i], (h, w)).astype(np.float32),
+               "transform_matrix": poses[i]} for i in range(LABEL_FRAMES)]
+    scene = write_scene(os.path.join(folder, "label", "card", "s"), frames,
+                        dict(fx=400.0, fy=400.0, cx=w / 2, cy=h / 2, w=w,
+                             h=h))
+    t0 = time.perf_counter()
+    model = random_weights_model()
+    res = {"model_s": time.perf_counter() - t0}
+    adapter = RecordingAdapter(adapter=MapAnythingAdapter(model), calls=[])
+    fa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    PD.run_pseudo_depth_stage(scene, adapter, model_name="mapanything",
+                              batch_frames=LABEL_FRAMES)
+    torch.cuda.synchronize()
+    res["label_stage_s"] = time.perf_counter() - t0
+    launched = launches_of(fa)
+    bad = expect_launches(fa, {"fwd": FORWARD_LAUNCHES}, "14c")
+    res.update(launches=launched, calls=len(adapter.calls))
+    if bad or len(adapter.calls) != 1:
+        return res, launched, bad or f"14c: {res}"
+
+    preds = adapter.calls[0]
+    z = preds["pts3d_cam"][0, ..., 2].float().cpu().numpy()
+    z = np.where(np.isfinite(z) & (z > 0), z, 0.0)
+    mask = preds["non_ambiguous_mask"][0].cpu().numpy()
+    conf = preds["conf"][0].float().cpu().numpy()
+    meta = load_scene_meta(os.path.join(scene, "scene_meta.json"))
+    keys = ["pred_depth/mapanything", "pred_mask/mapanything",
+            "depth_confidence/mapanything"]
+    same = []
+    for i in range(LABEL_FRAMES):
+        got = load_frame(scene, i, keys, scene_meta=meta)
+        same.append(np.array_equal(got[keys[0]], z[i])
+                    and np.array_equal(got[keys[1]], mask[i])
+                    and np.array_equal(got[keys[2]], conf[i]))
+    res["stored_equal_outputs"] = all(same)
+    res["valid_depth_share"] = float((z > 0).mean())
+
+    img = torch.from_numpy(PD._normalize_images(
+        np.stack([f["image"] for f in frames])[None].astype(np.float32)
+        / 255.0, "dinov2")).cuda()
+
+    def forward():
+        with torch.inference_mode():
+            adapter.adapter({"img": img})
+
+    forward()
+    walls_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        walls_ms.append(1e3 * (time.perf_counter() - t0))
+    prof = profile_calls(torch, forward, statistics.median(walls_ms), 2,
+                         match={"flash": "flash_fwd"})
+    res["forward"] = {key: prof[key] for key in (
+        "wall_ms", "device_ms", "busy_share", "device_ops", "matched_ms",
+        "not_measured") if key in prof}
+    res["forward_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del model, adapter, preds
+    torch.cuda.empty_cache()
+
+    cpu_scene = shutil.copytree(scene, os.path.join(folder, "label", "cpu",
+                                                    "s"))
+    # the filter on the labels (the pipeline) and on the scene's
+    # closed-form depth (whose frames agree where they overlap)
+    for modality, name in ((keys[0], "mapanything"), ("depth", "gt")):
+        t0 = time.perf_counter()
+        PD.run_depth_consistency_stage(scene, modality, model_name=name)
+        res[f"consistency_{name}_card_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        PD.run_depth_consistency_stage(cpu_scene, modality, model_name=name,
+                                       device="cpu")
+        res[f"consistency_{name}_cpu_s"] = time.perf_counter() - t0
+        differ, mean = [], []
+        key = f"depth_confidence/{name}"
+        for i in range(LABEL_FRAMES):
+            a = load_frame(scene, i, [key])[key]
+            b = load_frame(cpu_scene, i, [key])[key]
+            differ.append(float((np.abs(a - b) > 1e-6).mean()))
+            mean.append(float(a.mean()))
+        res[f"conf_{name}_differ_share"] = max(differ)
+        res[f"conf_{name}_mean"] = statistics.mean(mean)
+    print(f"phase 14c, pseudo-depth: {json.dumps(res)}", flush=True)
+    if not (res["stored_equal_outputs"]
+            and res["conf_mapanything_differ_share"] <= CONF_SHARE
+            and res["conf_gt_differ_share"] <= CONF_SHARE
+            and res["conf_gt_mean"] > 0.5):
+        return res, launched, f"14c: {res}"
+    return res, launched, None
+
+
+def offline_loading(root):
+    """14d: the converted ScanNet++ scene, with its rendered depth and
+    covisibility, through the loader of the port's `scannetpp` spec: one
+    batch of 2 x 2 views at 518 x 336, finite, of the expected shapes.
+    Returns (readings, failure or None)."""
+    import numpy as np
+
+    from mapanything_tpu_torch.data.loader import get_test_data_loader
+    from mapanything_tpu_torch.data.wai_datasets import WAIDataset
+
+    t0 = time.perf_counter()
+    ds = WAIDataset(ROOT=os.path.dirname(root), spec="scannetpp",
+                    num_views=2, covisibility_thres=0.1,
+                    resolution=(518, 336), data_norm_type="dinov2", seed=0)
+    batch = first_batch(get_test_data_loader(4 @ ds, batch_size=2,
+                                             num_workers=2))
+    res = {"load_s": time.perf_counter() - t0,
+           "shapes": {f"{g}/{k}": list(v.shape)
+                      for g in ("views", "gt") for k, v in batch[g].items()}}
+    floats = [v for g in ("views", "gt") for v in batch[g].values()
+              if v.dtype.kind == "f"]
+    res["finite"] = all(bool(np.isfinite(v).all()) for v in floats)
+    res["depth_max"] = float(batch["gt"]["depth_along_ray"].max())
+    print(f"phase 14d, loader: {json.dumps(res)}", flush=True)
+    if not (res["finite"] and res["shapes"]["views/img"] == [2, 2, 336, 518, 3]
+            and res["depth_max"] > 0):
+        return res, f"14d: {res}"
+    return res, None
+
+
+def offline_path(torch, fa, fp, F):
+    """Phase 14. Returns (kernel rows, the kernel counts of its runs,
+    failure or None)."""
+    rows = kernel_vs_plain(torch, fa, fp, F, OFFLINE_SHAPES, seed=1400,
+                           baseline=False)
+    for name, row in rows:
+        row["at"] = name
+        if not max(row["max_abs_err"], row["rel_l2"]) <= ERR_LIMIT:
+            return rows, [], f"kernel disagrees with plain at {name}: {row}"
+    walls = {}
+    counts = []
+    with tempfile.TemporaryDirectory() as folder:
+        t0 = time.perf_counter()
+        _, root, bad = offline_conversion(torch, folder)
+        walls["14a_s"] = time.perf_counter() - t0
+        if bad:
+            return rows, counts, bad
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _, bad = offline_covisibility(torch, root)
+        walls["14b_s"] = time.perf_counter() - t0
+        if bad:
+            return rows, counts, bad
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        _, launched, bad = offline_labelling(torch, fa, fp, folder)
+        walls["14c_s"] = time.perf_counter() - t0
+        counts.append(launched)
+        if bad:
+            return rows, counts, bad
+        t0 = time.perf_counter()
+        _, bad = offline_loading(root)
+        walls["14d_s"] = time.perf_counter() - t0
+        if bad:
+            return rows, counts, bad
+    print(f"phase 14 walls: {json.dumps(walls)}", flush=True)
+    return rows, counts, untouched_baseline(fp)
+
+
 def timing(row):
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms", "mma_ms",
@@ -4290,7 +4776,7 @@ def timing(row):
 def kernels_summary(fp, attn, train_rows, ring_rows, merge, probe_rows,
                     phase_counts) -> list:
     """The kernels' JSON rows: each kernel at its main-path shape with its
-    launches in phases 3-13 (phase_counts: the kernel counts each of those
+    launches in phases 3-14 (phase_counts: the kernel counts each of those
     runs read, reset just before it), the baselines and the probes."""
     launches = {kname: sum(counts[key] for counts in phase_counts)
                 for kname, key in COUNTER.items()}
@@ -4523,7 +5009,7 @@ def main() -> int:
             return fail(f"probe {case} disagrees with its plain version: "
                         f"{row}")
 
-    # phases 3-13 run the main path: no probe and no baseline launch
+    # phases 3-14 run the main path: no probe and no baseline launch
     fp.reset_probe_counts()
 
     # phase 3: serving at full width
@@ -4707,13 +5193,23 @@ def main() -> int:
           f"{time.perf_counter() - t13:.1f} s", flush=True)
     attn = attn + variant_rows
 
+    # phase 14: the offline data-processing path
+    t14 = time.perf_counter()
+    torch.cuda.empty_cache()
+    offline_rows, phase14_counts, bad = offline_path(torch, fa, fp, F)
+    if bad:
+        return fail(f"phase 14: {bad}")
+    print(f"phase 14 (the offline data-processing path) took "
+          f"{time.perf_counter() - t14:.1f} s", flush=True)
+    attn = attn + offline_rows
+
     phase_counts = [serving,
                     {key: train[f"{key}_launches"] for key in fa.KERNELS},
                     ring_res["kernel_counts"], block_res["kernel_counts"],
                     vs_train["launches"]] + (phase7_counts + phase8_counts
                                              + phase9_counts + phase10_counts
                                              + phase11_counts + phase12_counts
-                                             + phase13_counts)
+                                             + phase13_counts + phase14_counts)
     kernels = kernels_summary(fp, attn, train_rows, ring_rows, merge,
                               probe_rows, phase_counts)
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s",
