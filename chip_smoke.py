@@ -270,6 +270,9 @@ Phases, in order (any failure exits non-zero and prints no result line):
      steps alone (median wall), device ms and busy share over 2 traced
      steps, peak GiB, the loader's host ms per batch and the training
      thread's wait for each batch, each checkpoint's save seconds.
+     10d, profile_dataloading.main over the same tree and mix, 4 loader
+     threads, one epoch, each batch copied to the card: exactly 4 batches
+     and 32 images; images/s and the block timers.
 
  11. The demo path at full width, from a checkpoint in the reference's
      layout: the lse-free forward against its plain version at the demos'
@@ -292,7 +295,20 @@ Phases, in order (any failure exits non-zero and prints no result line):
      <= 1 px), and bundle adjustment of 8 frames x 1024 points (0.1 px
      noise, perturbed poses) on the card: rms_after < 0.25 px and <
      rms_before / 8, the refined poses, intrinsics and points within 1e-3
-     of the CPU's. 0 plain, probe and baseline launches.
+     of the CPU's. 11e, demo_app.main on the snapshot and the 8 images
+     with --sky_masks and --measure: exactly 48 forward launches (24 B1 at
+     the encoder's (8, 1152) / 1037, 12 B1 at the frame layer's (8, 1036),
+     12 B2 at the global layer's (1, 8320) / 8289); every file (scene.glb,
+     8 depth and 8 normal PNGs, measure.json, 8 sky masks of 0/255); the
+     GLB's scene mesh as many vertices and faces as utils/mesh.py::
+     image_mesh of the app's own predictions, one marker a view; the
+     app's normal maps recomputed on the card within 1e-5 of the CPU's;
+     each stage's wall (load, model, infer, normals, glb, pngs, measure,
+     sky). 11f, convert_torch_checkpoint.main --report on the snapshot,
+     the port's file loaded with from_pretrained onto the card bitwise
+     phase 3's weights with the released config; the report's group
+     count, the convert and load seconds. 0 plain, probe and baseline
+     launches.
  12. The evaluation path at full width (the benchmark CLIs, the adapter
      seam, ModularDUSt3R): 12a, the lse-free forward against its plain
      version (phase 2's limits, max-abs over the plain's max-abs) at the
@@ -1614,6 +1630,36 @@ MASK_SEED = 8  # the generator of phase 8's stochastic steps
 CHECKPOINT_WRITES = 5
 
 
+PROFILER_WORKERS = 4
+
+
+def profiler_run(root, spec):
+    """10d: profile_dataloading.main over phase 10's tree and dataset mix,
+    PROFILER_WORKERS loader threads, one epoch, each batch copied to the
+    card. Returns (readings, failure or None)."""
+    from mapanything_tpu_torch import profile_dataloading
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        got = profile_dataloading.main([
+            "--wai_root", root, "--dataset_spec", spec, "--epochs", "1",
+            "--max_imgs_per_device", str(WAI_IMGS), "--num_workers",
+            str(PROFILER_WORKERS)])
+    print(buf.getvalue(), end="", flush=True)
+    res = {"wall_s": time.perf_counter() - t0, "batches": got["batches"],
+           "images": got["images"], "images_per_s": got["images_per_s"],
+           "seconds": got["seconds"], "timers": got["timers"]}
+    print(f"phase 10d, the data-loading profiler: {json.dumps(res)}",
+          flush=True)
+    want = WAI_SAMPLES * WAI_VIEWS
+    if got["batches"] != [want // WAI_IMGS] or got["images"] != want:
+        return res, (f"10d: the profiler counted {got['batches']} batches "
+                     f"and {got['images']} images, expected "
+                     f"[{want // WAI_IMGS}] and {want}")
+    return res, None
+
+
 def seeded_model(torch, MapAnything, MapAnythingConfig, **flags):
     """Phase 4's model: the released config, its own init from seed 1."""
     return MapAnything(MapAnythingConfig(**flags), generator=torch.Generator(
@@ -2768,7 +2814,7 @@ def cli_training(torch, fa, fp, F):
             print(f"phase 10c: {json.dumps(res)}", flush=True)
             return rows, fwd_rows, counts, bad
 
-        # 10d: checkpoint-last against the final state, bitwise
+        # 10c: checkpoint-last against the final state, bitwise
         t0 = time.perf_counter()
         fresh = T.create_train_state(CLI.build_model(False, None, 1),
                                      T.OptimConfig())
@@ -2812,6 +2858,9 @@ def cli_training(torch, fa, fp, F):
         del state, step, batch
         gc.collect()
         torch.cuda.empty_cache()
+        _, bad = profiler_run(root, spec)
+        if bad:
+            return rows, fwd_rows, counts, bad
     prof = res["profile"]
     waits = res["loader_wait_ms"][1:]  # the first waits for the cold start
     print(f"phase 10c, the CLI at full width: {res['steps']} steps, losses "
@@ -3053,6 +3102,197 @@ def colmap_demo(torch, fa, snap, images, folder):
     return res, counts, None
 
 
+# 11e: the app's forward launches by (q shape, real keys): the encoder's 24
+# blocks and the trunk's 12 frame layers on B1, its 12 global layers on B2
+APP_LAUNCHES = {((8, 1152, 16, 64), 1037): 24, ((8, 1036, 16, 64), 1036): 12,
+                ((1, 8320, 16, 64), 8289): 12}
+APP_MEASURE = "100,100,400,300"  # x1,y1,x2,y2 in the 518x392 frame
+NORMALS_CARD_VS_CPU = 1e-5
+# the pixels held to it: the four unit quad normals sum to at least this
+# (4 on a smooth surface), so fp32 rounding moves the normal < 2e-6
+NORMALS_DEFINED = 0.5
+
+
+def quad_normal_sum(torch, world, masks):
+    """|the sum of the four unit quad normals| at each pixel of (V, H, W, 3)
+    pointmaps, in fp64 on the host: geometry/edges.py::points_to_normals
+    normalises this sum, so its normal is defined where it is away from
+    0."""
+    h, w = world.shape[1:3]
+    pts = torch.nn.functional.pad(world.double().permute(0, 3, 1, 2),
+                                  (1, 1, 1, 1)).permute(0, 2, 3, 1)
+    mp = torch.nn.functional.pad(masks.double(), (1, 1, 1, 1)) > 0.5
+    centre, m_c = pts[:, 1:h + 1, 1:w + 1], mp[:, 1:h + 1, 1:w + 1]
+
+    def side(di, dj):
+        return (pts[:, di:di + h, dj:dj + w] - centre,
+                mp[:, di:di + h, dj:dj + w])
+
+    (up, m_u), (left, m_l) = side(0, 1), side(1, 0)
+    (down, m_d), (right, m_r) = side(2, 1), side(1, 2)
+    total = torch.zeros_like(centre)
+    for a, b, m in ((up, left, m_u & m_l), (left, down, m_l & m_d),
+                    (down, right, m_d & m_r), (right, up, m_r & m_u)):
+        cross = torch.linalg.cross(a, b)
+        unit = cross / (cross.norm(dim=-1, keepdim=True) + 1e-12)
+        total = total + unit * (m & m_c)[..., None]
+    return total.norm(dim=-1)
+
+
+def demo_app_run(torch, fa, snap, images, folder):
+    """11e: demo_app.main on the snapshot with --sky_masks and --measure;
+    the forward's launches by shape, the files read back, the GLB's scene
+    mesh against utils/mesh.py::image_mesh of the app's own predictions,
+    the app's normal maps recomputed on the card and on the CPU. Returns
+    (readings, launches, failure or None)."""
+    import collections
+    import re
+    from unittest import mock
+
+    import numpy as np
+    from PIL import Image
+
+    from mapanything_tpu_torch import demo_app
+    from mapanything_tpu_torch.geometry import points_to_normals
+    from mapanything_tpu_torch.utils import demo_core as dc
+    from mapanything_tpu_torch.utils import mesh as PM
+
+    out = os.path.join(folder, "app")
+    shapes, kept = [], {}
+    fwd, run_model = fa._fwd_cuda, dc.run_model
+
+    def recording_fwd(q, k, v, n_valid, with_lse):
+        shapes.append((tuple(q.shape),
+                       k.shape[1] if n_valid is None else int(n_valid)))
+        return fwd(q, k, v, n_valid, with_lse)
+
+    def keeping_run_model(*args, **kw):
+        kept["out"] = run_model(*args, **kw)
+        return kept["out"]
+
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(fa, "_fwd_cuda", recording_fwd), \
+            mock.patch.object(dc, "run_model", keeping_run_model):
+        text = run_demo(demo_app.main, [
+            "--image_folder", images, "--out_dir", out, "--checkpoint", snap,
+            "--sky_masks", "--measure", APP_MEASURE])
+    res = {"wall_s": time.perf_counter() - t0,
+           "stage_walls_s": {m.group(1): float(m.group(2)) for m in
+                             re.finditer(r"^wall (\w+): (\S+) s$", text,
+                                         re.M)}}
+    counts = launches_of(fa)
+    bad = expect_launches(fa, {"fwd": FORWARD_LAUNCHES}, "11e")
+    per_shape = collections.Counter(shapes)
+    res["launches_by_shape"] = {f"{list(q)}/{n}": c
+                                for (q, n), c in per_shape.items()}
+    if not bad and dict(per_shape) != APP_LAUNCHES:
+        bad = f"11e: forward launches by shape {res['launches_by_shape']}"
+
+    preds, processed = kept["out"]
+    gltf, _ = read_glb(os.path.join(out, "scene.glb"))
+    prim = gltf["meshes"][0]["primitives"][0]
+    res["glb"] = {"vertices": gltf["accessors"][prim["attributes"][
+        "POSITION"]]["count"], "faces": gltf["accessors"][prim["indices"]][
+        "count"] // 3, "meshes": len(gltf["meshes"])}
+    t0 = time.perf_counter()
+    verts = faces = 0
+    for world, mask in zip(preds["world_points"], preds["final_mask"]):
+        f, v = PM.image_mesh(world, mask=mask, tri=True, diagonal_attr=0)
+        verts, faces = verts + len(v), faces + len(f)
+    res["image_mesh"] = {"vertices": verts, "faces": faces,
+                         "seconds": time.perf_counter() - t0}
+
+    world = torch.from_numpy(preds["world_points"])
+    masks = torch.from_numpy(np.stack([processed[i]["mask"]
+                                       for i in sorted(processed)]))
+    card, card_mask = points_to_normals(world.cuda(), masks.cuda())
+    cpu, cpu_mask = points_to_normals(world, masks)
+    app = np.stack([processed[i]["normal"] for i in sorted(processed)])
+    diff = (card.cpu() - cpu).abs().amax(-1)
+    # held to the limit where the normal is well defined: the four unit
+    # quad normals sum (fp64) to at least NORMALS_DEFINED. Where they
+    # cancel, a 1-ulp difference turns the unit normal of a tiny sum in any
+    # direction (torch's fp32 sqrt on the CPU is vectorised and not
+    # correctly rounded: 0.6% of uniform inputs differ by an ulp)
+    defined = quad_normal_sum(torch, world, masks) >= NORMALS_DEFINED
+    res["normals"] = {
+        "card_vs_cpu_defined": float(diff[defined].max()),
+        "defined_share": float(defined[cpu_mask].float().mean()),
+        "card_vs_cpu_max": float(diff.max()),
+        "over_limit_pixels": int((diff > NORMALS_CARD_VS_CPU).sum()),
+        "masks_equal": bool(torch.equal(card_mask.cpu(), cpu_mask)),
+        "app_vs_card": float(np.abs(app - card.cpu().numpy()).max()),
+        "valid_share": float(cpu_mask.float().mean())}
+
+    names = set(os.listdir(out))
+    want = {"scene.glb", "measure.json", "sky"} | {
+        f"{kind}_{i:03d}.png" for kind in ("depth", "normal")
+        for i in range(DEMO_VIEWS)}
+    sky = [np.asarray(Image.open(os.path.join(out, "sky", name)))
+           for name in sorted(os.listdir(os.path.join(out, "sky")))]
+    with open(os.path.join(out, "measure.json")) as f:
+        measured = json.load(f)
+    res.update(files_ok=names == want, sky_masks=len(sky),
+               sky_share=float(np.mean([(m == 0).mean() for m in sky])),
+               measure_valid=measured["valid"],
+               measure_distance=measured.get("distance"))
+    print(f"phase 11e, the demo app: {json.dumps(res)}", flush=True)
+    if bad:
+        return res, counts, bad
+    if not (res["files_ok"] and len(sky) == DEMO_VIEWS and all(
+            m.shape == DEMO_SIZE[::-1] and set(np.unique(m)) <= {0, 255}
+            for m in sky)):
+        return res, counts, f"11e: the app's files {sorted(names)}"
+    if not (res["glb"]["vertices"] == verts and res["glb"]["faces"] == faces
+            and verts > 0 and res["glb"]["meshes"] == 1 + DEMO_VIEWS):
+        return res, counts, (f"11e: the GLB's scene mesh {res['glb']} "
+                             f"against image_mesh's {res['image_mesh']}")
+    normals = res["normals"]
+    if not (normals["card_vs_cpu_defined"] <= NORMALS_CARD_VS_CPU
+            and normals["masks_equal"] and normals["app_vs_card"] == 0.0):
+        return res, counts, f"11e: normals card against CPU {res['normals']}"
+    return res, counts, None
+
+
+def converter_run(torch, snap, folder):
+    """11f: convert_torch_checkpoint.main --report on the snapshot, the
+    port's file loaded with from_pretrained onto the card and held bitwise
+    to phase 3's weights (11a's snapshot model). Returns (readings, failure
+    or None)."""
+    import re
+
+    from mapanything_tpu_torch import convert_torch_checkpoint
+    from mapanything_tpu_torch.models import MapAnythingConfig
+    from mapanything_tpu_torch.models.pretrained import from_pretrained
+
+    out = os.path.join(folder, "converted.pt")
+    t0 = time.perf_counter()
+    text = run_demo(convert_torch_checkpoint.main,
+                    ["--input", snap, "--output", out, "--report"])
+    res = {"convert_s": time.perf_counter() - t0,
+           "report_groups": len(re.findall(r"^  \S+: \d+$", text, re.M)),
+           "file_gib": os.path.getsize(out) / 2**30}
+    t0 = time.perf_counter()
+    model = from_pretrained(out)
+    torch.cuda.synchronize()
+    res["load_s"] = time.perf_counter() - t0
+    got = model.state_dict()
+    res["bitwise_equal"] = list(got) == list(_RANDOM_WEIGHTS) and all(
+        torch.equal(got[key].cpu(), val)
+        for key, val in _RANDOM_WEIGHTS.items())
+    res["config_is_released"] = model.cfg == MapAnythingConfig()
+    res["device"] = next(model.parameters()).device.type
+    del model, got
+    os.remove(out)
+    print(f"phase 11f, the checkpoint converter: {json.dumps(res)}",
+          flush=True)
+    if not (res["bitwise_equal"] and res["config_is_released"]
+            and res["device"] == "cuda" and res["report_groups"] > 0):
+        return res, f"11f: {res}"
+    return res, None
+
+
 def known_geometry(torch):
     """11d: the tracker on 8 rendered views of a textured plane at 518x392
     against the exact correspondences, and bundle adjustment of 8 frames x
@@ -3120,7 +3360,7 @@ def known_geometry(torch):
 
 
 def demo_path(torch, fa, fp, F):
-    """Phase 11 (the forward at the demo's global shape, 11a-11d). Returns
+    """Phase 11 (the forward at the demo's global shape, 11a-11f). Returns
     (kernel rows, the kernel counts of the demos' runs, failure or None)."""
     rows = kernel_vs_plain(torch, fa, fp, F, [DEMO_SHAPE], seed=1100,
                            baseline=False)
@@ -3145,6 +3385,15 @@ def demo_path(torch, fa, fp, F):
         torch.cuda.empty_cache()
         res, launched, bad = colmap_demo(torch, fa, snap, images, folder)
         counts.append(launched)
+        if bad:
+            return rows, counts, bad
+        torch.cuda.empty_cache()
+        res, launched, bad = demo_app_run(torch, fa, snap, images, folder)
+        counts.append(launched)
+        if bad:
+            return rows, counts, bad
+        torch.cuda.empty_cache()
+        res, bad = converter_run(torch, snap, folder)
         if bad:
             return rows, counts, bad
     torch.cuda.empty_cache()

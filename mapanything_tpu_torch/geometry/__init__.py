@@ -6,7 +6,12 @@ from .camera import (
     adjust_pose_for_rotation,
     crop_to_aspect_ratio,
 )
-from .edges import depth_edge, max_pool_2d, points_normal_edges
+from .edges import (
+    depth_edge,
+    max_pool_2d,
+    points_normal_edges,
+    points_to_normals,
+)
 from .norm import (
     apply_log_to_norm,
     normalize_depth_using_non_zero_pixels,
@@ -64,6 +69,7 @@ __all__ = [
     "normalize_multiple_pointclouds",
     "normalize_pose_translations",
     "points_normal_edges",
+    "points_to_normals",
     "pose_quats_trans_to_matrix",
     "quaternion_inverse",
     "quaternion_multiply",

@@ -1,6 +1,6 @@
 """Edge masks of the inference postprocess; counterparts of
 mapanything_tpu/geometry/edges.py (max_pool_2d, depth_edge,
-points_normal_edges)."""
+points_normal_edges, points_to_normals)."""
 
 from __future__ import annotations
 
@@ -44,15 +44,17 @@ def _pad_hw(x: torch.Tensor, mode: str = "constant") -> torch.Tensor:
     return y.reshape(*shape[:-2], shape[-2] + 2, shape[-1] + 2)
 
 
-def points_normal_edges(point: torch.Tensor, tol: float, kernel_size: int = 3,
-                        mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Pointmap (..., H, W, 3) -> normals -> normal-edge mask (..., H, W).
+def _slice_hw(arr: torch.Tensor, di: int, dj: int, h: int,
+              w: int) -> torch.Tensor:
+    """The (h, w) window at offset (di, dj) of the last two axes."""
+    return arr[..., di:di + h, dj:dj + w]
 
-    Normals are the normalised sum of the four quad cross products around
-    each pixel (zero padding); a pixel is an edge when the largest angle
-    between its normal and a valid neighbour's, dilated over the window,
-    exceeds `tol` degrees (tested as a minimum cosine).
-    """
+
+def _normal_planes(point: torch.Tensor, mask: torch.Tensor | None):
+    """The normal map of a pointmap (..., H, W, 3) as three (..., H, W)
+    planes and its mask: the normalised sum of the unit cross products of
+    the four quads around each pixel whose three points are valid (zero
+    padding, 1e-12 in every normalisation), zero where no quad is."""
     h, w = point.shape[-3], point.shape[-2]
     if mask is None:
         mask = torch.ones(point.shape[:-1], dtype=torch.bool,
@@ -61,7 +63,7 @@ def points_normal_edges(point: torch.Tensor, tol: float, kernel_size: int = 3,
     mp = _pad_hw(mask.float()) > 0.5
 
     def sl(arr, di, dj):
-        return arr[..., di:di + h, dj:dj + w]
+        return _slice_hw(arr, di, dj, h, w)
 
     c = [sl(p, 1, 1) for p in pp]
     up = [sl(p, 0, 1) - cc for p, cc in zip(pp, c)]
@@ -91,7 +93,44 @@ def points_normal_edges(point: torch.Tensor, tol: float, kernel_size: int = 3,
         nz = nz + cr[2] * valid
         nmask = nmask | valid
     nx, ny, nz = unit((nx, ny, nz))
-    nx, ny, nz = nx * nmask, ny * nmask, nz * nmask
+    return (nx * nmask, ny * nmask, nz * nmask), nmask
+
+
+def points_to_normals(point: torch.Tensor, mask: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-product normal map of a pointmap, batched over any leading
+    axes, on the pointmap's device.
+
+    Args:
+        point: (..., H, W, 3) pointmap.
+        mask: optional (..., H, W) bool of valid pixels.
+
+    Returns:
+        (normals (..., H, W, 3), normal_mask (..., H, W)); the normals are
+        zero where normal_mask is False.
+
+    The JAX package's XLA fuses the cross products and norms (with FMA);
+    on a smooth surface the two lie within ~2e-7, but where the four unit
+    normals nearly cancel (random points) fp32 rounding grows past 1e-5.
+    """
+    planes, nmask = _normal_planes(point, mask)
+    return torch.stack(planes, dim=-1), nmask
+
+
+def points_normal_edges(point: torch.Tensor, tol: float, kernel_size: int = 3,
+                        mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Pointmap (..., H, W, 3) -> normals -> normal-edge mask (..., H, W).
+
+    Normals are the normalised sum of the four quad cross products around
+    each pixel (zero padding); a pixel is an edge when the largest angle
+    between its normal and a valid neighbour's, dilated over the window,
+    exceeds `tol` degrees (tested as a minimum cosine).
+    """
+    h, w = point.shape[-3], point.shape[-2]
+    (nx, ny, nz), nmask = _normal_planes(point, mask)
+
+    def sl(arr, di, dj):
+        return _slice_hw(arr, di, dj, h, w)
 
     # window minimum of the cosine (== maximum angle), edge-replicate padding
     npx, npy, npz = (_pad_hw(t, mode="replicate") for t in (nx, ny, nz))

@@ -141,31 +141,49 @@ def from_pretrained(path: str, dtype: Any = torch.bfloat16,
         layout, RuntimeError for the port's own files).
     """
     state, reference = _state_dict(os.path.abspath(os.path.expanduser(path)))
-    overrides = dict(config_overrides or {})
     if not reference:
-        model = MapAnything(MapAnythingConfig(dtype=dtype, **overrides),
+        model = MapAnything(MapAnythingConfig(dtype=dtype,
+                                              **dict(config_overrides or {})),
                             device=device)
         model.load_state_dict(state)
         return model.eval()
+    return convert_reference(state, dtype, config_overrides, device,
+                             strict)[0]
 
+
+def convert_reference(state: Dict[str, Any], dtype: Any = torch.bfloat16,
+                      config_overrides: Optional[Dict[str, Any]] = None,
+                      device=None, strict: bool = True
+                      ) -> Tuple[MapAnything, Dict[str, Any]]:
+    """A MapAnything holding a state dict in the reference's layout
+    (from_pretrained's conversion, and convert_torch_checkpoint's).
+
+    The config is `config_overrides` with the fields infer_model_config
+    reads from the shapes filled in where they are not given. Returns (the
+    model in eval mode, {"unconverted": keys no rule took, "aliases": keys
+    skipped as known duplicates, "inferred": infer_model_config(state)}).
+    With `strict`, an unconverted key raises ValueError; without, it does
+    not reach the model."""
+    overrides = dict(config_overrides or {})
+    inferred = infer_model_config(state)
     fields = {f.name for f in dataclasses.fields(MapAnythingConfig)}
-    for key, val in infer_model_config(state).items():
+    for key, val in inferred.items():
         if key in fields:  # it reports non-config facts too (enc_dim)
             overrides.setdefault(key, val)
     cfg = MapAnythingConfig(dtype=dtype, **overrides)
     tree = convert_mapanything_checkpoint(
         state, trunk_indices=_conversion_taps(state, cfg),
         fold_layerscale=cfg.fold_layerscale)
-    del state
-    unconverted = tree.pop("_unconverted", [])
-    tree.pop("_aliases", None)
-    if unconverted and strict:
+    report = {"unconverted": tree.pop("_unconverted", []),
+              "aliases": tree.pop("_aliases", []), "inferred": inferred}
+    if report["unconverted"] and strict:
         raise ValueError(
-            f"{len(unconverted)} checkpoint tensors have no conversion "
-            f"rule, e.g. {unconverted[:5]} (pass strict=False to ignore)")
+            f"{len(report['unconverted'])} checkpoint tensors have no "
+            f"conversion rule, e.g. {report['unconverted'][:5]} (pass "
+            "strict=False to ignore)")
     model = MapAnything(cfg, device=device)
     load_jax_params(model, tree)
-    return model.eval()
+    return model.eval(), report
 
 
-__all__ = ["from_pretrained"]
+__all__ = ["convert_reference", "from_pretrained"]

@@ -11,11 +11,19 @@ capture; counter checks belong to uncaptured calls. :func:`events_ms`
 times calls that allocate gigabytes each (plain versions) by events around
 a run of calls instead. :func:`profile_calls` reads a call's device time,
 device ops and busy share from torch.profiler.
+
+:class:`Timer`, :class:`BlockTimeManager` and :func:`block_timer` are the
+host-side block timers of mapanything_tpu/utils/timing.py (the reference's
+utils/timing.py): named wall-clock spans that accumulate their total and
+count, summed in a manager (`default_manager` unless one is given).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
+from collections import defaultdict
+from typing import Dict, Optional
 
 import torch
 
@@ -130,4 +138,64 @@ def profile_calls(call, wall_ms: float, calls: int = 3, match=None) -> dict:
     return res
 
 
-__all__ = ["device_ms", "events_ms", "host_us", "profile_calls"]
+class Timer:
+    """Accumulating wall-clock timer."""
+
+    def __init__(self):
+        self.total = 0.0
+        self.count = 0
+        self._t0: Optional[float] = None
+
+    def start(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def stop(self) -> float:
+        if self._t0 is None:
+            raise RuntimeError("Timer.stop() before start()")
+        dt = time.perf_counter() - self._t0
+        self.total += dt
+        self.count += 1
+        self._t0 = None
+        return dt
+
+    @property
+    def avg(self) -> float:
+        return self.total / max(self.count, 1)
+
+
+class BlockTimeManager:
+    """Named timers; prints as `name: avg ms(xcount)` per timer."""
+
+    def __init__(self):
+        self.timers: Dict[str, Timer] = defaultdict(Timer)
+
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        return {name: {"total_s": t.total, "count": t.count, "avg_s": t.avg}
+                for name, t in self.timers.items()}
+
+    def __str__(self):
+        return "  ".join(f"{k}: {v.avg * 1000:.1f}ms(x{v.count})"
+                         for k, v in self.timers.items())
+
+
+default_manager = BlockTimeManager()
+
+
+@contextlib.contextmanager
+def block_timer(name: str, manager: Optional[BlockTimeManager] = None,
+                verbose: bool = False):
+    """Time a host-side block into `manager`'s timer `name` (the default
+    manager when None). Work queued on a device is not waited for."""
+    mgr = manager or default_manager
+    t = mgr.timers[name].start()
+    try:
+        yield t
+    finally:
+        dt = mgr.timers[name].stop()
+        if verbose:
+            print(f"[{name}] {dt * 1000:.2f} ms")
+
+
+__all__ = ["BlockTimeManager", "Timer", "block_timer", "default_manager",
+           "device_ms", "events_ms", "host_us", "profile_calls"]

@@ -18,8 +18,8 @@ the released recipe's values: the "?avg_dis" normalisation of
 FactoredGeometryRegr3D (GT always normalised, predictions by their own
 factor unless the sample is metric), no ambiguous-pixel loss, the
 normal/gradient-matching terms on synthetic data only and the top-N%
-exclusion on real data only. Regr3D, PointsPlusScaleRegr3D and the Disentangled* family are not ported
-(ROADMAP queue A item 9).
+exclusion on real data only. Regr3D, PointsPlusScaleRegr3D and the
+Disentangled* family are not ported (ROADMAP queue A item 6).
 """
 
 from __future__ import annotations

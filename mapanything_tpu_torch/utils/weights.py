@@ -342,6 +342,21 @@ def convert_dinov2(sd: Mapping[str, Any], prefix: str = "",
     return params
 
 
+def inspect_state_dict(sd: Mapping[str, Any], depth: int = 2) -> Dict[str, int]:
+    """{the first `depth` dot-separated parts of a key: how many keys share
+    them}, sorted by group: the inventory of an unfamiliar checkpoint."""
+    groups: Dict[str, int] = {}
+    for k in sd:
+        g = ".".join(k.split(".")[:depth])
+        groups[g] = groups.get(g, 0) + 1
+    return dict(sorted(groups.items()))
+
+
+def strip_prefix(sd: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
+    """The entries of `sd` whose keys start with `prefix`, without it."""
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
 def convert_croco(sd: Mapping[str, Any],
                   prefix: str = "") -> Tuple[Dict[str, Any], int]:
     """A CroCo/DUSt3R torch encoder state dict (keys under `prefix`) -> the
