@@ -409,8 +409,32 @@ Phases, in order (any failure exits non-zero and prints no result line):
      at 518x336) of the converted scene through the `scannetpp` spec:
      finite, of the expected shapes.
 
+ 15. Multi-GPU training (parallel/mesh.py, the mesh step of train/step.py) at
+     full width and depth: the released MapAnythingConfig() in bf16 with fp32
+     parameters, the model's own seeded init, a global batch of 2 x 4 views at
+     518^2, images_only and aug_training. 15a, on one card: two processes share
+     it over a gloo group (NCCL refuses two ranks on one device; gloo stages
+     the CUDA tensors through the host) and run parallel/mesh_check.py at DP 2
+     and then at TP 2 (`--tp 1,2`): rank 0's one-rank step on the whole batch
+     (once a task) against each mesh step from the same weights, loss and
+     grad_norm within 1e-2, the gradients of every parameter (gathered for TP)
+     within 2e-2 rel-L2 as one vector (phase 4's gradient limit) and within
+     5e-2 each, the updated parameters within 2e-2 as one vector, the worst
+     single parameter of each printed with its name; each rank's kernel
+     launches (48 forward-with-lse, dK/dV and dQ per rank-step, no plain
+     launch) and, for images_only, its wall, device ms and peak GiB over
+     MESH_TIMED_STEPS more steps. 15b, the training kernels against their plain versions (phase 2b's
+     method and limits, no baseline) at the tensor-parallel head counts, H = 8
+     (TP 2) and H = 4 (TP 4), q, k and v strided views of a local fused qkv
+     (token stride 3 * 1024 / tp): the encoder (2, 1408) / 1370, frame (2,
+     1369) and 4-view global (1, 5504) / 5477 shapes, and 15a's TP 2 ones (8,
+     1408) / 1370, (8, 1369) and (2, 5504) / 5477. 15c, only where the machine
+     has two or more cards: mesh_check under NCCL at DP 2 and TP 2, with four
+     cards DP 2 x TP 2 and ring_check's view-sharded train step at p = 2 and 4,
+     one card per rank; with one card it prints "phase 15c: skipped, 1 card".
+
 The last two lines are the kernels' JSON summary (each kernel's launches:
-the counts phases 3-14 read, summed) and
+the counts phases 3-15 read, summed) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -5016,6 +5040,216 @@ def offline_path(torch, fa, fp, F):
     return rows, counts, untouched_baseline(fp)
 
 
+# phase 15: multi-GPU training, data and tensor parallelism
+MESH_TIMED_STEPS = 1  # after the compared step, images_only only
+MESH_TIMEOUT = 900
+# 48 forward-with-lse, dK/dV and dQ launches per rank-step at any head count
+MESH_STEP_LAUNCHES = {"fwd_lse": 48, "dkv": 48, "dq": 48}
+# the training kernels at the tensor-parallel head counts: H = 16 / tp,
+# q, k and v strided views of a local fused qkv (token stride 3 * H * 64)
+TP_SHAPES = [
+    (f"{name}_h{h}", (b, n, h, 64), n_valid)
+    for h in (8, 4)
+    for name, (b, n), n_valid in (
+        ("encoder_2view", (2, 1408), 1370), ("frame_2view", (2, 1369), None),
+        ("global_4view", (1, 5504), 5477),
+        ("encoder_tp_2x4view", (8, 1408), 1370),
+        ("frame_tp_2x4view", (8, 1369), None),
+        ("global_tp_2x4view", (2, 5504), 5477))]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def shared_card_mesh_check(args, world: int, folder: str):
+    """parallel/mesh_check.py ARGS as `world` processes that share card 0
+    over gloo; returns (rank 0's JSON, failure or None). Every process is
+    stopped before it returns."""
+    port = free_port()
+    out = os.path.join(folder, "mesh_check.json")
+    procs, logs = [], []
+    try:
+        for rank in range(world):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                       LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port))
+            log = open(os.path.join(folder, f"rank{rank}.log"), "w+")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m",
+                 "mapanything_tpu_torch.parallel.mesh_check", *args,
+                 "--backend", "gloo", "--steps", str(MESH_TIMED_STEPS),
+                 "--out", out],
+                cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + MESH_TIMEOUT
+        codes = [proc.wait(timeout=max(deadline - time.monotonic(), 1))
+                 for proc in procs]
+    except subprocess.TimeoutExpired:
+        codes = None
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    tails = []
+    for rank, log in enumerate(logs):
+        log.seek(0)
+        tails.append(f"rank {rank}: " + log.read()[-3000:])
+        log.close()
+    if not os.path.exists(out):
+        return None, (f"mesh_check {args} exit codes {codes}; "
+                      + " | ".join(tails))
+    with open(out) as f:
+        res = json.load(f)
+    if codes != [0] * world:
+        return res, f"mesh_check {args} exit codes {codes}"
+    return res, None
+
+
+def mesh_name(shape) -> str:
+    return " x ".join(f"{axis} {n}" for axis, n in (("DP", shape["data"]),
+                                                   ("TP", shape["model"]))
+                      if n > 1)
+
+
+def mesh_launches(res) -> tuple:
+    """(the kernel counts of every rank's compared mesh step, summed over
+    the ranks, meshes and tasks; failure or None): each step 48
+    forward-with-lse, dK/dV and dQ launches, no other kernel and no plain
+    launch."""
+    total, bad = {}, None
+    for run in res["meshes"]:
+        for task, entry in run["tasks"].items():
+            for rank, per in enumerate(entry["ranks"]):
+                counts = per["launches"]
+                want = dict.fromkeys(counts, 0) | MESH_STEP_LAUNCHES
+                if counts != want:
+                    bad = bad or (f"{mesh_name(run['mesh'])} {task} rank "
+                                  f"{rank}: launches {counts}")
+                for key, val in counts.items():
+                    if key != "plain":
+                        total[key] = total.get(key, 0) + val
+    return total, bad
+
+
+def print_mesh(res) -> None:
+    for run in res["meshes"]:
+        name = mesh_name(run["mesh"])
+        for task, entry in run["tasks"].items():
+            ref = entry["reference"]
+            cmp = entry["vs_reference"]
+            print(f"phase 15 {name} {task}: loss {cmp['loss']:.6f} vs "
+                  f"one-rank {ref['loss']:.6f} (rel "
+                  f"{cmp['loss_rel_diff']:.2e}), grad_norm rel "
+                  f"{cmp['grad_norm_rel_diff']:.2e}, gradients rel-L2 "
+                  f"{cmp['grads']['rel_l2']:.2e} (worst "
+                  f"{cmp['grads']['worst_rel_l2']:.2e}, "
+                  f"{cmp['grads']['worst_name']}), updated parameters "
+                  f"{cmp['params']['rel_l2']:.2e} (worst "
+                  f"{cmp['params']['worst_rel_l2']:.2e}, "
+                  f"{cmp['params']['worst_name']})", flush=True)
+            rt = ref["timing"]
+            if rt:
+                prof = rt.get("profile", {})
+                print(f"  one-rank step: wall {rt['step_ms']:.1f} ms, "
+                      f"device {prof.get('device_ms', float('nan')):.1f} "
+                      f"ms, peak {rt.get('peak_memory_gib', float('nan')):.2f}"
+                      " GiB", flush=True)
+            for rank, per in enumerate(entry["ranks"]):
+                t = per["timing"]
+                prof = t.get("profile", {})
+                timing = "" if not t else (
+                    f"wall {t['step_ms']:.1f} ms, device "
+                    f"{prof.get('device_ms', float('nan')):.1f} ms (NCCL "
+                    f"{prof.get('nccl_ms', float('nan')):.2f}), peak "
+                    f"{t.get('peak_memory_gib', float('nan')):.2f} GiB, ")
+                print(f"  rank {rank}: {timing}launches {per['launches']}",
+                      flush=True)
+
+
+def multi_card_runs(torch) -> tuple:
+    """15c: the mesh and ring checks under NCCL, one card per rank, where
+    the machine has two or more; (results, failure or None)."""
+    cards = torch.cuda.device_count()
+    runs = [(2, ["mapanything_tpu_torch.parallel.mesh_check", "--tp",
+                 "1,2"])]
+    if cards >= 4:
+        runs += [(4, ["mapanything_tpu_torch.parallel.mesh_check", "--tp",
+                      "2"]),
+                 (4, ["mapanything_tpu_torch.parallel.ring_check", "--check",
+                      "train", "--task", "aug_training"])]
+    results = []
+    for nproc, cmd in runs:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc_per_node", str(nproc), "--master_port",
+             str(free_port()), "-m", *cmd], cwd=HERE, capture_output=True,
+            text=True, timeout=MESH_TIMEOUT)
+        lines = [line for line in proc.stdout.splitlines()
+                 if line.startswith("{")]
+        res = json.loads(lines[-1]) if lines else None
+        results.append({"nproc": nproc, "cmd": cmd,
+                        "secs": time.perf_counter() - t0, "result": res})
+        print(f"phase 15c {nproc} cards {' '.join(cmd[1:])}: "
+              f"{json.dumps(res)}", flush=True)
+        if res is not None and "meshes" in res:
+            print_mesh(res)
+        if proc.returncode != 0 or res is None or not res.get("ok"):
+            return results, (f"15c {cmd} exit {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    return results, None
+
+
+def multi_gpu_training(torch, fa, fp, F):
+    """Phase 15: (training-kernel rows at the TP head counts, [kernel
+    counts of the mesh steps], failure or None)."""
+    fp.reset_probe_counts()
+    torch.cuda.empty_cache()
+    counts = []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as folder:
+        # DP 2, then TP 2, in one pair of processes
+        res, bad = shared_card_mesh_check(["--tp", "1,2"], 2, folder)
+    if res is not None:
+        print(f"phase 15a: {json.dumps(res)}", flush=True)
+        print_mesh(res)
+    if bad:
+        return {}, counts, f"15a: {bad}"
+    if not res["ok"]:
+        return {}, counts, "15a: a check failed"
+    total, bad = mesh_launches(res)
+    if bad:
+        return {}, counts, f"15a: {bad}"
+    counts.append(total)
+    print(f"phase 15a took {time.perf_counter() - t0:.1f} s", flush=True)
+    rows = training_kernels_vs_plain(torch, fa, fp, F, shapes=TP_SHAPES,
+                                     seed=1500, baseline=False)
+    for kname, krows in rows.items():
+        for row in krows:
+            bad = {key: val for key, val in row.items()
+                   if key.endswith(("_max_abs_rel", "_rel_l2"))
+                   and not val <= ERR_LIMIT}
+            if bad:
+                return rows, counts, (f"15b {kname} disagrees with plain at "
+                                      f"{row['at']}: {bad}")
+    bad = untouched_baseline(fp)
+    if bad:
+        return rows, counts, f"15b: {bad}"
+    if torch.cuda.device_count() < 2:
+        print("phase 15c: skipped, 1 card", flush=True)
+    else:
+        _, bad = multi_card_runs(torch)
+        if bad:
+            return rows, counts, bad
+    return rows, counts, None
+
+
 def timing(row):
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms", "mma_ms",
@@ -5025,7 +5259,7 @@ def timing(row):
 def kernels_summary(fp, attn, train_rows, ring_rows, merge, probe_rows,
                     phase_counts) -> list:
     """The kernels' JSON rows: each kernel at its main-path shape with its
-    launches in phases 3-14 (phase_counts: the kernel counts each of those
+    launches in phases 3-15 (phase_counts: the kernel counts each of those
     runs read, reset just before it), the baselines and the probes."""
     launches = {kname: sum(counts[key] for counts in phase_counts)
                 for kname, key in COUNTER.items()}
@@ -5452,13 +5686,26 @@ def main() -> int:
           f"{time.perf_counter() - t14:.1f} s", flush=True)
     attn = attn + offline_rows
 
+    # phase 15: multi-GPU training: data and tensor parallelism
+    t15 = time.perf_counter()
+    torch.cuda.empty_cache()
+    tp_rows, phase15_counts, bad = multi_gpu_training(torch, fa, fp, F)
+    if bad:
+        return fail(f"phase 15: {bad}")
+    print(f"phase 15 (multi-GPU training) took "
+          f"{time.perf_counter() - t15:.1f} s", flush=True)
+    for kname, rows in tp_rows.items():
+        train_rows[kname] += rows
+
     phase_counts = [serving,
                     {key: train[f"{key}_launches"] for key in fa.KERNELS},
                     ring_res["kernel_counts"], block_res["kernel_counts"],
                     vs_train["launches"]] + (phase7_counts + phase8_counts
                                              + phase9_counts + phase10_counts
                                              + phase11_counts + phase12_counts
-                                             + phase13_counts + phase14_counts)
+                                             + phase13_counts + phase14_counts
+                                             + [dict.fromkeys(fa.KERNELS, 0)
+                                                | c for c in phase15_counts])
     kernels = kernels_summary(fp, attn, train_rows, ring_rows, merge,
                               probe_rows, phase_counts)
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s",

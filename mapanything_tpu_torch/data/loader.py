@@ -7,7 +7,14 @@ DataLoader glue):
     collate stacks them into one numpy (B, V, ...) pytree matching the model
     input contract (plus the GT keys the loss consumes);
   * eval: fixed batch sampler with rank sharding (the DistributedSampler
-    replacement).
+    replacement);
+  * data parallelism (`get_train_data_loader(data_shard=(d, n))`): every
+    data rank draws the batches that one process would draw at n times the
+    image budget (the JAX trainer's single-controller batch) and loads its
+    own rows of each, so the ranks step in lockstep on batches of one
+    shape. The samplers' round-robin rank split (world_size, rank) gives
+    ranks batches of different shapes and, at an epoch's end, different
+    counts, which a synchronous step cannot take.
 
 Batches stay numpy: the trainer moves them to its device
 (utils/device.py::to_device), and only its thread touches the card.
@@ -75,6 +82,29 @@ def collate_views(samples: List[List[dict]]) -> Dict[str, Dict[str, np.ndarray]]
         [views[0]["is_synthetic"] for views in samples], dtype=bool
     )
     return {"views": views_out, "gt": gt_out}
+
+
+class RowShardSampler:
+    """Rows [d k, (d + 1) k) of each batch of a batch sampler, k = len //
+    n: data rank d's share; a batch's last len % n rows are dropped so
+    that every rank holds k."""
+
+    def __init__(self, sampler, rank: int, n: int):
+        if not 0 <= rank < n:
+            raise ValueError(f"data rank {rank} of {n}")
+        self.sampler, self.rank, self.n = sampler, rank, n
+
+    def set_epoch(self, epoch: int):
+        self.sampler.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.sampler)
+
+    def __iter__(self):
+        for batch in self.sampler:
+            k = len(batch) // self.n
+            if k:
+                yield list(batch[self.rank * k:(self.rank + 1) * k])
 
 
 class DataLoader:
@@ -206,13 +236,19 @@ class DataLoader:
 
 def get_train_data_loader(dataset, max_num_of_imgs_per_gpu: int,
                           world_size: int = 1, rank: int = 0,
-                          num_workers: int = 4) -> DataLoader:
-    """Reference datasets/__init__.py:140 equivalent."""
+                          num_workers: int = 4,
+                          data_shard: Optional[tuple] = None) -> DataLoader:
+    """Reference datasets/__init__.py:140 equivalent. With `data_shard`
+    (d, n), data rank d's rows of the batches drawn at n times the image
+    budget (RowShardSampler, the module docstring)."""
+    n = 1 if data_shard is None else data_shard[1]
     sampler = dataset.make_sampler(
         shuffle=True, world_size=world_size, rank=rank,
-        max_num_of_images_per_gpu=max_num_of_imgs_per_gpu,
+        max_num_of_images_per_gpu=max_num_of_imgs_per_gpu * n,
         use_dynamic_sampler=True,
     )
+    if data_shard is not None:
+        sampler = RowShardSampler(sampler, *data_shard)
     return DataLoader(dataset, sampler, num_workers=num_workers)
 
 

@@ -52,12 +52,14 @@ def normalize_pose_translations(pose_translations: torch.Tensor,
 def normalize_multiple_pointclouds(pts: torch.Tensor,
                                    valid_masks: torch.Tensor | None = None,
                                    norm_mode: str = "avg_dis",
-                                   ret_factor: bool = False):
+                                   ret_factor: bool = False, sums=None):
     """Jointly normalise multi-view pointmaps by their average distance.
 
     pts (B, V, H, W, 3), valid_masks (B, V, H, W) bool, norm_mode
     "avg_{dis|log1p|warp-log1p}". Returns the normalised points and, with
-    ret_factor, the (B, 1, 1, 1, 1) factor.
+    ret_factor, the (B, 1, 1, 1, 1) factor. `sums`, when given, maps the
+    per-sample distance sum and valid count (B,) to the ones the factor
+    divides (their sums over the ranks that hold the other views).
     """
     norm, dis_mode = norm_mode.split("_")
     if norm != "avg":
@@ -76,8 +78,10 @@ def normalize_multiple_pointclouds(pts: torch.Tensor,
     elif dis_mode != "dis":
         raise ValueError(f"bad dis_mode {dis_mode}")
     nnz = valid_masks.reshape(b, -1).sum(-1)
-    norm_factor = ((all_dis * valid_masks).reshape(b, -1).sum(-1)
-                   / (nnz + 1e-8)).clamp_min(1e-8)
+    dis_sum = (all_dis * valid_masks).reshape(b, -1).sum(-1)
+    if sums is not None:
+        dis_sum, nnz = sums(dis_sum, nnz)
+    norm_factor = (dis_sum / (nnz + 1e-8)).clamp_min(1e-8)
     factor = norm_factor[:, None, None, None, None]
     res = pts / factor
     return (res, factor) if ret_factor else res

@@ -51,7 +51,10 @@ attention); parallel/inference.py::view_sharded_forward drives it. The
 priors run there too: the view-0 pose is gathered from rank 0, the mean
 translation norm reduced over the ranks, and every rank draws the masks of
 all the views from the same generator state and keeps its own views', so
-p ranks compute what one does with the same generator.
+p ranks compute what one does with the same generator. Likewise a
+data-parallel rank (`forward(views, batch_shard=(d, n))`, views holding
+rows [d B, (d + 1) B) of a batch of n B) draws the masks of the whole
+batch and keeps its rows.
 """
 
 from __future__ import annotations
@@ -301,7 +304,8 @@ def check_generator(geom_cfg: GeometricInputConfig,
 
 def draw_prior_masks(geom_cfg: GeometricInputConfig, batch: int, views: int,
                      device, generator: Optional[torch.Generator] = None,
-                     pixels: Optional[tuple] = None
+                     pixels: Optional[tuple] = None,
+                     rows: Optional[slice] = None
                      ) -> Dict[str, torch.Tensor]:
     """The Bernoulli masks of `fuse_geometric_priors` for `views` views,
     bool, in this order of draws from `generator`:
@@ -313,10 +317,12 @@ def draw_prior_masks(geom_cfg: GeometricInputConfig, batch: int, views: int,
       (a pixel kept: its uniform draw >= sparsification_removal_percent).
 
     A probability of 0 or 1 is a constant mask and draws nothing, so a
-    deterministic config draws only the pixels. The JAX package draws each
-    mask from its own split of one key and its sparse gate once per batch;
-    here one generator state fixes every draw, whatever the view sharding
-    (ROADMAP, pinned divergences)."""
+    deterministic config draws only the pixels. With `rows`, the masks of
+    those rows of the `batch` drawn (a data-parallel rank's share). The
+    JAX package draws each mask from its own split of one key and its
+    sparse gate once per batch; here one generator state fixes every
+    draw, whatever the view or batch sharding (ROADMAP, pinned
+    divergences)."""
     cfg = geom_cfg
 
     def bernoulli(p: float, shape) -> torch.Tensor:
@@ -340,6 +346,8 @@ def draw_prior_masks(geom_cfg: GeometricInputConfig, batch: int, views: int,
         draw = torch.rand((b, v, *pixels, 1), generator=generator,
                           device=device)
         masks["keep_px"] = draw >= cfg.sparsification_removal_percent
+    if rows is not None:
+        masks = {key: m[rows] for key, m in masks.items()}
     return masks
 
 
@@ -508,6 +516,7 @@ class MapAnything(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 memory_efficient: bool = False, seq_group=None,
                 chunking: Optional[MapAnythingConfig] = None,
+                batch_shard: Optional[tuple] = None,
                 ) -> Dict[str, torch.Tensor]:
         """views: see the module docstring. Returns the released outputs,
         all (B, V, ...) but metric_scaling_factor (B,).
@@ -526,6 +535,10 @@ class MapAnything(nn.Module):
             chunking: the config whose dense_head_chunk and mlp_token_chunk
                 a memory-efficient call reads (MemoryPolicy.cfg); the
                 model's own by default.
+            batch_shard: (d, n): views hold rows [d B, (d + 1) B) of a
+                batch of n B rows (a data-parallel rank's); the random
+                draws are those of the whole batch, these rows kept. Every
+                rank passes a generator in the same state.
         """
         cfg = self.cfg
         if seq_group is not None and cfg.info_sharing_type != "alternating":
@@ -542,7 +555,7 @@ class MapAnything(nn.Module):
         enc_dim = enc.shape[-1]
         fused = self.fuse_geometric_priors(
             enc.reshape(b, v, gh, gw, enc_dim).float(), views, geom_cfg,
-            generator, seq_group)
+            generator, seq_group, batch_shard)
         fused = self.fusion_norm(fused)
         if self.scale_token is not None:
             tok = self.scale_token[None, None, :].expand(b, 1, enc_dim)
@@ -552,7 +565,8 @@ class MapAnything(nn.Module):
         if cfg.info_sharing_type == "alternating":
             final, intermediates, tok_out = self.info_sharing(
                 trunk_in, tok, seq_group, mlp_chunk,
-                self.view_pe_indices(b, v, generator, seq_group))
+                self.view_pe_indices(b, v, generator, seq_group,
+                                     batch_shard))
         else:
             final, intermediates, tok_out = self.info_sharing(
                 trunk_in, tok, mlp_chunk)
@@ -589,28 +603,34 @@ class MapAnything(nn.Module):
 
     def view_pe_indices(self, b: int, v: int,
                         generator: Optional[torch.Generator],
-                        seq_group=None) -> Optional[torch.Tensor]:
+                        seq_group=None, batch_shard: Optional[tuple] = None
+                        ) -> Optional[torch.Tensor]:
         """The view-PE rows of a call: None (the view indices) without a
         generator or without view PE; with one, (B, V) rows drawn uniformly
         from [1, max_views_for_pe) for every view but the global view 0,
         whose row is 0. A view-sharded call draws all the views' rows and
-        keeps its own, so p ranks draw what one does."""
+        keeps its own, so p ranks draw what one does; a data-parallel call
+        (batch_shard) its rows of the whole batch's."""
         trunk = self.info_sharing
         if generator is None or getattr(trunk, "view_pe", None) is None:
             return None
         ranks, rank = ((1, 0) if seq_group is None else
                        (dist.get_world_size(seq_group),
                         dist.get_rank(seq_group)))
-        idx = torch.randint(1, trunk.max_views_for_pe, (b, v * ranks),
+        d, n = (0, 1) if batch_shard is None else batch_shard
+        idx = torch.randint(1, trunk.max_views_for_pe, (b * n, v * ranks),
                             generator=generator, device=generator.device)
         idx[:, 0] = 0
-        return idx[:, rank * v:(rank + 1) * v].to(trunk.view_pe.device)
+        return idx[d * b:(d + 1) * b, rank * v:(rank + 1) * v].to(
+            trunk.view_pe.device)
 
     def fuse_geometric_priors(self, fused: torch.Tensor,
                               views: Dict[str, torch.Tensor],
                               geom_cfg: GeometricInputConfig,
                               generator: Optional[torch.Generator] = None,
-                              seq_group=None) -> torch.Tensor:
+                              seq_group=None,
+                              batch_shard: Optional[tuple] = None
+                              ) -> torch.Tensor:
         """The encoder features (B, V, gh, gw, C) fp32 plus each prior's
         encoding where its mask holds, in fp32 (the JAX package's
         _fuse_geometric_priors).
@@ -627,7 +647,8 @@ class MapAnything(nn.Module):
         With `seq_group`, views holds this rank's V/p views: view 0's pose
         comes from rank 0, the norm's sum and count are reduced over the
         ranks (differentiably), and the masks are drawn for all the views
-        and sliced.
+        and sliced. With `batch_shard` (d, n), for all the batch's rows and
+        sliced.
         """
         check_generator(geom_cfg, generator, fused.device)
         if not any(key in views for key in PRIOR_VIEW_KEYS):
@@ -638,9 +659,11 @@ class MapAnything(nn.Module):
         ranks, rank = ((1, 0) if seq_group is None else
                        (dist.get_world_size(seq_group),
                         dist.get_rank(seq_group)))
+        d, n = (0, 1) if batch_shard is None else batch_shard
         masks = draw_prior_masks(
-            geom_cfg, b, v * ranks, dev, generator,
-            (h, w) if "depth_along_ray" in views else None)
+            geom_cfg, b * n, v * ranks, dev, generator,
+            (h, w) if "depth_along_ray" in views else None,
+            rows=slice(d * b, (d + 1) * b))
         masks = {key: m[:, rank * v:(rank + 1) * v] if key in PER_VIEW_MASKS
                  else m for key, m in masks.items()}
 

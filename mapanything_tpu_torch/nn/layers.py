@@ -8,6 +8,17 @@ form over view-sharded patches (`RingGlobalBlock`).
 Gradient checkpointing (`checkpointed`) recomputes a block's activations
 in its backward instead of keeping them, as the JAX package's `nn.remat`.
 
+Tensor parallelism (parallel/mesh.py::shard_params): an `Attention` or
+`Mlp` whose `tp_group` is set holds its share of the heads (of the hidden
+features) of a model group's ranks. Its input enters through
+`copy_to_model_group` (identity forward, the cotangents summed over the
+group in the backward) and its output leaves through
+`reduce_from_model_group` (the partial products summed over the group in
+the forward, identity backward): Megatron's pair, where the XLA GSPMD of
+the JAX package inserts the same collectives. The sums run in the compute
+dtype. Without a group both are the identity and the layers compute as
+before.
+
 Dtype policy, as in the JAX package: parameters live in fp32, each layer
 computes in its `dtype` (bf16 on the serving path), LayerNorm takes fp32
 statistics and casts its output.
@@ -33,6 +44,60 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import ring_attention as ring
 from ..ops.attention import sdpa
 from .rope import apply_rope
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Megatron's copy-to-group: identity forward; the backward sums the
+    cotangents over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Megatron's reduce-from-group: the sum over the group forward;
+    identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model_group(x: torch.Tensor, group) -> torch.Tensor:
+    """x, replicated over a model group, entering a tensor-parallel layer
+    (identity without a group)."""
+    return x if group is None else _CopyToGroup.apply(x, group)
+
+
+def reduce_from_model_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every model-group rank's partial x (identity without a
+    group)."""
+    return x if group is None else _ReduceFromGroup.apply(x, group)
+
+
+def row_parallel(dense: "Dense", x: torch.Tensor, group) -> torch.Tensor:
+    """dense(x) where x's features and dense's input features are split
+    over `group`: the local products summed over the group, then the
+    (replicated) bias once; dense(x) itself without a group."""
+    if group is None:
+        return dense(x)
+    dt = dense.compute_dtype
+    y = F.linear(x.to(dt), dense.weight.to(dt))
+    return reduce_from_model_group(y, group) + dense.bias.to(dt)
 
 
 def checkpointed(fn, *args):
@@ -147,9 +212,12 @@ class Mlp(nn.Module):
         self.fc2 = Dense(hidden_dim, out_dim, dtype=dtype, device=device)
         self.approximate = "tanh" if dtype == torch.bfloat16 else "none"
         self.checkpoint_chunks = False
+        self.tp_group = None  # hidden features split over it (module doc)
 
     def _body(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+        h = self.fc1(copy_to_model_group(x, self.tp_group))
+        return row_parallel(self.fc2, F.gelu(h, approximate=self.approximate),
+                            self.tp_group)
 
     def forward(self, x: torch.Tensor,
                 token_chunk: Optional[int] = None) -> torch.Tensor:
@@ -177,7 +245,12 @@ class Attention(nn.Module):
     With `entropy_scaling_base`, q is multiplied by log(n)/log(base) when
     the count n of real tokens exceeds the base (the JAX package's
     entropy-invariant scaling of the global layers; the trunk passes the
-    patches per view, known at call time)."""
+    patches per view, known at call time).
+
+    With `tp_group` set (parallel/mesh.py::shard_params), qkv holds this
+    rank's heads of each of q, k and v and proj the matching input columns:
+    the heads run here, and proj's partial products are summed over the
+    group."""
 
     def __init__(self, dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -187,17 +260,20 @@ class Attention(nn.Module):
         self.attn_impl = "auto"
         self.qkv = Dense(dim, 3 * dim, dtype=dtype, device=device)
         self.proj = Dense(dim, dim, dtype=dtype, device=device)
+        self.tp_group = None
 
     def forward(self, x: torch.Tensor, n_valid: Optional[int] = None,
                 rope: Optional[tuple] = None,
                 entropy_scaling_base: Optional[int] = None) -> torch.Tensor:
         b, n, _ = x.shape
-        qkv = self.qkv(x)
+        qkv = self.qkv(copy_to_model_group(x, self.tp_group))
         if n_valid is not None and n_valid < n:
             # aligned-token mode: the pad rows are not zero after LayerNorm
             # (its bias revives them); zero their q/k/v
             qkv[:, n_valid:] = 0
-        qkv = qkv.view(b, n, 3, self.num_heads, self.dim // self.num_heads)
+        head_dim = self.dim // self.num_heads
+        heads = qkv.shape[-1] // (3 * head_dim)  # this rank's, under TP
+        qkv = qkv.view(b, n, 3, heads, head_dim)
         q, k, v = qkv.unbind(2)  # strided (B, N, H, D) views
         if rope is not None:
             q, k = apply_rope(q, *rope), apply_rope(k, *rope)
@@ -205,7 +281,8 @@ class Attention(nn.Module):
         if entropy_scaling_base is not None and n_eff > entropy_scaling_base:
             q = q * (math.log(n_eff) / math.log(entropy_scaling_base))
         out = sdpa(q, k, v, impl=self.attn_impl, n_valid=n_valid)
-        return self.proj(out.reshape(b, n, self.dim))
+        return row_parallel(self.proj, out.reshape(b, n, heads * head_dim),
+                            self.tp_group)
 
 
 class Block(nn.Module):
@@ -260,6 +337,9 @@ class _RingAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, tok: torch.Tensor, group):
         a = self.attn
+        if a.tp_group is not None:
+            raise ValueError("a tensor-parallel Attention cannot run on the "
+                             "ring: both use the model axis")
         b, nl, dim = x.shape
         t = tok.shape[1]
 

@@ -23,17 +23,21 @@ import torch.distributed as dist
 from ..utils.device import resolve_device
 
 
-def init_distributed(device=None) -> dist.ProcessGroup:
+def init_distributed(device=None, backend=None) -> dist.ProcessGroup:
     """Initialise the default process group once and return it.
 
     Args:
         device: "cuda" (the default; NCCL) or "cpu" (gloo). Under torchrun
             each process takes the card of its ``LOCAL_RANK``.
+        backend: "gloo" on the card: processes that share one card (NCCL
+            refuses two ranks on one device); gloo stages CUDA tensors
+            through the host. The device's backend when None.
     """
     device = resolve_device(device)
     if dist.is_initialized():
         return dist.group.WORLD
-    backend = "nccl" if device.type == "cuda" else "gloo"
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         if device.type == "cuda":
             torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
@@ -95,11 +99,43 @@ def spawn_cpu_ranks(fn, world_size: int, *args, timeout: float = 300.0):
                 proc.join()
 
 
-def all_reduce_mean(x: float) -> float:
-    """Mean of a host scalar across the processes (for logging)."""
-    if not dist.is_initialized() or dist.get_world_size() == 1:
+def all_reduce_mean(x: float, group=None) -> float:
+    """Mean of a host scalar across the processes of `group` (the default
+    group when None): the same value on every rank, for logging and for
+    decisions every rank must take alike."""
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
         return float(x)
-    device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    device = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
     t = torch.tensor([float(x)], dtype=torch.float64, device=device)
-    dist.all_reduce(t)
-    return float(t) / dist.get_world_size()
+    dist.all_reduce(t, group=group)
+    return float(t) / dist.get_world_size(group)
+
+
+# gradients are summed over the ranks in flat buckets of this many elements
+# (one all_reduce each)
+GRAD_BUCKET = 1 << 26
+
+
+def all_reduce_grads(grads, group) -> None:
+    """Sum every rank's gradients in place, in flat buckets of about
+    GRAD_BUCKET elements per dtype (one all_reduce each)."""
+    bucket, size = [], 0
+
+    def flush():
+        if not bucket:
+            return
+        flat = torch.cat([g.reshape(-1) for g in bucket])
+        dist.all_reduce(flat, group=group)
+        torch._foreach_copy_(bucket, [
+            piece.view_as(g) for piece, g in zip(
+                flat.split([g.numel() for g in bucket]), bucket)])
+        bucket.clear()
+
+    for g in grads:
+        if bucket and (size + g.numel() > GRAD_BUCKET
+                       or g.dtype != bucket[0].dtype):
+            flush()
+            size = 0
+        bucket.append(g)
+        size += g.numel()
+    flush()

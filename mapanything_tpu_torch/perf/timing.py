@@ -114,8 +114,8 @@ def profile_calls(call, wall_ms: float, calls: int = 3, match=None) -> dict:
     n_ops = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            if e.name.startswith("nccl:"):
-                continue  # NCCL's annotation, spanning its own kernel
+            if e.name.startswith(("nccl:", "gloo:")):
+                continue  # a collective's annotation, spanning its work
             name = e.name[:90]  # template instances that share a prefix add up
             by_name[name] = (by_name.get(name, 0.0)
                              + e.time_range.elapsed_us() / 1e3 / calls)

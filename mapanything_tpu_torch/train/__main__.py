@@ -17,15 +17,26 @@ bucket each).
 On the CPU, at the tiny size: add `--tiny --device cpu` and a resolution
 such as (56, 42).
 
+Several processes train one model under torchrun:
+
+    torchrun --nproc_per_node 4 -m mapanything_tpu_torch.train --tp 2 ...
+
+builds the (data, model) mesh of parallel/mesh.py over the WORLD_SIZE
+ranks, WORLD_SIZE / tp data ranks by tp model ranks (rank r at (r // tp,
+r % tp)): the ranks of one model group split the encoder's and the trunk's
+attention and MLP layers and hold the same rows; each data rank loads its
+rows of the batch drawn at data-ranks times --max_imgs_per_device images
+(data/loader.py::RowShardSampler), and the step is that of one process on
+the whole batch (train/step.py). NCCL on the card, gloo with --device cpu.
+A world that --tp does not divide raises.
+
 The names the DSL can use are WAIDataset, make_wai_dataset and wai_root
 (the --wai_root flag). The run resumes from OUTPUT_DIR/checkpoint-last
 when it exists.
 
 Differences from scripts/train.py: `--device` (the card unless it says
-"cpu") takes the place of `--cpu`; `--single_device` is gone, since the
-port trains on one device and builds no mesh; `--tp` above 1, and a launch
-by torchrun with WORLD_SIZE above 1, raise: tensor and data parallelism are
-ROADMAP queue A item 11, and unsynchronised replicas must not train.
+"cpu") takes the place of `--cpu`; `--single_device` is gone: one process
+builds no mesh (it has one device), several always do.
 """
 
 from __future__ import annotations
@@ -35,9 +46,8 @@ import os
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
-PARALLEL_ITEM = ("ROADMAP queue A item 11 (A11: data and tensor "
-                 "parallelism over torch.distributed)")
 # scripts/train.py's --tiny model (fp32)
 TINY_CONFIG = dict(encoder_size="test", trunk_dim=64, trunk_depth=4,
                    trunk_num_heads=2, trunk_indices=(1, 2), dpt_feature_dim=32,
@@ -71,19 +81,21 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="'cpu' to train on the CPU; the card by default")
     ap.add_argument("--tp", type=int, default=1,
-                    help=f"tensor-parallel width; above 1: {PARALLEL_ITEM}")
+                    help="tensor-parallel width: the mesh's model axis, "
+                         "which must divide the world size")
     return ap
 
 
-def check_single_process(tp: int) -> None:
-    """Raise where the run would need tensor or data parallelism."""
-    if tp > 1:
-        raise NotImplementedError(f"--tp {tp}: {PARALLEL_ITEM}")
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world > 1:
-        raise NotImplementedError(
-            f"WORLD_SIZE={world}: data-parallel training is {PARALLEL_ITEM}; "
-            "the processes would train unsynchronised replicas")
+def mesh_shape(tp: int) -> tuple:
+    """(n_data, n_model) of the run: the world (the process group's, else
+    torchrun's WORLD_SIZE, else 1) over --tp. Raises ValueError where --tp
+    does not divide the world."""
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if tp < 1 or world % tp:
+        raise ValueError(f"--tp {tp} does not divide the world of {world} "
+                         "processes")
+    return world // tp, tp
 
 
 def build_model(tiny: bool, device=None, seed: int = 0):
@@ -102,43 +114,64 @@ def build_model(tiny: bool, device=None, seed: int = 0):
 
 def main(argv: Optional[Sequence[str]] = None):
     """Parse `argv`, build the loaders and the model, and train; returns
-    the final TrainState (its model trained in place)."""
+    the final TrainState (its model trained in place). Several processes
+    (a process group already made, or torchrun's) train on a mesh."""
     args = parser().parse_args(argv)
-    check_single_process(args.tp)
+    n_data, n_model = mesh_shape(args.tp)
 
     from ..data.loader import get_test_data_loader, get_train_data_loader
     from ..models import aug_training_config, images_only_config
+    from ..parallel.distributed import init_distributed
+    from ..parallel.mesh import make_mesh
     from .loop import TrainLoopConfig, build_dataset_mix, train
     from .step import OptimConfig
 
-    dataset = build_dataset_mix(args.dataset_spec, wai_root=args.wai_root)
-    train_loader = get_train_data_loader(
-        dataset, max_num_of_imgs_per_gpu=args.max_imgs_per_device,
-        num_workers=args.num_workers)
-    test_loaders = None
-    if args.val_dataset_spec:
-        val_ds = build_dataset_mix(args.val_dataset_spec,
-                                   wai_root=args.wai_root)
-        test_loaders = {"val": get_test_data_loader(
-            val_ds, batch_size=VAL_BATCH, num_workers=args.num_workers)}
+    mesh = None
+    owns_group = n_data * n_model > 1 and not dist.is_initialized()
+    if n_data * n_model > 1:
+        init_distributed(args.device)
+        mesh = make_mesh(n_data, n_model)
+    main_rank = mesh is None or dist.get_rank() == 0
+    try:
+        dataset = build_dataset_mix(args.dataset_spec,
+                                    wai_root=args.wai_root)
+        train_loader = get_train_data_loader(
+            dataset, max_num_of_imgs_per_gpu=args.max_imgs_per_device,
+            num_workers=args.num_workers, data_shard=(
+                None if mesh is None else (mesh.data_rank, mesh.n_data)))
+        test_loaders = None
+        if args.val_dataset_spec:
+            val_ds = build_dataset_mix(args.val_dataset_spec,
+                                       wai_root=args.wai_root)
+            test_loaders = {"val": get_test_data_loader(
+                val_ds, batch_size=VAL_BATCH, num_workers=args.num_workers)}
 
-    model = build_model(args.tiny, args.device, args.seed)
-    print(f"model: {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
-          f"parameters on {next(model.parameters()).device}; "
-          f"{len(train_loader)} batches an epoch", flush=True)
-    geom_cfg = (aug_training_config() if args.task == "aug_training"
-                else images_only_config())
-    state = train(
-        model, train_loader,
-        TrainLoopConfig(output_dir=args.output_dir, epochs=args.epochs,
-                        print_freq=args.print_freq, seed=args.seed),
-        OptimConfig(lr=args.lr, encoder_lr_scale=args.encoder_lr_scale,
-                    warmup_steps=args.warmup_steps,
-                    total_steps=args.total_steps,
-                    accum_steps=args.accum_steps),
-        geom_cfg=geom_cfg, test_loaders=test_loaders, device=args.device)
-    print("training finished", flush=True)
-    return state
+        model = build_model(args.tiny, args.device, args.seed)
+        if main_rank:
+            n_params = sum(p.numel() for p in model.parameters()) / 1e6
+            print(f"model: {n_params:.1f} M parameters on "
+                  f"{next(model.parameters()).device}; "
+                  f"{len(train_loader)} batches an epoch"
+                  + ("" if mesh is None else f"; mesh {mesh.shape}"),
+                  flush=True)
+        geom_cfg = (aug_training_config() if args.task == "aug_training"
+                    else images_only_config())
+        state = train(
+            model, train_loader,
+            TrainLoopConfig(output_dir=args.output_dir, epochs=args.epochs,
+                            print_freq=args.print_freq, seed=args.seed),
+            OptimConfig(lr=args.lr, encoder_lr_scale=args.encoder_lr_scale,
+                        warmup_steps=args.warmup_steps,
+                        total_steps=args.total_steps,
+                        accum_steps=args.accum_steps),
+            geom_cfg=geom_cfg, test_loaders=test_loaders,
+            device=args.device, mesh=mesh)
+        if main_rank:
+            print("training finished", flush=True)
+        return state
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

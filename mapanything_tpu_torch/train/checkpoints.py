@@ -13,6 +13,13 @@ mapanything_tpu/train/checkpoints.py (orbax there), with its API:
 A file is written under a temporary name and moved into place with
 `os.replace`, so a run killed while saving leaves the previous checkpoint
 whole. Files load with `weights_only=True`, onto the model's device.
+
+A model on a mesh (parallel/mesh.py) saves in the released, unsharded
+layout: the ranks of data rank 0 gather the split parameters and their
+moments over their model group, and its model rank 0 writes; every rank
+of the mesh calls the save. A load reads the whole file and keeps each
+rank's parts, so a tensor-parallel run's file loads into a one-card model
+and back into a sharded one.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from ..parallel.mesh import gather_full, local_part, unshard_params
 
 
 def _abs(path: str) -> str:
@@ -40,16 +49,36 @@ def _device_of(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+def _gathers(model: nn.Module) -> bool:
+    """Whether this rank joins the gathers of a save: every rank without a
+    mesh, the ranks of data rank 0 with one."""
+    mesh = getattr(model, "mesh", None)
+    return mesh is None or mesh.data_rank == 0
+
+
+def _writes(model: nn.Module) -> bool:
+    mesh = getattr(model, "mesh", None)
+    return mesh is None or (mesh.data_rank == 0 and mesh.model_rank == 0)
+
+
+def _local_state(model: nn.Module, state):
+    """A full state dict cut to this rank's parts."""
+    return {key: local_part(model, key, val) for key, val in state.items()}
+
+
 def save_params(path: str, model: nn.Module) -> None:
-    """Write the model's state dict."""
-    _write(path, model.state_dict())
+    """Write the model's state dict (unsharded)."""
+    if _gathers(model):
+        state = unshard_params(model)
+        if _writes(model):
+            _write(path, state)
 
 
 def load_params(path: str, model: nn.Module) -> nn.Module:
     """Load a state dict written by save_params into `model` (strict)."""
     state = torch.load(_abs(path), map_location=_device_of(model),
                        weights_only=True)
-    model.load_state_dict(state)
+    model.load_state_dict(_local_state(model, state))
     return model
 
 
@@ -57,16 +86,26 @@ def save_train_state(path: str, state, best_so_far: Optional[float] = None,
                      epoch: Optional[int] = None) -> None:
     """Write the whole training state (module docstring). `epoch` counts
     the COMPLETED epochs, so a resume starts at it."""
-    opt = state.optimizer
-    _write(path, {
-        "model": state.model.state_dict(),
-        "optimizer": {"names": list(opt.names), "mu": opt.mu, "nu": opt.nu,
-                      "count": opt.count, "mini_step": opt.mini_step,
-                      "acc": opt.acc},
+    opt, model = state.optimizer, state.model
+    if not _gathers(model):
+        return
+
+    def full(tensors):
+        return (None if tensors is None else
+                [gather_full(model, n, t) for n, t in zip(opt.names,
+                                                          tensors)])
+
+    ckpt = {
+        "model": unshard_params(model),
+        "optimizer": {"names": list(opt.names), "mu": full(opt.mu),
+                      "nu": full(opt.nu), "count": opt.count,
+                      "mini_step": opt.mini_step, "acc": full(opt.acc)},
         "step": state.step,
         "best_so_far": None if best_so_far is None else float(best_so_far),
         "epoch": None if epoch is None else int(epoch),
-    })
+    }
+    if _writes(model):
+        _write(path, ckpt)
 
 
 def load_train_state(path: str, state):
@@ -83,12 +122,17 @@ def load_train_state(path: str, state):
                          f"the model's")
     if (saved["acc"] is None) != (opt.acc is None):
         raise ValueError(f"{path}: saved with another accum_steps")
-    state.model.load_state_dict(ckpt["model"])
+    model = state.model
+    model.load_state_dict(_local_state(model, ckpt["model"]))
+
+    def local(tensors):
+        return [local_part(model, n, t) for n, t in zip(opt.names, tensors)]
+
     with torch.no_grad():
-        torch._foreach_copy_(opt.mu, saved["mu"])
-        torch._foreach_copy_(opt.nu, saved["nu"])
+        torch._foreach_copy_(opt.mu, local(saved["mu"]))
+        torch._foreach_copy_(opt.nu, local(saved["nu"]))
         if opt.acc is not None:
-            torch._foreach_copy_(opt.acc, saved["acc"])
+            torch._foreach_copy_(opt.acc, local(saved["acc"]))
     opt.count, opt.mini_step = saved["count"], saved["mini_step"]
     state.step = ckpt["step"]
     return state, ckpt["best_so_far"], ckpt["epoch"]

@@ -20,6 +20,23 @@ factor unless the sample is metric), no ambiguous-pixel loss, the
 normal/gradient-matching terms on synthetic data only and the top-N%
 exclusion on real data only. Regr3D, PointsPlusScaleRegr3D and the
 Disentangled* family are not ported (ROADMAP queue A item 6).
+
+Every reduction that crosses processes goes through one seam, a
+:class:`Reduction` passed to the criteria:
+
+  * a DATA group (the batch's rows split over its ranks): every masked mean
+    sums its numerator (differentiably) and its count over the group before
+    it divides (:func:`masked_mean`), and the double cover takes its
+    minimum after that, so the loss is that of the whole batch, as JAX's
+    GSPMD step computes it on any mesh;
+  * a VIEW group (the views split over its ranks, train/seq_parallel.py):
+    the per-view terms stay local, the reference pose is global view 0's
+    (rank 0's first view), the joint normalisation sums over the ranks, the
+    pairwise pose arm gathers every view, and the terms that every rank
+    computes alike (the scale set, the pairwise arm) enter the rank's share
+    at 1/p.
+
+The default Reduction() is one process: every reduction local.
 """
 
 from __future__ import annotations
@@ -29,6 +46,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..geometry import (
     apply_log_to_norm,
@@ -38,9 +56,11 @@ from ..geometry import (
     transform_pose_using_quats_and_trans_2_to_1,
 )
 from ..geometry.quats import rotate
+from ..ops.ring_attention import all_gather, all_reduce
 from .losses import (
     OverallLossConfig,
     RobustRegressionLoss,
+    batch_ratio,
     bce_with_logits,
     compute_gradient_matching_loss,
     compute_normal_loss,
@@ -75,32 +95,127 @@ class LossTerm:
 
     `double_cover` holds the (+gt, -gt) quaternion losses: reduced bare, the
     term is the minimum of the two means (the elementwise minimum is already
-    in `loss` for the wrappers)."""
+    in `loss` for the wrappers). `reduced`: `loss` is the term's value
+    already, reduced over the batch (the normal and gradient-matching
+    terms). `replicated`: every rank of a view group computes the same
+    value (the scale set, the pairwise pose arm)."""
 
     loss: Tensor
     mask: Optional[Tensor]
     rep_type: str
     double_cover: Optional[Tuple[Tensor, Tensor]] = None
+    reduced: bool = False
+    replicated: bool = False
 
 
-def _masked_mean(x: Tensor, mask: Optional[Tensor]) -> Tensor:
-    """Mean over the valid elements; 0 when none is valid."""
-    if mask is None:
+def masked_mean(x: Tensor, mask: Optional[Tensor] = None,
+                group=None) -> Tensor:
+    """Mean over the valid elements; 0 when none is valid. With a data
+    group, over the valid elements of every rank's rows
+    (losses.py::batch_ratio)."""
+    if group is None and mask is None:
         return x.mean()
-    m = mask.to(x.dtype)
-    return (x * m).sum() / m.sum().clamp_min(1.0)
+    m = torch.ones_like(x) if mask is None else mask.to(x.dtype)
+    return batch_ratio((x * m).sum(), m.sum(), group)
 
 
-def reduce_terms(terms: Sequence[LossTerm]) -> Tensor:
-    """Sum of the per-term masked means (min of means for double cover)."""
+def _gather_views(x: Tensor, group) -> Tensor:
+    """(B, V_local, ...) -> (B, V_global, ...) in global view order. The
+    backward sums every rank's cotangent of a slot and keeps its own."""
+    g = all_gather(x, group)  # (p, B, V_local, ...)
+    g = g.movedim(0, 1)  # (B, p, V_local, ...)
+    return g.reshape(g.shape[0], -1, *g.shape[3:])
+
+
+class Reduction:
+    """The criteria's reductions over the ranks of a data group and of a
+    view group (the module docstring); neither: one process."""
+
+    def __init__(self, data_group=None, view_group=None, record=False):
+        self.data_group = data_group
+        self.view_group = view_group
+        # with `record`: term name -> (the sum of its values over this
+        # rank's views, whether every view rank computes it alike)
+        self.recorded: Optional[Dict[str, Tuple[Tensor, bool]]] = (
+            {} if record else None)
+        self.n_data = 1 if data_group is None else dist.get_world_size(
+            data_group)
+        self.n_view_ranks, self.view_rank = (
+            (1, 0) if view_group is None else
+            (dist.get_world_size(view_group), dist.get_rank(view_group)))
+
+    @property
+    def local(self) -> bool:
+        return self.data_group is None and self.view_group is None
+
+    def mean(self, t: LossTerm) -> Tensor:
+        """The term's value: its masked mean over the batch."""
+        return t.loss if t.reduced else masked_mean(t.loss, t.mask,
+                                                    self.data_group)
+
+    def record(self, name: str, value: Tensor,
+               replicated: bool = False) -> None:
+        """Adds a term's value, without its gradient, to `recorded[name]`
+        when recording."""
+        if self.recorded is not None:
+            prev = self.recorded.get(name, (0.0, replicated))[0]
+            self.recorded[name] = (prev + value.detach(), replicated)
+
+    def share(self, t: LossTerm) -> float:
+        """The weight of the term in this rank's share of the total."""
+        return 1.0 / self.n_view_ranks if t.replicated else 1.0
+
+    def n_views(self, local_views: int) -> int:
+        return local_views * self.n_view_ranks
+
+    def first_view(self, x: Tensor) -> Tensor:
+        """(B, V_local, ...) -> (B, ...): global view 0's entry."""
+        if self.view_group is None:
+            return x[:, 0]
+        return _gather_views(x[:, :1], self.view_group)[:, 0]
+
+    def is_first_view(self, v: int, device) -> Tensor:
+        """(V_local,) bool: which local view is global view 0."""
+        return (self.view_rank * v + torch.arange(v, device=device)) == 0
+
+    def gather_views(self, x: Tensor) -> Tensor:
+        return x if self.view_group is None else _gather_views(
+            x, self.view_group)
+
+    def normalize(self, pts: Tensor, valid: Tensor, norm_mode: str):
+        """normalize_multiple_pointclouds(..., ret_factor=True) over every
+        rank's views: the distance sum reduced differentiably, the count of
+        valid pixels without a gradient."""
+        sums = None
+        if self.view_group is not None:
+            group = self.view_group
+
+            def sums(num, nnz):
+                nnz = nnz.to(num.dtype)
+                dist.all_reduce(nnz, group=group)
+                return all_reduce(num, group), nnz
+
+        return normalize_multiple_pointclouds(pts, valid, norm_mode,
+                                              ret_factor=True, sums=sums)
+
+
+LOCAL = Reduction()
+
+
+def reduce_terms(terms: Sequence[LossTerm],
+                 red: Reduction = LOCAL) -> Tensor:
+    """Sum of the per-term masked means (min of means for double cover),
+    each weighted by its share."""
     total = 0.0
     for t in terms:
         if t.double_cover is not None:
             pos, neg = t.double_cover
-            total = total + torch.minimum(_masked_mean(pos, t.mask),
-                                          _masked_mean(neg, t.mask))
+            val = torch.minimum(masked_mean(pos, t.mask, red.data_group),
+                                masked_mean(neg, t.mask, red.data_group))
         else:
-            total = total + _masked_mean(t.loss, t.mask)
+            val = red.mean(t)
+        red.record(t.rep_type, val, t.replicated)
+        total = total + val * red.share(t)
     return total
 
 
@@ -122,13 +237,14 @@ def _keep_bottom_n_mask(loss: Tensor, valid: Tensor,
 
 class MultiLoss:
     """Combinable loss: `Loss1() + 0.1 * Loss2()`. `compute_loss(batch,
-    preds)` returns a scalar or (scalar, details); calling the object
-    evaluates the whole chain."""
+    preds, red)` returns a scalar or (scalar, details); calling the object
+    evaluates the whole chain, its reductions through `red` (one process
+    by default)."""
 
     _alpha: float = 1.0
     _loss2: Optional["MultiLoss"] = None
 
-    def compute_loss(self, batch, preds):
+    def compute_loss(self, batch, preds, red: Reduction = LOCAL):
         raise NotImplementedError
 
     def get_name(self) -> str:
@@ -160,12 +276,13 @@ class MultiLoss:
             name = f"{name} + {self._loss2!r}"
         return name
 
-    def __call__(self, batch, preds) -> Tuple[Tensor, Dict[str, Any]]:
-        out = self.compute_loss(batch, preds)
+    def __call__(self, batch, preds, red: Reduction = LOCAL
+                 ) -> Tuple[Tensor, Dict[str, Any]]:
+        out = self.compute_loss(batch, preds, red)
         loss, details = out if isinstance(out, tuple) else (out, {})
         loss = loss * self._alpha
         if self._loss2 is not None:
-            loss2, details2 = self._loss2(batch, preds)
+            loss2, details2 = self._loss2(batch, preds, red)
             loss = loss + loss2
             details = {**details, **details2}
         return loss, details
@@ -173,16 +290,18 @@ class MultiLoss:
 
 class SetCriterion(MultiLoss):
     """A criterion that emits an ordered flat list of LossTerms through
-    `loss_sets(batch, preds) -> (terms, details)`; bare use reduces them."""
+    `loss_sets(batch, preds, red) -> (terms, details)`; bare use reduces
+    them."""
 
     criterion: BaseCriterion
 
-    def loss_sets(self, batch, preds) -> Tuple[List[LossTerm], Dict[str, Any]]:
+    def loss_sets(self, batch, preds, red: Reduction = LOCAL
+                  ) -> Tuple[List[LossTerm], Dict[str, Any]]:
         raise NotImplementedError
 
-    def compute_loss(self, batch, preds):
-        terms, details = self.loss_sets(batch, preds)
-        return reduce_terms(terms), details
+    def compute_loss(self, batch, preds, red: Reduction = LOCAL):
+        terms, details = self.loss_sets(batch, preds, red)
+        return reduce_terms(terms, red), details
 
     def get_name(self):
         return f"{type(self).__name__}({type(self.criterion).__name__})"
@@ -191,24 +310,24 @@ class SetCriterion(MultiLoss):
 # --- geometry helpers of the set criteria -------------------------------------
 
 
-def _world_pts_in_view0(batch) -> Tensor:
+def _world_pts_in_view0(batch, red: Reduction) -> Tensor:
     """GT world points moved into view 0's camera frame."""
     r0_inv = quaternion_to_rotation_matrix(
-        quaternion_inverse(batch["camera_pose_quats"][:, 0]))  # (B, 3, 3)
-    t0_inv = -rotate(r0_inv, batch["camera_pose_trans"][:, 0])
+        quaternion_inverse(red.first_view(batch["camera_pose_quats"])))
+    t0_inv = -rotate(r0_inv, red.first_view(batch["camera_pose_trans"]))
     return (rotate(r0_inv[:, None, None, None], batch["pts3d"])
             + t0_inv[:, None, None, None, :])
 
 
-def _gt_pose_in_view0(batch) -> Tuple[Tensor, Tensor]:
+def _gt_pose_in_view0(batch, red: Reduction) -> Tuple[Tensor, Tensor]:
     """GT camera poses relative to view 0; view 0 gets the exact identity."""
     quats, trans = batch["camera_pose_quats"], batch["camera_pose_trans"]
     rq, rt = transform_pose_using_quats_and_trans_2_to_1(
-        quats[:, :1].expand_as(quats), trans[:, :1].expand_as(trans),
-        quats, trans)
-    rq = torch.cat([rq.new_tensor([0.0, 0.0, 0.0, 1.0]).expand_as(rq[:, :1]),
-                    rq[:, 1:]], dim=1)
-    rt = torch.cat([torch.zeros_like(rt[:, :1]), rt[:, 1:]], dim=1)
+        red.first_view(quats)[:, None].expand_as(quats),
+        red.first_view(trans)[:, None].expand_as(trans), quats, trans)
+    first = red.is_first_view(quats.shape[1], quats.device)[None, :, None]
+    rq = torch.where(first, rq.new_tensor([0.0, 0.0, 0.0, 1.0]), rq)
+    rt = torch.where(first, 0.0, rt)
     return rq, rt
 
 
@@ -250,14 +369,15 @@ def _pixel_terms(loss_bvn, mask_bvn, rep_type) -> List[LossTerm]:
             for i in range(loss_bvn.shape[1])]
 
 
-def _details_for(terms: List[LossTerm], self_name: str) -> Dict[str, Any]:
+def _details_for(terms: List[LossTerm], self_name: str,
+                 red: Reduction) -> Dict[str, Any]:
     """Per-view means and their average per type, keyed like the reference
     (get_loss_terms_and_details)."""
     det: Dict[str, Any] = {}
     by_type: Dict[str, List[Tensor]] = {}
     for t in terms:
         vals = by_type.setdefault(t.rep_type, [])
-        m = _masked_mean(t.loss, t.mask)
+        m = red.mean(t)
         vals.append(m)
         det[f"{self_name}_{t.rep_type}_view{len(vals)}"] = m
     for rep, vals in by_type.items():
@@ -296,16 +416,16 @@ class FactoredGeometryRegr3D(SetCriterion):
         self.compute_world_frame_points_loss = compute_world_frame_points_loss
         self.world_frame_points_loss_weight = world_frame_points_loss_weight
 
-    def _gather(self, batch, preds):
+    def _gather(self, batch, preds, red):
         gt = {
-            "pts3d": _world_pts_in_view0(batch),
+            "pts3d": _world_pts_in_view0(batch, red),
             "pts3d_cam": batch["pts3d_cam"],
             "ray_directions": batch["ray_directions_cam"],
         }
         gt["depth"] = (batch["depth_along_ray"]
                        if self.depth_type_for_loss == "depth_along_ray"
                        else batch["pts3d_cam"][..., 2:])
-        gt["pose_quats"], gt["pose_trans"] = _gt_pose_in_view0(batch)
+        gt["pose_quats"], gt["pose_trans"] = _gt_pose_in_view0(batch, red)
 
         up = _unscale_preds(preds) if self._has_scale_set else dict(preds)
         pr = {
@@ -320,21 +440,29 @@ class FactoredGeometryRegr3D(SetCriterion):
                        else up["pts3d_cam"][..., 2:])
         return gt, pr
 
-    def _normalize(self, gt, pr, batch, valid):
+    def _normalize(self, gt, pr, batch, valid, red):
         """'?avg_dis' semantics: the GT divided by its own factor;
         non-metric predictions by theirs, metric ones by the GT's."""
         metric = batch["is_metric_scale"]
-        _, gt_factor = normalize_multiple_pointclouds(
-            gt["pts3d"], valid, self.norm_mode, ret_factor=True)
-        _, pr_factor = normalize_multiple_pointclouds(
-            pr["pts3d"], valid, self.norm_mode, ret_factor=True)
+        _, gt_factor = red.normalize(gt["pts3d"], valid, self.norm_mode)
+        _, pr_factor = red.normalize(pr["pts3d"], valid, self.norm_mode)
         pr_div = torch.where(metric[:, None, None, None, None], gt_factor,
                              pr_factor)
         return (_divide(gt, gt_factor), _divide(pr, pr_div), gt_factor,
                 pr_factor, metric)
 
-    def _pose_terms(self, gt, pr, view_has_valid, b, v):
-        if self.compute_pairwise_relative_pose_loss:
+    def _pose_terms(self, gt, pr, view_has_valid, b, v, red):
+        pairwise_arm = self.compute_pairwise_relative_pose_loss
+        if pairwise_arm:
+            # over every view: with a view group the per-view vectors are
+            # gathered and the terms computed alike on every rank
+            pr, gt = ({key: red.gather_views(d[key])
+                       for key in ("pose_quats", "pose_trans")}
+                      for d in (pr, gt))
+            view_has_valid = red.gather_views(
+                view_has_valid[..., None].to(torch.uint8))[..., 0].bool()
+            v = view_has_valid.shape[1]
+
             def pairwise(quats, trans):
                 rq, rt = transform_pose_using_quats_and_trans_2_to_1(
                     quats[:, :, None].expand(b, v, v, 4),
@@ -364,9 +492,11 @@ class FactoredGeometryRegr3D(SetCriterion):
         trans_loss = self.criterion(
             pr_t, gt_t, factor="pose_trans") * self.pose_trans_loss_weight
         quats_terms = [LossTerm(quats_loss[:, i], q_mask[i], "pose_quats",
-                                double_cover=(q_pos[:, i], q_neg[:, i]))
+                                double_cover=(q_pos[:, i], q_neg[:, i]),
+                                replicated=pairwise_arm)
                        for i in range(v)]
-        trans_terms = [LossTerm(trans_loss[:, i], t_mask[i], "pose_trans")
+        trans_terms = [LossTerm(trans_loss[:, i], t_mask[i], "pose_trans",
+                                replicated=pairwise_arm)
                        for i in range(v)]
         return quats_terms, trans_terms
 
@@ -397,25 +527,30 @@ class FactoredGeometryRegr3D(SetCriterion):
                       False, "ray_directions")
         return terms
 
-    def loss_sets(self, batch, preds):
+    def loss_sets(self, batch, preds, red: Reduction = LOCAL):
+        terms, details, _ = self._sets(batch, preds, red)
+        return terms, details
+
+    def _sets(self, batch, preds, red):
+        """(terms, details, the normalised (gt, pr)) of loss_sets."""
         b, v, h, w, _ = batch["pts3d"].shape
         valid = batch["valid_mask"]
         view_has_valid = valid.reshape(b, v, -1).sum(-1) > 0
 
-        gt_raw, pr_raw = self._gather(batch, preds)
+        gt_raw, pr_raw = self._gather(batch, preds, red)
         gt, pr, gt_factor, pr_factor, metric = self._normalize(
-            gt_raw, pr_raw, batch, valid)
+            gt_raw, pr_raw, batch, valid, red)
         terms = self._pixel_sets(gt, pr, valid, b, v, h, w)
         quats_terms, trans_terms = self._pose_terms(gt, pr, view_has_valid,
-                                                    b, v)
+                                                    b, v, red)
         terms += quats_terms + trans_terms
 
         if self._has_scale_set:
             s = preds.get("metric_scaling_factor")
             if pr_factor is None:
                 # the metric factor is always that of the unscaled prediction
-                _, pr_factor = normalize_multiple_pointclouds(
-                    pr_raw["pts3d"], valid, self.norm_mode, ret_factor=True)
+                _, pr_factor = red.normalize(pr_raw["pts3d"], valid,
+                                             self.norm_mode)
             pr_metric_factor = pr_factor.detach()[:, 0, 0, 0, :]
             if s is not None:
                 pr_metric_factor = pr_metric_factor * s[:, None]
@@ -425,8 +560,9 @@ class FactoredGeometryRegr3D(SetCriterion):
                 _log(pr_metric_factor, self.loss_in_log),
                 _log(gt_metric_factor, self.loss_in_log), factor="scale",
             ) * self.scale_loss_weight
-            terms.append(LossTerm(scale_loss, scale_valid, "scale"))
-        return terms, _details_for(terms, type(self).__name__)
+            terms.append(LossTerm(scale_loss, scale_valid, "scale",
+                                  replicated=True))
+        return terms, _details_for(terms, type(self).__name__, red), (gt, pr)
 
 
 class FactoredGeometryScaleRegr3D(FactoredGeometryRegr3D):
@@ -461,14 +597,14 @@ class FactoredGeometryScaleRegr3D(FactoredGeometryRegr3D):
         self.norm_mode = norm_mode
         self.scale_loss_weight = scale_loss_weight
 
-    def _normalize(self, gt, pr, batch, valid):
-        gt_norm, gt_factor = normalize_multiple_pointclouds(
-            gt["pts3d"], valid, self.norm_mode, ret_factor=True)
+    def _normalize(self, gt, pr, batch, valid, red):
+        gt_norm, gt_factor = red.normalize(gt["pts3d"], valid,
+                                           self.norm_mode)
         out_gt = _divide(gt, gt_factor, pts3d=gt_norm)
         out_pr, pr_factor = dict(pr), None
         if self.norm_predictions:
-            pr_norm, pr_factor = normalize_multiple_pointclouds(
-                pr["pts3d"], valid, self.norm_mode, ret_factor=True)
+            pr_norm, pr_factor = red.normalize(pr["pts3d"], valid,
+                                               self.norm_mode)
             out_pr = _divide(pr, pr_factor, pts3d=pr_norm)
         return out_gt, out_pr, gt_factor, pr_factor, batch["is_metric_scale"]
 
@@ -484,34 +620,33 @@ class FactoredGeometryRegr3DPlusNormalGMLoss(FactoredGeometryScaleRegr3D):
         self.normal_loss_weight = normal_loss_weight
         self.gm_loss_weight = gm_loss_weight
 
-    def loss_sets(self, batch, preds):
-        terms, details = super().loss_sets(batch, preds)
+    def _sets(self, batch, preds, red):
+        terms, details, (gt, pr) = super()._sets(batch, preds, red)
         b, v = batch["pts3d"].shape[:2]
         valid = batch["valid_mask"]
-        # the normalised camera points, recomputed as the parent made them
-        gt_raw, pr_raw = self._gather(batch, preds)
-        gt, pr, *_ = self._normalize(gt_raw, pr_raw, batch, valid)
-
         syn = batch.get("is_synthetic")
         if syn is None:
             syn = torch.zeros(b, dtype=torch.bool, device=valid.device)
         mask = valid & syn[:, None, None, None]
 
         normal_terms, gm_terms = [], []
+        group = red.data_group
         for i in range(v):
             nrm = compute_normal_loss(pr["pts3d_cam"][:, i],
-                                      gt["pts3d_cam"][:, i], mask[:, i])
+                                      gt["pts3d_cam"][:, i], mask[:, i],
+                                      group)
             gm = compute_gradient_matching_loss(
                 apply_log_to_norm(pr["pts3d_cam"][:, i, ..., 2:]),
-                apply_log_to_norm(gt["pts3d_cam"][:, i, ..., 2:]), mask[:, i])
+                apply_log_to_norm(gt["pts3d_cam"][:, i, ..., 2:]), mask[:, i],
+                group=group)
             normal_terms.append(LossTerm(nrm * self.normal_loss_weight, None,
-                                         "normal"))
+                                         "normal", reduced=True))
             gm_terms.append(LossTerm(gm * self.gm_loss_weight, None,
-                                     "gradient_matching"))
+                                     "gradient_matching", reduced=True))
         terms += normal_terms + gm_terms
         details.update(_details_for(normal_terms + gm_terms,
-                                    type(self).__name__))
-        return terms, details
+                                    type(self).__name__, red))
+        return terms, details, (gt, pr)
 
 
 class FactoredGeometryScaleRegr3DPlusNormalGMLoss(
@@ -541,15 +676,17 @@ class NonAmbiguousMaskLoss(MultiLoss):
     def get_name(self):
         return f"NonAmbiguousMaskLoss({type(self.criterion).__name__})"
 
-    def compute_loss(self, batch, preds):
+    def compute_loss(self, batch, preds, red: Reduction = LOCAL):
         logits = preds["non_ambiguous_mask_logits"]  # (B, V, H, W)
         gt = batch["non_ambiguous_mask"]
         v = logits.shape[1]
         total = 0.0
         details = {}
         for i in range(v):
-            li = self.criterion(logits[:, i], gt[:, i]).mean()
+            li = masked_mean(self.criterion(logits[:, i], gt[:, i]), None,
+                             red.data_group)
             total = total + li
+            red.record("mask_bce", li)
             details[f"NonAmbiguousMaskLoss_mask_view{i + 1}"] = li
         details["NonAmbiguousMaskLoss_mask_avg"] = total / v
         return total, details
@@ -563,11 +700,13 @@ class _SetWrapper(MultiLoss):
     def _n_views(self, batch):
         return batch["pts3d"].shape[1]
 
-    def _reduce_rest(self, terms, covered):
+    def _reduce_rest(self, terms, covered, red):
         total = 0.0
         for k, t in enumerate(terms):
             if k not in covered:
-                total = total + _masked_mean(t.loss, t.mask)
+                val = red.mean(t)
+                red.record(t.rep_type, val, t.replicated)
+                total = total + val * red.share(t)
         return total
 
 
@@ -585,28 +724,29 @@ class ConfLoss(_SetWrapper):
     def get_name(self):
         return f"ConfLoss({self.pixel_loss.get_name()})"
 
-    def _conf_reduce(self, term, view_idx, preds):
+    def _conf_reduce(self, term, view_idx, preds, red):
         b = term.loss.shape[0]
         conf = preds["conf"][:, view_idx].reshape(b, -1)
-        return _masked_mean(term.loss * conf - self.alpha * torch.log(conf),
-                            term.mask)
+        return masked_mean(term.loss * conf - self.alpha * torch.log(conf),
+                           term.mask, red.data_group)
 
-    def _conf_terms(self, selected, n_views, preds, details):
+    def _conf_terms(self, selected, n_views, preds, details, red):
         total = 0.0
         for loss_idx, (_, term) in enumerate(selected):
             view_idx = loss_idx % n_views
-            val = self._conf_reduce(term, view_idx, preds)
+            val = self._conf_reduce(term, view_idx, preds, red)
             total = total + val
+            red.record(f"{term.rep_type}_conf", val)
             details[f"{term.rep_type}_conf_loss_view{view_idx + 1}"] = val
         return total
 
-    def compute_loss(self, batch, preds):
+    def compute_loss(self, batch, preds, red: Reduction = LOCAL):
         n_views = self._n_views(batch)
-        terms, details = self.pixel_loss.loss_sets(batch, preds)
+        terms, details = self.pixel_loss.loss_sets(batch, preds, red)
         selected, covered = _select_flat(terms, self.loss_set_indices,
                                          n_views)
-        total = self._conf_terms(selected, n_views, preds, details)
-        return total + self._reduce_rest(terms, covered), details
+        total = self._conf_terms(selected, n_views, preds, details, red)
+        return total + self._reduce_rest(terms, covered, red), details
 
 
 class ExcludeTopNPercentPixelLoss(_SetWrapper):
@@ -623,7 +763,7 @@ class ExcludeTopNPercentPixelLoss(_SetWrapper):
     def get_name(self):
         return f"ExcludeTopNPercentPixelLoss({self.pixel_loss.get_name()})"
 
-    def _exclude_reduce(self, term, batch):
+    def _exclude_reduce(self, term, batch, red):
         valid = (term.mask if term.mask is not None
                  else torch.ones(term.loss.shape, dtype=torch.bool,
                                  device=term.loss.device))
@@ -631,25 +771,26 @@ class ExcludeTopNPercentPixelLoss(_SetWrapper):
         syn = batch.get("is_synthetic")
         if syn is not None:
             keep = torch.where(syn[:, None], valid, keep)
-        return _masked_mean(term.loss, keep)
+        return masked_mean(term.loss, keep, red.data_group)
 
-    def _exclude_terms(self, selected, n_views, batch, details):
+    def _exclude_terms(self, selected, n_views, batch, details, red):
         total = 0.0
         for loss_idx, (_, term) in enumerate(selected):
             view_idx = loss_idx % n_views
-            val = self._exclude_reduce(term, batch)
+            val = self._exclude_reduce(term, batch, red)
             total = total + val
+            red.record(term.rep_type, val)
             details[f"{term.rep_type}_bot{self.bottom_n_percent:g}%_view"
                     f"{view_idx + 1}"] = val
         return total
 
-    def compute_loss(self, batch, preds):
+    def compute_loss(self, batch, preds, red: Reduction = LOCAL):
         n_views = self._n_views(batch)
-        terms, details = self.pixel_loss.loss_sets(batch, preds)
+        terms, details = self.pixel_loss.loss_sets(batch, preds, red)
         selected, covered = _select_flat(terms, self.loss_set_indices,
                                          n_views)
-        total = self._exclude_terms(selected, n_views, batch, details)
-        return total + self._reduce_rest(terms, covered), details
+        total = self._exclude_terms(selected, n_views, batch, details, red)
+        return total + self._reduce_rest(terms, covered, red), details
 
 
 class ConfAndExcludeTopNPercentPixelLoss(ConfLoss,
@@ -674,16 +815,18 @@ class ConfAndExcludeTopNPercentPixelLoss(ConfLoss,
         return ("ConfAndExcludeTopNPercentPixelLoss("
                 f"{self.pixel_loss.get_name()})")
 
-    def compute_loss(self, batch, preds):
+    def compute_loss(self, batch, preds, red: Reduction = LOCAL):
         n_views = self._n_views(batch)
-        terms, details = self.pixel_loss.loss_sets(batch, preds)
+        terms, details = self.pixel_loss.loss_sets(batch, preds, red)
         conf_sel, conf_cov = _select_flat(terms, self.conf_loss_set_indices,
                                           n_views)
         excl_sel, excl_cov = _select_flat(
             terms, self.exclude_loss_set_indices, n_views)
-        total = (self._conf_terms(conf_sel, n_views, preds, details)
-                 + self._exclude_terms(excl_sel, n_views, batch, details))
-        return total + self._reduce_rest(terms, conf_cov | excl_cov), details
+        total = (self._conf_terms(conf_sel, n_views, preds, details, red)
+                 + self._exclude_terms(excl_sel, n_views, batch, details,
+                                       red))
+        return (total + self._reduce_rest(terms, conf_cov | excl_cov, red),
+                details)
 
 
 def released_criterion(cfg: OverallLossConfig = OverallLossConfig()
@@ -734,8 +877,10 @@ __all__ = [
     "LossTerm",
     "MultiLoss",
     "NonAmbiguousMaskLoss",
+    "Reduction",
     "RobustRegressionLoss",
     "SetCriterion",
+    "masked_mean",
     "reduce_terms",
     "released_criterion",
 ]

@@ -22,7 +22,19 @@ that step's batch and the (one step later) state and exits.
 
 Loaders yield batches {"views": {...}, "gt": {...}} of numpy arrays or
 tensors and have `set_epoch`, `__len__` and `__iter__`; batches move to
-the model's device. `build_dataset_mix` evaluates the dataset-mix DSL of
+the model's device.
+
+With a mesh (parallel/mesh.py; JAX's `train(mesh=)`), the parameters are
+sharded before the optimizer is made and each rank's loader yields its
+data rank's rows in lockstep with the other data ranks
+(data/loader.py::get_train_data_loader(data_shard=)). The steps are
+make_train_step's mesh steps; every rank evaluates the whole validation
+set, the best-checkpoint decision is taken from the mean of every rank's
+value so that all agree, checkpoints are written by one rank
+(train/checkpoints.py) between barriers, and rank 0 alone prints and
+writes the log.
+
+`build_dataset_mix` evaluates the dataset-mix DSL of
 the training CLI (train/__main__.py) over the WAI datasets of
 data/wai_datasets.py, whose loaders (data/loader.py) feed `train`.
 """
@@ -46,6 +58,8 @@ from ..models import (
     aug_training_config,
     images_only_config,
 )
+from ..parallel.distributed import all_reduce_mean
+from ..parallel.mesh import shard_params
 from ..utils.device import resolve_device, to_device
 from .checkpoints import load_train_state, save_train_state
 from .losses import OverallLossConfig, overall_loss
@@ -110,7 +124,8 @@ class MetricLogger:
         return self.delimiter.join(f"{name}: {meter}"
                                    for name, meter in self.meters.items())
 
-    def log_every(self, iterable, print_freq: int, header: str = ""):
+    def log_every(self, iterable, print_freq: int, header: str = "",
+                  printing: bool = True):
         start = time.time()
         iter_time = SmoothedValue(fmt="{avg:.4f}")
         n = len(iterable) if hasattr(iterable, "__len__") else None
@@ -119,14 +134,15 @@ class MetricLogger:
             yield i, obj
             iter_time.update(time.time() - end)
             end = time.time()
-            if i % print_freq == 0:
+            if printing and i % print_freq == 0:
                 eta = ""
                 if n:
                     secs = iter_time.avg * (n - i)
                     eta = f"eta: {int(secs // 60)}:{int(secs % 60):02d}"
                 print(f"{header} [{i}{f'/{n}' if n else ''}] {eta} {self} "
                       f"time/it: {iter_time}")
-        print(f"{header} done in {time.time() - start:.1f}s")
+        if printing:
+            print(f"{header} done in {time.time() - start:.1f}s")
 
 
 @dataclasses.dataclass
@@ -180,21 +196,32 @@ def _model_device(model: MapAnything, device) -> torch.device:
     return have
 
 
+def _barrier(mesh) -> None:
+    if mesh is not None:
+        torch.distributed.barrier(group=mesh.group)
+
+
 def train(model: MapAnything, train_loader, loop_cfg: TrainLoopConfig,
           optim_cfg: OptimConfig,
           geom_cfg: GeometricInputConfig = aug_training_config(),
           loss_cfg: OverallLossConfig = OverallLossConfig(),
-          test_loaders: Optional[Dict[str, Any]] = None, device=None):
+          test_loaders: Optional[Dict[str, Any]] = None, device=None,
+          mesh=None):
     """Run the loop of the module docstring on `model` (trained in place)
     and return the final TrainState.
 
     Args:
         device: where the model lives: the card when None (raises without
             one), "cpu" when asked; the model must already be there.
+        mesh: a parallel/mesh.py::Mesh that every rank of it passes, each
+            with its data rank's loader.
     """
     device = _model_device(model, device)
+    main = mesh is None or torch.distributed.get_rank(mesh.group) == 0
     os.makedirs(loop_cfg.output_dir, exist_ok=True)
     log_path = os.path.join(loop_cfg.output_dir, "log.txt")
+    if mesh is not None and getattr(model, "mesh", None) is None:
+        shard_params(model, mesh)
     state = create_train_state(model, optim_cfg)
 
     best_so_far = None
@@ -204,42 +231,52 @@ def train(model: MapAnything, train_loader, loop_cfg: TrainLoopConfig,
         state, best_so_far, ckpt_epoch = load_train_state(last_path, state)
         start_epoch = (ckpt_epoch if ckpt_epoch is not None
                        else state.step // max(1, len(train_loader)))
-        print(f"resumed from {last_path} at step {state.step} (epoch "
-              f"{start_epoch})")
+        if main:
+            print(f"resumed from {last_path} at step {state.step} (epoch "
+                  f"{start_epoch})")
 
-    train_step = make_train_step(model, geom_cfg, loss_cfg)
+    def save(path, epoch):
+        _barrier(mesh)
+        save_train_state(path, state, best_so_far, epoch=epoch)
+        _barrier(mesh)
+
+    train_step = make_train_step(model, geom_cfg, loss_cfg, mesh)
     for epoch in range(start_epoch, loop_cfg.epochs):
         if test_loaders and epoch % loop_cfg.eval_freq == 0:
+            quiet = {} if main else {"printing": False}
             stats = [test_one_epoch(model, loader, loss_cfg, epoch, name,
-                                    device)
+                                    device, **quiet)
                      for name, loader in test_loaders.items()]
             median_val = float(np.median([s["loss_med"] for s in stats]))
+            if mesh is not None:  # one decision, taken alike on every rank
+                median_val = all_reduce_mean(median_val, mesh.group)
             if best_so_far is None or median_val < best_so_far:
                 best_so_far = median_val
-                save_train_state(
-                    os.path.join(loop_cfg.output_dir, "checkpoint-best"),
-                    state, best_so_far, epoch=epoch)
-                print(f"epoch {epoch}: new best val loss {best_so_far:.4f}")
+                save(os.path.join(loop_cfg.output_dir, "checkpoint-best"),
+                     epoch)
+                if main:
+                    print(f"epoch {epoch}: new best val loss "
+                          f"{best_so_far:.4f}")
 
         state, _ = train_one_epoch(
             model, state, train_step, train_loader, epoch, loop_cfg,
-            epoch_generator(loop_cfg.seed, epoch, device), log_path, device)
+            epoch_generator(loop_cfg.seed, epoch, device), log_path, device,
+            main)
 
         if (epoch + 1) % loop_cfg.save_freq == 0:
-            save_train_state(last_path, state, best_so_far, epoch=epoch + 1)
+            save(last_path, epoch + 1)
         if loop_cfg.keep_freq and (epoch + 1) % loop_cfg.keep_freq == 0:
-            save_train_state(
-                os.path.join(loop_cfg.output_dir, f"checkpoint-{epoch}"),
-                state, best_so_far, epoch=epoch + 1)
+            save(os.path.join(loop_cfg.output_dir, f"checkpoint-{epoch}"),
+                 epoch + 1)
     return state
 
 
 def train_one_epoch(model, state, train_step, loader, epoch: int,
                     loop_cfg: TrainLoopConfig, generator, log_path: str,
-                    device=None):
+                    device=None, main: bool = True):
     """One pass over `loader` with train_step(state, batch, generator);
     returns (state, generator). The tripwire of the module docstring runs
-    on every iteration."""
+    on every iteration. Only the `main` rank prints and writes the log."""
     device = resolve_device(device)
     logger = MetricLogger()
     loader.set_epoch(epoch)
@@ -255,7 +292,8 @@ def train_one_epoch(model, state, train_step, loader, epoch: int,
             logger.update(loss=loss_i, grad_norm=norm_i, n_views=n_views_i)
 
     for i, batch in logger.log_every(loader, loop_cfg.print_freq,
-                                     header=f"Epoch [{epoch}]"):
+                                     header=f"Epoch [{epoch}]",
+                                     printing=main):
         dbatch = to_device(batch, device)
         n_views = dbatch["views"]["img"].shape[1]
         state, metrics = train_step(state, dbatch, generator)
@@ -268,6 +306,8 @@ def train_one_epoch(model, state, train_step, loader, epoch: int,
     if pending is not None:
         check(*pending)
 
+    if not main:
+        return state, generator
     with open(log_path, "a") as f:
         f.write(json.dumps({
             "epoch": epoch,
@@ -281,7 +321,7 @@ def train_one_epoch(model, state, train_step, loader, epoch: int,
 def test_one_epoch(model, loader,
                    loss_cfg: OverallLossConfig = OverallLossConfig(),
                    epoch: int = 0, name: str = "val",
-                   device=None) -> Dict[str, float]:
+                   device=None, printing: bool = True) -> Dict[str, float]:
     """Validation on frozen samples (the loader at epoch 0), images only
     with every prior off, as the JAX loop; returns the median and mean
     loss."""
@@ -298,8 +338,9 @@ def test_one_epoch(model, loader,
         "loss_med": float(np.median(losses)) if losses else float("nan"),
         "loss_avg": float(np.mean(losses)) if losses else float("nan"),
     }
-    print(f"[eval {name}] epoch {epoch}: median {stats['loss_med']:.4f} "
-          f"avg {stats['loss_avg']:.4f} over {len(losses)} batches")
+    if printing:
+        print(f"[eval {name}] epoch {epoch}: median {stats['loss_med']:.4f} "
+              f"avg {stats['loss_avg']:.4f} over {len(losses)} batches")
     return stats
 
 
@@ -329,7 +370,10 @@ def _dump_explosion(output_dir: str, batch, state, loss: float, epoch: int,
             flat[f"{grp}.{key}"] = (val.detach().cpu().numpy()
                                     if isinstance(val, torch.Tensor)
                                     else np.asarray(val))
-    np.savez(os.path.join(dump_dir, f"batch_e{epoch}_i{it}.npz"), **flat)
+    rank = (f"_rank{torch.distributed.get_rank()}"
+            if torch.distributed.is_initialized() else "")
+    np.savez(os.path.join(dump_dir, f"batch_e{epoch}_i{it}{rank}.npz"),
+             **flat)
     save_train_state(os.path.join(dump_dir, "checkpoint-post-explosion"),
                      state)
     print(f"LOSS EXPLOSION ({loss}) at epoch {epoch} iter {it}; batch and "

@@ -13,6 +13,10 @@ The released training criterion (configs/loss/overall_loss.yaml):
 :func:`overall_loss` builds it from the composable criteria of
 train/criteria.py. This module holds the elementwise pieces those criteria
 share. Views are stacked on axis 1 of every tensor, (B, V, ...).
+
+Each batch reduction takes an optional data group (`batch_ratio`): with
+one, the batch's rows are split over the group's ranks and the reduction
+is that of the whole batch (train/criteria.py::Reduction).
 """
 
 from __future__ import annotations
@@ -22,8 +26,10 @@ import math
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..geometry import angle_diff_vec3
+from ..ops.ring_attention import all_reduce
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +48,19 @@ class RobustRegressionLoss:
             torch.pow(error_scaled / am2 + 1.0, self.alpha / 2) - 1.0)
 
 
+def batch_ratio(num: torch.Tensor, count: torch.Tensor,
+                group=None) -> torch.Tensor:
+    """num / max(count, 1) for a batch sum and its count; with a data
+    group, both summed over the group's ranks first, in one all_reduce:
+    the numerator differentiably (its backward sums the cotangents over
+    the ranks, ops/ring_attention.py::all_reduce), the count without a
+    gradient."""
+    if group is not None and dist.get_world_size(group) > 1:
+        both = all_reduce(torch.stack([num, count.to(num.dtype)]), group)
+        num, count = both[0], both[1].detach()
+    return num / count.clamp_min(1.0)
+
+
 def bce_with_logits(logits: torch.Tensor,
                     target: torch.Tensor) -> torch.Tensor:
     """Elementwise, numerically stable binary cross-entropy on logits."""
@@ -58,11 +77,12 @@ def _smooth(err: torch.Tensor, beta: float) -> torch.Tensor:
 
 
 def compute_normal_loss(points: torch.Tensor, gt_points: torch.Tensor,
-                        mask: torch.Tensor) -> torch.Tensor:
+                        mask: torch.Tensor, group=None) -> torch.Tensor:
     """Normal consistency from the four cross products of each pixel quad.
 
     points, gt_points (B, H, W, 3), mask (B, H, W) bool. Returns the summed
-    smoothed angle errors over (valid quads * 4 * max(H, W)).
+    smoothed angle errors over (valid quads * 4 * max(H, W)), 0 without a
+    valid quad; both sums over the data group's rows with `group`.
     """
     h, w = points.shape[-3:-1]
 
@@ -84,17 +104,18 @@ def compute_normal_loss(points: torch.Tensor, gt_points: torch.Tensor,
     for p, g, m in zip(quads(points), quads(gt_points), ms):
         ang = angle_diff_vec3(p, g).clamp(min_a, max_a)
         loss = loss + m * _smooth(ang, beta)
-    total_valid = (ms[0] | ms[1] | ms[2] | ms[3]).sum()
-    denom = (total_valid * (4 * max(h, w))).clamp_min(1)
-    return loss.sum() / denom * (total_valid > 0).to(points.dtype)
+    total_valid = (ms[0] | ms[1] | ms[2] | ms[3]).sum().to(points.dtype)
+    return batch_ratio(loss.sum(), total_valid * (4 * max(h, w)), group)
 
 
 def compute_gradient_matching_loss(prediction: torch.Tensor,
                                    gt_target: torch.Tensor,
                                    mask: torch.Tensor,
-                                   scales: int = 4) -> torch.Tensor:
+                                   scales: int = 4,
+                                   group=None) -> torch.Tensor:
     """Multi-scale gradient matching (MiDaS eq. 11) on (B, H, W, C) maps
-    under a (B, H, W) mask."""
+    under a (B, H, W) mask; each scale's sums over the data group's rows
+    with `group`."""
 
     def one_scale(pred, gt, m):
         m = m[..., None].expand(pred.shape)
@@ -103,9 +124,7 @@ def compute_gradient_matching_loss(prediction: torch.Tensor,
               * (m[:, :, 1:] * m[:, :, :-1])).clamp(max=100.0)
         gy = ((diff[:, 1:, :] - diff[:, :-1, :]).abs()
               * (m[:, 1:, :] * m[:, :-1, :])).clamp(max=100.0)
-        n_valid = m.sum()
-        return torch.where(n_valid > 0,
-                           (gx.sum() + gy.sum()) / n_valid.clamp_min(1), 0.0)
+        return batch_ratio(gx.sum() + gy.sum(), m.sum(), group)
 
     mask = mask.to(prediction.dtype)
     total = 0.0
@@ -143,16 +162,31 @@ class OverallLossConfig:
 
 
 def overall_loss(gt: Dict[str, torch.Tensor], preds: Dict[str, torch.Tensor],
-                 cfg: OverallLossConfig = OverallLossConfig()
+                 cfg: OverallLossConfig = OverallLossConfig(), red=None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The released train criterion, scaled by 2 / n_views above two views
-    (training.py:474-477 of the reference). Returns (total, details)."""
-    from .criteria import released_criterion  # it imports this module
+    (training.py:474-477 of the reference). Returns (total, details).
 
-    criterion = released_criterion(cfg)
-    total, details = criterion(gt, preds)
-    n_views = gt["pts3d"].shape[1]
+    `red`, a criteria.Reduction over a data and/or a view group: `gt` and
+    `preds` hold this rank's rows and views; `total` (no gradient) is the
+    loss of the whole batch, the same on every rank, and
+    ``details["_share"]`` this rank's share of it, the scalar to
+    backpropagate: the shares of all ranks add up to the total, and
+    summing each rank's parameter gradients over the ranks gives the
+    total's. The details are the criterion's, of this rank's views."""
+    from .criteria import Reduction, released_criterion  # they import us
+
+    red = Reduction() if red is None else red
+    value, details = released_criterion(cfg)(gt, preds, red)
+    n_views = red.n_views(gt["pts3d"].shape[1])
     if n_views > 2:
-        total = total * (2.0 / n_views)
+        value = value * (2.0 / n_views)
+    if red.local:
+        details["total"] = value
+        return value, details
+    total = value.detach().clone()
+    if red.view_group is not None:
+        dist.all_reduce(total, group=red.view_group)
     details["total"] = total
+    details["_share"] = value / red.n_data
     return total, details

@@ -21,6 +21,15 @@ computes in the model's dtype (bf16 at the released width).
 The step feeds the batch's views, priors included, to the model with the
 geometric config; a stochastic config (the `aug_training` mix) draws its
 masks from the torch.Generator the step is given, the JAX step's `rng`.
+
+With a mesh (parallel/mesh.py; JAX's `jit_train_step(mesh=)`), each rank
+holds its data rank's rows and, for a tensor-parallel model, its part of
+the sharded layers: the masks are those of the whole batch's draw, the
+loss is the whole batch's (criteria.Reduction over the data group), the
+gradients are summed over the data group in flat buckets, the global norm
+counts every sharded gradient's squares once over the model group, and
+AdamW updates the local parts. So the step computes what the one-rank step
+computes on the whole batch.
 """
 
 from __future__ import annotations
@@ -32,8 +41,12 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
+import torch.distributed as dist
+
 from ..models import GeometricInputConfig, MapAnything
 from ..models.mapanything import RELEASED_SCENE_REP
+from ..parallel.distributed import all_reduce_grads
+from .criteria import Reduction
 from .losses import OverallLossConfig, overall_loss
 
 
@@ -77,18 +90,42 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
+def model_norm(model: nn.Module) -> Callable:
+    """The global norm of one tensor per parameter of `model`: local, or,
+    for a tensor-parallel model (parallel/mesh.py::shard_params), the
+    squares of the split parameters' parts summed over the model group and
+    those of the replicated ones counted once."""
+    split = getattr(model, "tp_split", {})
+    if not split:
+        return global_norm
+    group = model.mesh.model_group
+    flags = [name in split for name, _ in model.named_parameters()]
+
+    def norm(tensors) -> torch.Tensor:
+        sq = torch.stack(torch._foreach_norm(tensors)) ** 2
+        is_split = torch.tensor(flags, device=sq.device)
+        parts = torch.stack([sq[is_split].sum(), sq[~is_split].sum()])
+        both = parts.clone()
+        dist.all_reduce(both, group=group)
+        return torch.sqrt(both[0] + parts[1])
+
+    return norm
+
+
 class AdamW:
     """The JAX package's make_optimizer chain on a model's parameters.
 
     `step(grads, norm)` takes one gradient per parameter, in the order of
     `model.named_parameters()`, and updates the parameters in place. It
     clips the gradients in place; `norm`, their global norm, may be passed
-    by a caller that has it already.
+    by a caller that has it already. A tensor-parallel model's parameters
+    are its local parts, and their norm is the model group's (model_norm).
     """
 
     def __init__(self, cfg: OptimConfig, model: nn.Module):
         self.cfg = cfg
         self.schedule = cosine_schedule(cfg)
+        self.norm = model_norm(model)
         named = list(model.named_parameters())
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
@@ -112,7 +149,7 @@ class AdamW:
             if self.mini_step:
                 return
             grads, norm = self.acc, None
-        self._inner_step(grads, global_norm(grads) if norm is None else norm)
+        self._inner_step(grads, self.norm(grads) if norm is None else norm)
         if self.acc is not None:
             for acc in self.acc:
                 acc.zero_()
@@ -185,37 +222,47 @@ def check_released_scene_rep(model: MapAnything) -> None:
 
 
 def make_loss_fn(model: MapAnything, geom_cfg: GeometricInputConfig,
-                 loss_cfg: OverallLossConfig = OverallLossConfig()):
+                 loss_cfg: OverallLossConfig = OverallLossConfig(),
+                 mesh=None):
     """(batch, generator=None) -> (loss, details): the model on the batch's
     views with `geom_cfg` (its masks drawn from `generator`), then the
-    released criterion against the batch's GT."""
+    released criterion against the batch's GT. With a mesh, the batch is
+    this data rank's rows: the loss is the whole batch's and
+    ``details["_share"]`` the rank's share (losses.py::overall_loss)."""
     check_released_scene_rep(model)
+    red = None if mesh is None else Reduction(data_group=mesh.data_group)
+    shard = None if mesh is None else (mesh.data_rank, mesh.n_data)
 
     def loss_fn(batch: Dict, generator: Optional[torch.Generator] = None
                 ) -> tuple:
-        preds = model(batch["views"], geom_cfg, generator)
-        return overall_loss(batch["gt"], preds, loss_cfg)
+        preds = model(batch["views"], geom_cfg, generator, batch_shard=shard)
+        return overall_loss(batch["gt"], preds, loss_cfg, red)
 
     return loss_fn
 
 
 def loss_and_grads(loss_fn, params, batch: Dict,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   data_group=None):
     """Run loss_fn forward and backward; returns (loss, details, grads) with
     one gradient per parameter (zeros where none reached it: a prior
-    encoder whose mask was 0 in this step still decays under AdamW)."""
+    encoder whose mask was 0 in this step still decays under AdamW). The
+    rank's share of the loss is backpropagated where loss_fn gives one,
+    and the gradients are summed over `data_group`."""
     for p in params:
         p.grad = None
     loss, details = loss_fn(batch, generator)
-    loss.backward()
+    details.pop("_share", loss).backward()
     grads = [torch.zeros_like(p) if p.grad is None else p.grad
              for p in params]
+    if data_group is not None:
+        all_reduce_grads(grads, data_group)
     return loss.detach(), details, grads
 
 
 def make_train_step(model: MapAnything, geom_cfg: GeometricInputConfig,
-                    loss_cfg: OverallLossConfig = OverallLossConfig()
-                    ) -> Callable:
+                    loss_cfg: OverallLossConfig = OverallLossConfig(),
+                    mesh=None) -> Callable:
     """Build train_step(state, batch, generator=None) -> (state, metrics).
 
     `batch` holds "views" (the model inputs, priors included) and "gt" (the
@@ -225,14 +272,21 @@ def make_train_step(model: MapAnything, geom_cfg: GeometricInputConfig,
     config without one raises ValueError. metrics: "loss", every loss
     detail, and "grad_norm", the global norm before clipping; all are
     tensors on the model's device.
+
+    With `mesh` (parallel/mesh.py, after shard_params and before
+    create_train_state for a tensor-parallel model), `batch` holds this
+    data rank's rows (shard_batch) and the step is the module docstring's:
+    the loss, grad_norm and updated parameters of the one-rank step on the
+    whole batch, and the loss details are the whole batch's too.
     """
-    loss_fn = make_loss_fn(model, geom_cfg, loss_cfg)
+    loss_fn = make_loss_fn(model, geom_cfg, loss_cfg, mesh)
+    data_group = None if mesh is None else mesh.data_group
 
     def train_step(state: TrainState, batch: Dict,
                    generator: Optional[torch.Generator] = None):
         loss, details, grads = loss_and_grads(
-            loss_fn, state.optimizer.params, batch, generator)
-        norm = global_norm(grads)
+            loss_fn, state.optimizer.params, batch, generator, data_group)
+        norm = state.optimizer.norm(grads)
         metrics = {"loss": loss,
                    **{k: v.detach() for k, v in details.items()},
                    "grad_norm": norm}
@@ -256,4 +310,5 @@ __all__ = [
     "make_loss_fn",
     "make_optimizer",
     "make_train_step",
+    "model_norm",
 ]

@@ -228,15 +228,139 @@ def test_cli_trains_checkpoints_and_resumes(wai_root, tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("how", ["tp", "world_size"])
 def test_cli_refuses_parallel_runs(wai_root, tmp_path, monkeypatch, how):
-    """Tensor and data parallelism are not ported (ROADMAP A11): the CLI
-    raises rather than train unsynchronised replicas."""
-    args = cli_args(wai_root, tmp_path)
-    if how == "tp":
-        args += ["--tp", "2"]
-    else:
-        monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    """A world that --tp does not divide raises before any process group
+    is made: --tp 2 in one process, and --tp 2 under a torchrun world of
+    3."""
+    args = cli_args(wai_root, tmp_path) + ["--tp", "2"]
+    if how == "world_size":
+        monkeypatch.setenv("WORLD_SIZE", "3")
+    with pytest.raises(ValueError, match="does not divide"):
         main(args)
+
+
+def _cli_rank(group, root, out):
+    """main(--tp 2) on a 2-rank world: one model group of 2."""
+    import torch.distributed as dist
+
+    state = main(cli_args(root, out) + ["--tp", "2"])
+    rank = dist.get_rank(group)
+    mesh = state.model.mesh
+    np.savez(os.path.join(out, f"rank{rank}.npz"), step=state.step,
+             mesh=[mesh.n_data, mesh.n_model, mesh.data_rank,
+                   mesh.model_rank],
+             split=len(state.model.tp_split))
+
+
+def test_cli_trains_tensor_parallel_under_two_ranks(wai_root, tmp_path):
+    """`main([..., "--tp", "2"])` in a spawned 2-rank gloo world trains the
+    tiny model on the WAI tree with its layers split over both ranks and
+    writes one checkpoint-last, in the released layout: it loads into a
+    one-rank model."""
+    from mapanything_tpu_torch.parallel import spawn_cpu_ranks
+
+    spawn_cpu_ranks(_cli_rank, 2, wai_root, str(tmp_path))
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    for r, res in enumerate(ranks):
+        assert int(res["step"]) == 2
+        assert res["mesh"].tolist() == [1, 2, 0, r]
+        assert int(res["split"]) > 0
+    log = [json.loads(line) for line in (tmp_path / "log.txt").open()]
+    assert len(log) == 1 and log[0]["steps"] == 2
+    assert math.isfinite(log[0]["train_loss_avg"])
+    assert (tmp_path / "checkpoint-best").exists()
+    fresh = PS.create_train_state(
+        MapAnything(MapAnythingConfig(dtype=torch.float32, **TINY_CONFIG),
+                    device="cpu"), PS.OptimConfig())
+    fresh, _, epoch = load_train_state(str(tmp_path / "checkpoint-last"),
+                                       fresh)
+    assert epoch == 1 and fresh.step == 2
+    assert all(torch.isfinite(p).all() for p in fresh.model.parameters())
+
+
+def _recording_images(images):
+    """PLoop.make_train_step wrapped to keep every step's images."""
+    make = PLoop.make_train_step
+
+    def recording(*args, **kw):
+        step = make(*args, **kw)
+
+        def run(state, batch, generator=None):
+            images.append(batch["views"]["img"].numpy().copy())
+            return step(state, batch, generator)
+        return run
+    return recording
+
+
+def _dp_cli_rank(group, root, out):
+    """main(--tp 1) at half the image budget on a 2-rank world: two data
+    ranks; every step's images."""
+    import torch.distributed as dist
+
+    images = []
+    PLoop.make_train_step = _recording_images(images)
+    state = main(cli_args(root, out)
+                 + ["--tp", "1", "--max_imgs_per_device", "2"])
+    mesh = state.model.mesh
+    np.savez(os.path.join(out, f"rank{dist.get_rank(group)}.npz"),
+             step=state.step, mesh=[mesh.n_data, mesh.n_model,
+                                    mesh.data_rank, mesh.model_rank],
+             images=np.stack(images))
+
+
+def test_cli_data_ranks_train_on_row_halves(wai_root, tmp_path,
+                                            monkeypatch):
+    """`main([..., "--tp", "1"])` in a spawned 2-rank gloo world at half the
+    image budget a rank: two data ranks that take, step for step, the two
+    halves of the rows one process draws at the whole budget (the same
+    number of steps and views, the images bitwise)."""
+    from mapanything_tpu_torch.parallel import spawn_cpu_ranks
+
+    ref = []
+    monkeypatch.setattr(PLoop, "make_train_step", _recording_images(ref))
+    main(cli_args(wai_root, tmp_path / "one"))
+    ref = np.stack(ref)
+    assert ref.shape[:3] == (2, 2, 2)  # 2 steps of 2 samples x 2 views
+    (tmp_path / "dp").mkdir()
+    spawn_cpu_ranks(_dp_cli_rank, 2, wai_root, str(tmp_path / "dp"))
+    for r in range(2):
+        res = dict(np.load(tmp_path / "dp" / f"rank{r}.npz"))
+        assert int(res["step"]) == 2
+        assert res["mesh"].tolist() == [2, 1, r, 0]
+        np.testing.assert_array_equal(res["images"], ref[:, r:r + 1])
+
+
+class _Batches:
+    """A batch sampler of fixed index lists."""
+
+    def __init__(self, batches):
+        self.batches, self.epoch = batches, None
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_row_shard_sampler_drops_the_rows_n_does_not_divide(n):
+    """Data rank d of n takes rows [d k, (d + 1) k), k = len // n, of each
+    batch; the last len % n rows are dropped and a batch shorter than n is
+    skipped on every rank, so the ranks step in lockstep."""
+    batches = [[0, 1, 2, 3, 4], [5, 6, 7], [8]]
+    want = {2: [[[0, 1], [5]], [[2, 3], [6]]],
+            3: [[[0], [5]], [[1], [6]], [[2], [7]]]}[n]
+    for d in range(n):
+        inner = _Batches(batches)
+        sampler = PL.RowShardSampler(inner, d, n)
+        sampler.set_epoch(3)
+        assert inner.epoch == 3
+        assert list(sampler) == want[d]
+    with pytest.raises(ValueError, match="data rank"):
+        PL.RowShardSampler(_Batches(batches), n, n)
 
 
 def test_cli_runs_on_the_card_unless_asked(wai_root, tmp_path):
