@@ -81,7 +81,12 @@ Phases, in order (any failure exits non-zero and prints no result line):
      time per call, the device ops per call, the busy share (device time
      over the median wall time of the untraced calls) and the ten device
      ops that take the most time; a profiler that cannot trace the card
-     leaves these unmeasured and fails nothing.
+     leaves these unmeasured and fails nothing. Every trace is read from
+     kineto's raw events (perf/timing.py::read_trace; the profiler's own
+     FunctionEvent tree took ~5 s a trace, 218 s of a whole run, NVIDIA
+     H100 80GB HBM3, 700.00 W): one more traced 2-view call read both ways
+     must give the same device ops and the same device and host self µs
+     by name (1e-6 relative), with each reading's seconds.
   4. Training end to end at full width: a second MapAnything(
      MapAnythingConfig()) with the model's own seeded init (weights
      N(0, 0.02^2) from a seeded torch.Generator, biases 0, LayerNorm and
@@ -164,15 +169,16 @@ Phases, in order (any failure exits non-zero and prints no result line):
      1 warm-up and 3 timed calls (median wall, views/s, peak GiB, 48
      forward launches per call) and a profiled call; the two programs'
      pts3d and depth within rel-L2 1e-2. 7c, config 5: 100 views, the
-     chunked program then "auto", the same readings; demo_colmap's export
+     chunked program then "auto", the same readings from 1 timed call
+     each (a call takes ~2.7 s); demo_colmap's export
      of the chunked call's outputs into a temporary directory, read back
      with utils/colmap_io.py: 100 cameras, 100 images, points, unit
      quaternions whose rotations are the predicted poses' (1e-4). After
      each, B2 at the many-view global shape ((1, 43904, 16, 64) / 43809
      and (1, 136960, 16, 64) / 136901) against its plain version on the
      first and the last 192 real rows (limit 1e-2, as phase 2), its device
-     time, bound, flash SDPA's time and host µs. 0 probe and baseline
-     launches.
+     time, bound, flash SDPA's time and host µs (graphs of 3 calls, 3 host
+     calls: B2_REPS). 0 probe and baseline launches.
   8. Training with geometric priors at full width and depth, on phase 4's
      seeded init (the released config, bf16 compute, fp32 parameters),
      every batch from make_synthetic_batch with every prior:
@@ -195,13 +201,14 @@ Phases, in order (any failure exits non-zero and prints no result line):
      again in the recompute). Then the checkpointed `aug_training` step at
      1 x 24 views (the stage-2 recipe; global attention (1, 32896, 16, 64)
      / 32857): 1 warm-up and 2 timed steps, wall and peak GiB.
-     8c, train/loop.py::train at full width on 1 x 2-view batches, 2
-     epochs of 2 batches and a validation loader, in a temporary
-     directory (free disk printed first; too little fails the phase):
+     8c, train/loop.py::train at full width, the trunk cut to
+     TRAINER_TRUNK_DEPTH = 4 layers (checkpoint bytes set its time), on 1 x
+     2-view batches, 2 epochs of 2 batches and a validation loader, in a
+     temporary directory (free disk printed first; too little fails the phase):
      uninterrupted, and killed at (epoch 1, iter 1) then resumed from
      checkpoint-last, both under deterministic algorithms: the same step
-     counts, the parameters within rel-L2 1e-3; each checkpoint's GiB and
-     save and load seconds (5 writes, 1 load).
+     counts, the parameters within rel-L2 1e-3; each checkpoint's GiB and save
+     and load seconds (5 writes, 1 load).
      8d, at p = 1 on a one-process NCCL group: config 3 (intrinsics, 4x4
      poses, the metric flag) through InferencePipeline(view_shard_group=)
      against the unsharded call (phase 5's limits and launch counts, with
@@ -410,37 +417,74 @@ Phases, in order (any failure exits non-zero and prints no result line):
      finite, of the expected shapes.
 
  15. Multi-GPU training (parallel/mesh.py, the mesh step of train/step.py) at
-     full width and depth: the released MapAnythingConfig() in bf16 with fp32
-     parameters, the model's own seeded init, a global batch of 2 x 4 views at
-     518^2, images_only and aug_training. 15a, on one card: two processes share
-     it over a gloo group (NCCL refuses two ranks on one device; gloo stages
-     the CUDA tensors through the host) and run parallel/mesh_check.py at DP 2
-     and then at TP 2 (`--tp 1,2`): rank 0's one-rank step on the whole batch
-     (once a task) against each mesh step from the same weights, loss and
-     grad_norm within 1e-2, the gradients of every parameter (gathered for TP)
-     within 2e-2 rel-L2 as one vector (phase 4's gradient limit) and within
-     5e-2 each, the updated parameters within 2e-2 as one vector, the worst
-     single parameter of each printed with its name; each rank's kernel
-     launches (48 forward-with-lse, dK/dV and dQ per rank-step, no plain
-     launch) and, for images_only, its wall, device ms and peak GiB over
-     MESH_TIMED_STEPS more steps. 15b, the training kernels against their plain versions (phase 2b's
+     full width (15a's trunk cut, 15c at full depth): the released
+     MapAnythingConfig() in bf16 with fp32 parameters, the model's own seeded
+     init, a global batch of 2 x 4 views at 518^2, images_only and
+     aug_training. 15a, on one card: two processes share it over a gloo group
+     (NCCL refuses two ranks on one device; gloo stages the CUDA tensors
+     through the host) and run parallel/mesh_check.py at DP 2 and then at TP 2
+     (`--tp 1,2`), the trunk cut to MESH_TRUNK_DEPTH = 4 layers (`--trunk_depth
+     4`; the encoder whole): rank 0's one-rank step on the whole batch (once a
+     task) against each mesh step from the same weights, loss and grad_norm
+     within 1e-2, the gradients of every parameter (gathered for TP) within
+     2e-2 rel-L2 as one vector (phase 4's gradient limit) and within 5e-2 each,
+     the updated parameters within 2e-2 as one vector, the worst single
+     parameter of each printed with its name; each rank's kernel launches (28
+     forward-with-lse, dK/dV and dQ per rank-step, no plain launch) and, for
+     images_only, its wall, device ms and peak GiB over MESH_TIMED_STEPS more
+     steps. 15b, the training kernels against their plain versions (phase 2b's
      method and limits, no baseline) at the tensor-parallel head counts, H = 8
      (TP 2) and H = 4 (TP 4), q, k and v strided views of a local fused qkv
      (token stride 3 * 1024 / tp): the encoder (2, 1408) / 1370, frame (2,
      1369) and 4-view global (1, 5504) / 5477 shapes, and 15a's TP 2 ones (8,
      1408) / 1370, (8, 1369) and (2, 5504) / 5477. 15c, only where the machine
      has two or more cards: mesh_check under NCCL at DP 2 and TP 2, with four
-     cards DP 2 x TP 2 and ring_check's view-sharded train step at p = 2 and 4,
-     one card per rank; with one card it prints "phase 15c: skipped, 1 card".
+     cards DP 2 x TP 2 (at full depth) and ring_check's view-sharded train step
+     at p = 2 and 4, one card per rank; with one card it prints "phase 15c:
+     skipped, 1 card".
+
+ 16. Training the model variants and the criteria outside the released
+     recipe at full width and depth (encoders L, trunk 1024 x 24 x 16, DPT
+     256; bf16 with fp32 parameters, the model's own seeded init,
+     make_synthetic_batch on the card), one model at a time. 16c first:
+     the forward with lse, dK/dV, dQ and the pair against their plain
+     versions (phase 2b's method and limits, over q's real rows for the
+     outputs, the lse and dQ and the keys' for dK and dV) at
+     VARIANT_SHAPES, where q and k differ in length (the cross trunk's
+     gathered contexts, the extra token's one-row q), q and k are new
+     tensors beside a strided v (RoPE), q is scaled (entropy) or the
+     tokens are ragged (RADIO-L), each with device ms, bound, library ms
+     and host µs; and dO as an expanded zero and as the slice of a wider
+     row through the Function's backward. 16a, the released recipe's
+     make_train_step (images_only, OptimConfig(warmup_steps=2,
+     total_steps=100)) on the global trunk, the cross trunk (2 and 4
+     views), the ablations preset, RADIO-L and CroCo-L at 512x384 and the
+     campointmap+pose and pointmap+raydirs+depth+pose families: on the
+     fresh model at 1 view, train/grad_check.py::compare with phase 4's
+     limits (the loss auto against math within 1e-2 relative, the pulled-
+     back gradient over all parameters and over the qkv weights within
+     2e-2 rel-L2, each beside its noise floor; where a floor exceeds 2e-2,
+     flash at most 1.1x as far as bf16 math from an fp32 twin); then 1
+     warm-up and 3 timed steps, each with exactly one forward with lse,
+     one dK/dV and one dQ launch per attention (48; 168 for the cross
+     trunk) and nothing else, a finite loss and grad_norm, parameters that
+     changed; the median step wall, device ms and busy share of a traced
+     step, peak GiB. 16b, the composed step (forward, criterion, backward,
+     AdamW) with 16a's checks: ConfLoss(Regr3D) on pointmap, ConfLoss(
+     PointsPlusScaleRegr3D) on raymap+depth (each + 0.3 x the mask loss),
+     ConfAndExcludeTopNPercentPixelLoss(DisentangledFactoredGeometryScale
+     Regr3DPlusNormalGMLoss) on pointmap+raydirs+depth+pose, and
+     FactoredGeometryScaleRegr3D(FactoredLLoss()) on the released model.
 
 The last two lines are the kernels' JSON summary (each kernel's launches:
-the counts phases 3-15 read, summed) and
+the counts phases 3-16 read, summed) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import math
@@ -538,10 +582,13 @@ VS_WARMUP, VS_STEPS = 2, 5
 # phase 7: BASELINE configs 3 (4 views with intrinsics and poses), 4 (32
 # views, confidence mask) and 5 (100 views, memory-efficient), at 518^2
 PRIOR_VIEWS, PRIOR_CALLS = 4, 5
-MANY_VIEWS = {32: 3, 100: 3}  # views: timed calls per program
+MANY_VIEWS = {32: 3, 100: 1}  # views: timed calls per program
 CONF_PERCENTILE = 10.0
 FUSION_LIMIT = 1e-4  # the card's fused features against the CPU's, fp32
 SAMPLE_ROWS = 192  # B2 at the many-view shapes: first and last real rows
+# B2 at those shapes takes 15-150 ms a call and flash SDPA 26-250 ms: a
+# graph of 3 calls after 1 warm-up times them, and 3 calls the host's µs
+B2_REPS = {"reps": 3, "warmup": 1}
 PATCHES = 37 * 37  # per view at 518^2
 
 
@@ -550,13 +597,13 @@ def fail(msg: str) -> int:
     return 1
 
 
-def kernel_ms(fn) -> float:
-    """Device ms per call of a kernel or a library call: a CUDA graph of 20
-    back-to-back calls, replayed between two CUDA events
+def kernel_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device ms per call of a kernel or a library call: a CUDA graph of
+    `reps` (20) back-to-back calls, replayed between two CUDA events
     (perf/timing.py::device_ms). No host work of the wrapper enters it."""
     from mapanything_tpu_torch.perf.timing import device_ms
 
-    return device_ms(fn)
+    return device_ms(fn, reps=reps, warmup=warmup)
 
 
 def plain_ms(fn) -> float:
@@ -568,13 +615,13 @@ def plain_ms(fn) -> float:
     return events_ms(fn)
 
 
-def host_us(fn) -> float:
+def host_us(fn, reps: int = 20) -> float:
     """A wrapper's host µs per call (perf/timing.py::host_us). Phase 2
     holds the forward's own wrapper (ops/flash_attention.py::_fwd_cuda)
     beside the baseline's, which does the same work."""
     from mapanything_tpu_torch.perf.timing import host_us as measure
 
-    return measure(fn)
+    return measure(fn, reps=reps)
 
 
 def rel_l2(a, b) -> float:
@@ -676,13 +723,13 @@ def sdpa_layout(q, k, v, real):
             v[:, :real].transpose(1, 2).contiguous())
 
 
-def library_fwd_ms(torch, qh, kh, vh) -> float:
+def library_fwd_ms(torch, qh, kh, vh, **reps) -> float:
     """F.scaled_dot_product_attention with the flash backend."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        return kernel_ms(lambda: sdpa(qh, kh, vh))
+        return kernel_ms(lambda: sdpa(qh, kh, vh), **reps)
 
 
 def library_fwd_lse_ms(torch, qh, kh, vh) -> float:
@@ -723,7 +770,7 @@ def baseline_errors(outputs) -> dict:
 
 def print_row(kname, case, shape, row):
     errs = {key: f"{val:.3e}" for key, val in row.items()
-            if key.endswith(("_rel", "_rel_l2"))}
+            if key.endswith(("_rel", "_rel_l2", "_over_products"))}
     mma = (f" mma.sync {row['mma_ms']:.4f} ms" if "mma_ms" in row else "")
     lib = row["library_ms"]
     print(f"{kname} {case} {tuple(shape)}: {errs} kernel {row['ms']:.4f} ms"
@@ -1120,13 +1167,60 @@ def check_outputs(out, num_views, torch, batch=1) -> str | None:
     return None
 
 
+# what this script's own traces cost: their count, their seconds in all
+# and the seconds spent reading them (printed at the end)
+TRACES = {"traces": 0, "s": 0.0, "read_s": 0.0}
+READER_LIMIT = 1e-6  # read_trace against the profiler's own events
+
+
 def profile_calls(torch, call, wall_ms, calls: int = 3, match=None) -> dict:
     """Device time per `call()` from torch.profiler, and its share of
     `wall_ms`, the median wall time of the untraced calls
     (perf/timing.py::profile_calls)."""
     from mapanything_tpu_torch.perf.timing import profile_calls as profile
 
-    return profile(call, wall_ms, calls, match)
+    t0 = time.perf_counter()
+    res = profile(call, wall_ms, calls, match)
+    TRACES["traces"] += 1
+    TRACES["s"] += time.perf_counter() - t0
+    TRACES["read_s"] += res.get("read_s", 0.0)
+    return res
+
+
+def trace_reader_check(torch, call) -> tuple:
+    """perf/timing.py::read_trace (kineto's raw events, how every trace here
+    is read) against the profiler's own FunctionEvents on one traced
+    `call()`: the same device ops, device µs by name and host self µs by
+    name (READER_LIMIT relative), and the seconds each reading took.
+    Returns (readings, failure or None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mapanything_tpu_torch.perf.timing import read_trace, read_trace_events
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw = read_trace(prof)
+    t1 = time.perf_counter()
+    ref = read_trace_events(prof)
+    t2 = time.perf_counter()
+
+    def worst(got, want):
+        if got.keys() != want.keys():
+            return math.inf
+        return max((abs(got[k] - want[k]) / max(abs(want[k]), 1e-3)
+                    for k in want), default=0.0)
+
+    res = {"raw_read_s": t1 - t0, "events_read_s": t2 - t1,
+           "device_ops": [raw[2], ref[2]], "host_ops": len(ref[1]),
+           "device_worst_rel": worst(raw[0], ref[0]),
+           "host_worst_rel": worst(raw[1], ref[1])}
+    if (raw[2] != ref[2] or not res["device_worst_rel"] <= READER_LIMIT
+            or not res["host_worst_rel"] <= READER_LIMIT):
+        return res, f"read_trace against the profiler's events: {res}"
+    return res, None
 
 
 def run_slice(torch, fa, model, pipe, load_images, folder, num_views,
@@ -1375,17 +1469,20 @@ def b2_sampled(torch, fa, F, views: int):
            "n_valid": n_valid, "sampled_rows": 2 * SAMPLE_ROWS,
            "max_abs_err": float((got - ref).abs().max()),
            "rel_l2": rel_l2(got, ref),
-           "ms": kernel_ms(lambda: fa.flash_attention(q, k, v, n_valid)),
+           "ms": kernel_ms(lambda: fa.flash_attention(q, k, v, n_valid),
+                           **B2_REPS),
            "plain_ms": plain_ms(
                lambda: fa.flash_attention_plain(q_rows, k, v, n_valid)),
            "plain_ms_of": f"the {2 * SAMPLE_ROWS} sampled rows only",
            "host_us": host_us(
-               lambda: fa._fwd_cuda(q, k, v, n_valid, with_lse=False))}
+               lambda: fa._fwd_cuda(q, k, v, n_valid, with_lse=False),
+               reps=B2_REPS["reps"])}
     flops = fa.attention_flops(shape[0], shape[1], n_valid, shape[2],
                                shape[3])
     row["tflops"] = flops / row["ms"] / 1e9
     row.update(bound(F, "fwd", shape, n_valid))
-    row["library_ms"] = library_fwd_ms(torch, *sdpa_layout(q, k, v, n_valid))
+    row["library_ms"] = library_fwd_ms(torch, *sdpa_layout(q, k, v, n_valid),
+                                       **B2_REPS)
     print(f"B2 {row['at']} {tuple(shape)} n_valid={n_valid}: max_abs="
           f"{row['max_abs_err']:.3e} rel_l2={row['rel_l2']:.3e} on "
           f"{2 * SAMPLE_ROWS} rows; kernel {row['ms']:.4f} ms "
@@ -1652,6 +1749,9 @@ CKPT_LOSS_LIMIT, CKPT_GRAD_LIMIT = 1e-5, 1e-3
 RESUME_LIMIT = 1e-3
 MASK_SEED = 8  # the generator of phase 8's stochastic steps
 CHECKPOINT_WRITES = 5
+# 8c's trunk: its time is the checkpoints' bytes, ~0.6 of them at 4 of 24
+# layers
+TRAINER_TRUNK_DEPTH = 4
 
 
 PROFILER_WORKERS = 4
@@ -2084,6 +2184,7 @@ def training_with_priors(torch, fa, fp, F, load_images):
     from mapanything_tpu_torch.models.tasks import task_config
     from mapanything_tpu_torch.parallel import init_distributed
     from mapanything_tpu_torch.parallel import ring_check as RC
+    from mapanything_tpu_torch.parallel.mesh_check import cut_trunk
     from mapanything_tpu_torch.train import loop as L
     from mapanything_tpu_torch.train import seq_parallel as SP
     from mapanything_tpu_torch.train import step as T
@@ -2143,8 +2244,10 @@ def training_with_priors(torch, fa, fp, F, load_images):
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    res, launches, bad = trainer_check(torch, fa, T, L, make_model,
-                                       make_synthetic_batch)
+    res, launches, bad = trainer_check(
+        torch, fa, T, L,
+        lambda: make_model(**cut_trunk(TRAINER_TRUNK_DEPTH)),
+        make_synthetic_batch)
     bad = report("8c, train() with kill and resume", t0, res, launches, bad)
     if bad:
         return counts, bad
@@ -5043,8 +5146,15 @@ def offline_path(torch, fa, fp, F):
 # phase 15: multi-GPU training, data and tensor parallelism
 MESH_TIMED_STEPS = 1  # after the compared step, images_only only
 MESH_TIMEOUT = 900
-# 48 forward-with-lse, dK/dV and dQ launches per rank-step at any head count
-MESH_STEP_LAUNCHES = {"fwd_lse": 48, "dkv": 48, "dq": 48}
+# 15a's trunk: gloo stages every collective through the host, so its steps
+# cost about their parameters' and activations' bytes; the released trunk
+# cut to 4 of its 24 layers keeps every sharded layer kind (the encoder's
+# 24 whole, a frame and a global layer twice) at ~0.4 of the bytes
+MESH_TRUNK_DEPTH = 4
+# the forward-with-lse, dK/dV and dQ launches per rank-step at any head
+# count: the encoder's 24 attentions and one per trunk layer
+MESH_STEP_LAUNCHES = dict.fromkeys(("fwd_lse", "dkv", "dq"),
+                                   24 + MESH_TRUNK_DEPTH)
 # the training kernels at the tensor-parallel head counts: H = 16 / tp,
 # q, k and v strided views of a local fused qkv (token stride 3 * H * 64)
 TP_SHAPES = [
@@ -5084,7 +5194,7 @@ def shared_card_mesh_check(args, world: int, folder: str):
                 [sys.executable, "-m",
                  "mapanything_tpu_torch.parallel.mesh_check", *args,
                  "--backend", "gloo", "--steps", str(MESH_TIMED_STEPS),
-                 "--out", out],
+                 "--trunk_depth", str(MESH_TRUNK_DEPTH), "--out", out],
                 cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT))
         deadline = time.monotonic() + MESH_TIMEOUT
         codes = [proc.wait(timeout=max(deadline - time.monotonic(), 1))
@@ -5250,6 +5360,430 @@ def multi_gpu_training(torch, fa, fp, F):
     return rows, counts, None
 
 
+# phase 16: training the model variants and the criteria outside the
+# released recipe at full width and depth, and the training kernels at the
+# shapes only the variants give them (phase 13's VARIANT_SHAPES)
+VARIANT_TRAIN_SEED = 16
+VARIANT_TIMED_STEPS = 3
+# the predictions of an own-init model at the released width are flat
+# enough that a bf16-level change of attention can move the gradient past
+# GRAD_LIMIT; where the noise floor itself (math on an image perturbed by
+# 1e-3) exceeds it, flash is held to bf16 math's distance from an fp32
+# twin instead (FLOOR_RATIO, phase 13's gate)
+
+
+def variant_training_rows(torch, fa, F):
+    """16c: the forward with lse, dK/dV, dQ and the pair (delta + dK/dV +
+    dQ) against their plain versions at VARIANT_SHAPES (phase 2b's method
+    and limits: max-abs over the plain's max-abs and rel-L2 over the real
+    rows, q's for the outputs, the lse and dQ, the keys' for dK and dV),
+    each with device ms, bound, the library call's time (flash SDPA's
+    forward with lse; FA2's backward for the pair) and host µs. With one
+    key, dQ and dK are held against the size of their products instead
+    (see below). Returns ({kernel name or PAIR: [row]}, failure or
+    None)."""
+    rows = {name: [] for name in [*TRAINING_KERNELS, PAIR]}
+    for i, (name, shape, keys, n_valid, layout) in enumerate(VARIANT_SHAPES):
+        b, n, h, d = shape
+        q, k, v = variant_inputs(torch, shape, keys, n_valid, layout,
+                                 1600 + i)
+        real_q = n if n_valid is None else n_valid
+        real_k = keys if n_valid is None else n_valid
+        gen = torch.Generator(device="cuda").manual_seed(1700 + i)
+        dout = torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        dout[:, real_q:] = 0  # the row mask's backward zeroes them
+        out, lse = fa.flash_attention_fwd_lse(q, k, v, n_valid)
+        ref_out, ref_lse = fa.flash_attention_fwd_lse_plain(q, k, v, n_valid)
+        delta = fa.attention_delta(dout, ref_out)
+        bwd_args = (q, k, v, dout, ref_lse, delta, n_valid)
+        pair_args = (q, k, v, ref_out, ref_lse, dout, n_valid)
+        dk, dv = fa.flash_attention_dkv(*bwd_args)
+        ref_dk, ref_dv = fa.flash_attention_dkv_plain(*bwd_args)
+        dq = fa.flash_attention_dq(*bwd_args)
+        ref_dq = fa.flash_attention_dq_plain(*bwd_args)
+        pair = fa.flash_attention_bwd(*pair_args)
+        torch.cuda.synchronize()
+
+        def q_rows(got, ref):
+            return got[:, :real_q], ref[:, :real_q]
+
+        def k_rows(got, ref):
+            return got[:, :real_k], ref[:, :real_k]
+
+        lib = sdpa_layout(q, k, v, real_k)
+        cases = [
+            ("flash_attn_fwd_lse",
+             {"out": q_rows(out, ref_out),
+              "lse": q_rows(lse.transpose(1, 2), ref_lse.transpose(1, 2))},
+             lambda: fa.flash_attention_fwd_lse(q, k, v, n_valid),
+             lambda: fa.flash_attention_fwd_lse_plain(q, k, v, n_valid),
+             "fwd_lse", library_fwd_lse_ms(torch, *lib)),
+            ("flash_attn_bwd_dkv",
+             {"dk": k_rows(dk, ref_dk), "dv": k_rows(dv, ref_dv)},
+             lambda: fa.flash_attention_dkv(*bwd_args),
+             lambda: fa.flash_attention_dkv_plain(*bwd_args), "dkv", None),
+            ("flash_attn_bwd_dq", {"dq": q_rows(dq, ref_dq)},
+             lambda: fa.flash_attention_dq(*bwd_args),
+             lambda: fa.flash_attention_dq_plain(*bwd_args), "dq", None),
+            (PAIR, {"dq": q_rows(pair[0], ref_dq), "dk": k_rows(pair[1],
+                                                                ref_dk),
+                    "dv": k_rows(pair[2], ref_dv)},
+             lambda: fa.flash_attention_bwd(*pair_args),
+             lambda: fa.flash_attention_bwd_plain(*pair_args), "bwd",
+             library_bwd_ms(torch, *lib, dout)),
+        ]
+        # with one key the softmax has no derivative in its logit: dS, dQ
+        # and dK are zero in exact arithmetic, and the kernel's and the
+        # plain version's are both rounding noise of dO.V - delta. Those
+        # two are held against the size their products would have
+        # without the cancellation, |dO| |V| |Q or K| / sqrt(d)
+        degenerate = {}
+        if real_k == 1:
+            scale = (dout.float().abs().max() * v.float().abs().max()
+                     / math.sqrt(d))
+            degenerate = {"dq": scale * k.float().abs().max(),
+                          "dk": scale * q.float().abs().max()}
+        for kname, outputs, kernel_fn, plain_fn, work, library in cases:
+            row = {"at": name, "shape": list(shape), "keys": keys,
+                   "n_valid": n_valid, "layout": layout,
+                   "strides": [list(x.stride()[:3]) for x in (q, k, v)],
+                   **errors_of(outputs)}
+            for oname in set(degenerate) & set(outputs):
+                got, ref = outputs[oname]
+                row[f"{oname}_max_abs_over_products"] = float(
+                    (got.float() - ref.float()).abs().max()
+                    / degenerate[oname])
+                del row[f"{oname}_max_abs_rel"], row[f"{oname}_rel_l2"]
+            row["ms"] = kernel_ms(kernel_fn)
+            row["plain_ms"] = plain_ms(plain_fn)
+            row["host_us"] = host_us(kernel_fn)
+            flops, _ = F.attention_kernel_work(work, b, n, real_k, h, d)
+            row["tflops"] = flops / row["ms"] / 1e9
+            row.update(bound(F, work, shape, real_k))
+            row["library_ms"] = library
+            rows[kname].append(row)
+            print_row(f"16c {kname}", f"{name} keys={keys} {layout}", shape,
+                      row)
+            bad = {key: val for key, val in row.items()
+                   if key.endswith(("_max_abs_rel", "_rel_l2",
+                                    "_over_products"))
+                   and not val <= ERR_LIMIT}
+            if bad:
+                return rows, f"16c {kname} disagrees with plain at {name}: " \
+                             f"{bad}"
+        del (q, k, v, dout, out, lse, ref_out, ref_lse, delta, dk, dv, dq,
+             ref_dk, ref_dv, ref_dq, pair, cases, bwd_args, pair_args, lib)
+        torch.cuda.empty_cache()
+    return rows, None
+
+
+def layout_repairs(torch, fa):
+    """16c: layouts of dO that autograd can hand the backward, an expanded
+    (stride 0) zero and the slice of a wider row. The backward copies the
+    first to a contiguous tensor, the kernels read the second in place;
+    either way one dK/dV and one dQ launch and the plain backward's
+    gradients. Returns (readings, failure or None)."""
+    res = {}
+    for name, make_dout in (
+            ("expanded_zero", lambda o: torch.zeros(
+                (), dtype=o.dtype, device=o.device).expand(o.shape)),
+            ("row_slice", lambda o: torch.randn(
+                o.shape[:-1] + (2 * o.shape[-1],), device=o.device).to(
+                    o.dtype)[..., :o.shape[-1]])):
+        q, k, v = attention_inputs(torch, (1, 1369, 16, 64), None, 1650)
+        q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+        out = fa.flash_attention(q, k, v)
+        dout = make_dout(out)
+        fa.reset_launch_counts()
+        grads = torch.autograd.grad(out, (q, k, v), dout)
+        counts = launches_of(fa)
+        with torch.no_grad():
+            ref = fa.flash_attention_bwd_plain(
+                q, k, v, out, fa.flash_attention_fwd_lse_plain(q, k, v)[1],
+                dout)
+        torch.cuda.synchronize()
+        err = max(float((g.float() - r.float()).abs().max()
+                        / r.float().abs().max().clamp_min(1e-30))
+                  if r.abs().max() > 0 else float(g.abs().max())
+                  for g, r in zip(grads, ref))
+        res[name] = {"strides": list(dout.stride()), "launches": counts,
+                     "max_abs_rel": err}
+        if counts["dkv"] != 1 or counts["dq"] != 1 or not err <= ERR_LIMIT:
+            return res, f"16c dO layout {name}: {res[name]}"
+    print(f"16c dO layouts: {json.dumps(res)}", flush=True)
+    return res, None
+
+
+def variant_criteria(PC):
+    """16b: {name: (the scene representation it trains, its criterion)}.
+    The disentangled loss's sets: depth 0, ray directions 1, pose quats 2,
+    pose trans 3 (pixel sets), scale 4, normal 5, gradient matching 6."""
+    robust = PC.RobustRegressionLoss(alpha=0.5, scaling_c=0.05)
+    mask = 0.3 * PC.NonAmbiguousMaskLoss(PC.BCELoss())
+    return {
+        "regr3d": ("pointmap+confidence+mask", PC.ConfLoss(
+            PC.Regr3D(robust, norm_mode="?avg_dis"), alpha=0.2) + mask),
+        "points_plus_scale": ("raymap+depth+confidence+mask", PC.ConfLoss(
+            PC.PointsPlusScaleRegr3D(robust), alpha=0.2) + mask),
+        "disentangled": (
+            "pointmap+raydirs+depth+pose+confidence+mask",
+            PC.ConfAndExcludeTopNPercentPixelLoss(
+                PC.DisentangledFactoredGeometryScaleRegr3DPlusNormalGMLoss(
+                    robust, normal_loss_weight=3.0, gm_loss_weight=3.0),
+                conf_alpha=0.2, top_n_percent=5, conf_loss_set_indices=[0],
+                exclude_loss_set_indices=[1, 2, 3]) + mask),
+        "factored_l": ("raydirs+depth+pose+confidence+mask",
+                       PC.FactoredGeometryScaleRegr3D(PC.FactoredLLoss(),
+                                                      norm_mode="avg_dis")),
+    }
+
+
+def twin_gradient_gate(torch, model, batch, loss_fn) -> dict:
+    """The gradient pulled back from one cotangent (an fp32 twin's math
+    path's d loss / d predictions) through flash and through bf16 math,
+    each against the twin's own: flash's rel-L2 at most FLOOR_RATIO x bf16
+    math's (phase 13's gate for the forward, on the gradient)."""
+    import dataclasses
+
+    from mapanything_tpu_torch.models import MapAnything, images_only_config
+    from mapanything_tpu_torch.train.grad_check import (_flat_grad,
+                                                        _float_outputs,
+                                                        _rel_l2)
+
+    geom = images_only_config()
+    views = {"img": batch["views"]["img"]}
+    twin = MapAnything(dataclasses.replace(model.cfg, dtype=torch.float32),
+                       device=next(model.parameters()).device)
+    twin.load_state_dict(model.state_dict())
+    twin.set_attn_impl("math")
+    preds = twin(views, geom)
+    outs = _float_outputs(preds)
+    loss, _ = loss_fn(batch["gt"], preds)
+    cot = [torch.zeros_like(o) if c is None else c for c, o in zip(
+        torch.autograd.grad(loss, outs, retain_graph=True,
+                            allow_unused=True), outs)]
+    ref = _flat_grad(outs, list(twin.parameters()), cot, retain_graph=False)
+    del twin, preds, outs, loss
+    grads = {}
+    for impl in ("auto", "math"):
+        model.set_attn_impl(impl)
+        try:
+            outs = _float_outputs(model(views, geom))
+            grads[impl] = _flat_grad(outs, list(model.parameters()), [
+                c.to(o.dtype) for c, o in zip(cot, outs)],
+                retain_graph=False)
+        finally:
+            model.set_attn_impl("auto")
+        del outs
+    res = {"flash_vs_fp32": _rel_l2(grads["auto"], ref),
+           "math_vs_fp32": _rel_l2(grads["math"], ref)}
+    res["flash_over_math"] = (  # 0 / 0: the twin's own dtype
+        res["flash_vs_fp32"] / res["math_vs_fp32"] if res["math_vs_fp32"]
+        else 0.0 if not res["flash_vs_fp32"] else math.inf)
+    del grads, ref, cot
+    torch.cuda.empty_cache()
+    return res
+
+
+def gradient_gate(torch, compare, model, batch, loss_fn) -> tuple:
+    """16a/16b's check on the fresh model: train/grad_check.py::compare
+    (loss_fn read as a whole) with phase 4's limits, the loss auto against
+    math within ERR_LIMIT relative and the pulled-back gradient, over all
+    parameters and over the qkv weights, within GRAD_LIMIT rel-L2, each
+    beside its noise floor; where a floor itself exceeds GRAD_LIMIT, the
+    fp32-twin gate (twin_gradient_gate). Returns (readings, failure or
+    None)."""
+    res = compare(model, batch, loss_fn=loss_fn)
+    res = {key: val for key, val in res.items() if key != "terms"}
+    if not res["loss_rel_diff"] <= ERR_LIMIT:
+        return res, f"loss flash vs math {res['loss_rel_diff']:.3e}"
+    floors = ("grad_noise_floor_rel_l2", "qkv_grad_noise_floor_rel_l2")
+    if all(res[key] <= GRAD_LIMIT for key in floors):
+        res["gate"] = "grad_check"
+        for key in ("grad_rel_l2", "qkv_grad_rel_l2"):
+            if not res[key] <= GRAD_LIMIT:
+                return res, f"{key} {res[key]:.3e}"
+        return res, None
+    res["gate"] = "fp32 twin"
+    res["twin"] = twin_gradient_gate(torch, model, batch, loss_fn)
+    if not res["twin"]["flash_over_math"] <= FLOOR_RATIO:
+        return res, f"flash over bf16 math from the fp32 twin: {res['twin']}"
+    return res, None
+
+
+def timed_variant_steps(torch, fa, step, batch, launches, what) -> tuple:
+    """1 warm-up and VARIANT_TIMED_STEPS timed steps of `step(batch)` ->
+    (loss, grad_norm): exactly `launches` forward-with-lse, dK/dV and dQ
+    launches each and nothing else, finite loss and grad_norm, parameters
+    that changed; the median step wall, the device ms and busy share of a
+    traced step, the peak GiB. Returns (readings, [counts], failure or
+    None)."""
+    res, counts = {}, []
+    want = {"fwd_lse": launches, "dkv": launches, "dq": launches}
+    torch.cuda.reset_peak_memory_stats()
+    step(batch)  # warm-up
+    torch.cuda.synchronize()
+    watched = step.params[::97]
+    before = [p.detach().clone() for p in watched]
+    times, losses, norms = [], [], []
+    for i in range(VARIANT_TIMED_STEPS):
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, norm = step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts.append(launches_of(fa))
+        bad = expect_launches(fa, want, f"{what} step {i}")
+        if bad:
+            return res, counts, bad
+        losses.append(float(loss))
+        norms.append(float(norm))
+        if not (math.isfinite(losses[-1]) and math.isfinite(norms[-1])):
+            return res, counts, (f"{what} step {i}: loss {losses[-1]} "
+                                 f"grad_norm {norms[-1]}")
+    changed = sum(not torch.equal(a, p.detach())
+                  for a, p in zip(before, watched))
+    del before
+    if changed == 0:
+        return res, counts, f"{what}: no watched parameter changed"
+    res.update({"step_ms": statistics.median(times), "step_ms_all": times,
+                "loss": losses, "grad_norm": norms,
+                "watched_params_changed": f"{changed}/{len(watched)}",
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    res["profile"] = profile_calls(torch, lambda: step(batch),
+                                   res["step_ms"], calls=1)
+    return res, counts, None
+
+
+class VariantStep:
+    """One training step of a model: the released recipe's make_train_step,
+    or, with a criterion, the composed step (forward, criterion, backward,
+    the port's AdamW), both with OptimConfig(warmup_steps=2,
+    total_steps=100). Calling it returns (loss, grad_norm)."""
+
+    def __init__(self, T, model, geom, criterion=None):
+        cfg = T.OptimConfig(warmup_steps=2, total_steps=100)
+        self.state = T.create_train_state(model, cfg)
+        self.params = self.state.optimizer.params
+        self.T, self.model, self.geom = T, model, geom
+        self.criterion = criterion
+        self.train_step = (T.make_train_step(model, geom)
+                           if criterion is None else None)
+
+    def __call__(self, batch):
+        if self.criterion is None:
+            self.state, m = self.train_step(self.state, batch)
+            return m["loss"], m["grad_norm"]
+
+        def loss_fn(b, generator=None):
+            return self.criterion(b["gt"], self.model(b["views"], self.geom))
+
+        loss, _, grads = self.T.loss_and_grads(loss_fn, self.params, batch)
+        norm = self.state.optimizer.norm(grads)
+        self.state.apply_gradients(grads, norm)
+        for p in self.params:
+            p.grad = None
+        return loss, norm
+
+
+def variant_training(torch, fa, fp, F):
+    """Phase 16. Returns (16c's rows, the kernel counts of its runs,
+    failure or None)."""
+    from mapanything_tpu_torch.data.synthetic import make_synthetic_batch
+    from mapanything_tpu_torch.models import (
+        MapAnything,
+        MapAnythingConfig,
+        dense_dim_for,
+        images_only_config,
+        mapanything_ablations_config,
+    )
+    from mapanything_tpu_torch.train import criteria as PC
+    from mapanything_tpu_torch.train import step as T
+    from mapanything_tpu_torch.train.grad_check import compare
+    from mapanything_tpu_torch.train.losses import overall_loss
+
+    walls, counts = {}, []
+    t0 = time.perf_counter()
+    rows, bad = variant_training_rows(torch, fa, F)
+    if not bad:
+        _, bad = layout_repairs(torch, fa)
+    walls["16c_s"] = time.perf_counter() - t0
+    if bad:
+        return rows, counts, bad
+    geom = images_only_config()
+    pose = {f: f + "+confidence+mask" for f in (
+        "campointmap+pose", "pointmap+raydirs+depth+pose")}
+    # (stage, name, config, view counts, (w, h), launches a step,
+    # criterion or None for the released recipe's step)
+    runs = [
+        ("16a", "global", MapAnythingConfig(info_sharing_type="global"),
+         (2,), (518, 518), FORWARD_LAUNCHES, None),
+        ("16a", "cross", MapAnythingConfig(info_sharing_type="cross"),
+         (2, 4), (518, 518), CROSS_LAUNCHES, None),
+        ("16a", "ablations", mapanything_ablations_config(), (2,),
+         (518, 518), FORWARD_LAUNCHES, None),
+        ("16a", "radio_l", MapAnythingConfig(
+            encoder_type="radio", patch_size=16, data_norm_type="radio"),
+         (2,), (512, 384), FORWARD_LAUNCHES, None),
+        ("16a", "croco_l", MapAnythingConfig(
+            encoder_type="croco", patch_size=16, data_norm_type="croco"),
+         (2,), (512, 384), FORWARD_LAUNCHES, None),
+    ] + [("16a", fam, MapAnythingConfig(scene_rep_type=srt,
+                                        dense_output_dim=dense_dim_for(srt)),
+          (2,), (518, 518), FORWARD_LAUNCHES, None)
+         for fam, srt in pose.items()] + [
+        ("16b", name, MapAnythingConfig(scene_rep_type=srt,
+                                        dense_output_dim=dense_dim_for(srt)),
+         (2,), (518, 518), FORWARD_LAUNCHES, crit)
+        for name, (srt, crit) in variant_criteria(PC).items()]
+    for stage, name, cfg, views, (w, h), launches, crit in runs:
+        # what earlier phases left in reference cycles goes first: the
+        # cross trunk's check needs most of the card
+        gc.collect()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        model = MapAnything(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(VARIANT_TRAIN_SEED))
+        res = {"build_s": time.perf_counter() - t0,
+               "resident_before_gib": resident}
+        # at 1 view, as phase 4: compare holds three graphs at once, and
+        # the math path's saved fp32 scores of two 2-view graphs exceed
+        # the card's 80 GB (the global trunk ran out of memory there)
+        check = make_synthetic_batch(1, 1, h, w, seed=1)
+        res["gate"], bad = gradient_gate(
+            torch, compare, model, check,
+            overall_loss if crit is None else crit)
+        print(f"{stage} {name} flash vs math, own init (1 view; "
+              f"{res['resident_before_gib']:.2f} GiB resident before the "
+              f"model): {json.dumps(res['gate'])}", flush=True)
+        if bad:
+            return rows, counts, f"phase {stage} {name}: {bad}"
+        del check
+        torch.cuda.empty_cache()
+        step = VariantStep(T, model, geom, crit)
+        for n in views:
+            batch = make_synthetic_batch(1, n, h, w, seed=0)
+            r, launched, bad = timed_variant_steps(
+                torch, fa, step, batch, launches, f"{stage} {name} {n}v")
+            counts += launched
+            res[f"{n}_views"] = r
+            print(f"{stage} {name} {n} views at {w}x{h}: {json.dumps(r)}",
+                  flush=True)
+            if bad:
+                return rows, counts, f"phase {stage}: {bad}"
+            bad = untouched_baseline(fp)
+            if bad:
+                return rows, counts, f"phase {stage} {name}: {bad}"
+            del batch
+        del model, step
+        torch.cuda.empty_cache()
+        walls[f"{stage}_{name}_s"] = time.perf_counter() - t0
+    print(f"phase 16 walls: {json.dumps(walls)}", flush=True)
+    return rows, counts, None
+
+
 def timing(row):
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms", "mma_ms",
@@ -5259,7 +5793,7 @@ def timing(row):
 def kernels_summary(fp, attn, train_rows, ring_rows, merge, probe_rows,
                     phase_counts) -> list:
     """The kernels' JSON rows: each kernel at its main-path shape with its
-    launches in phases 3-15 (phase_counts: the kernel counts each of those
+    launches in phases 3-16 (phase_counts: the kernel counts each of those
     runs read, reset just before it), the baselines and the probes."""
     launches = {kname: sum(counts[key] for counts in phase_counts)
                 for kname, key in COUNTER.items()}
@@ -5450,8 +5984,11 @@ def main() -> int:
             spec[0])
     print(f"  dynamic shared memory per block (bytes): {json.dumps(smem)}",
           flush=True)
+    print(f"phase 1 (the build) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     # phase 2: the serving forward kernel
+    t0 = time.perf_counter()
     attn = kernel_vs_plain(torch, fa, fp, F)
     for name, row in attn:
         if not all(row[key] <= ERR_LIMIT for key in (
@@ -5492,11 +6029,13 @@ def main() -> int:
             return fail(f"probe {case} disagrees with its plain version: "
                         f"{row}")
 
-    # phases 3-14 run the main path: no probe and no baseline launch
+    print(f"phase 2 (the kernels against their plain versions) took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # phases 3-16 run the main path: no probe and no baseline launch
     fp.reset_probe_counts()
 
     # phase 3: serving at full width
-    t0 = time.perf_counter()
+    t0 = t3 = time.perf_counter()
     model = random_weights_model()
     pipe = InferencePipeline(model)
     n_params = sum(p.numel() for p in model.parameters())
@@ -5515,14 +6054,24 @@ def main() -> int:
                        for key in serving}
     print(f"peak device memory (serving) "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    with tempfile.TemporaryDirectory() as folder:
+        views = load_images(write_images(folder, 2))
+    reader, bad = trace_reader_check(torch, lambda: pipe.infer(views))
+    print(f"trace reader, one 2-view infer: {json.dumps(reader)}",
+          flush=True)
+    if bad:
+        return fail(bad)
+    del views
     bad = untouched_baseline(fp)
     if bad:
         return fail(f"serving: {bad}")
     del model, pipe
     torch.cuda.empty_cache()
+    print(f"phase 3 (serving) took {time.perf_counter() - t3:.1f} s",
+          flush=True)
 
     # phase 4: training at full width
-    t0 = time.perf_counter()
+    t0 = t4 = time.perf_counter()
     model = MapAnything(MapAnythingConfig(),
                         generator=torch.Generator(device="cuda").manual_seed(1))
     print(f"training model built in {time.perf_counter() - t0:.1f} s",
@@ -5547,8 +6096,11 @@ def main() -> int:
           f"held to a limit): {json.dumps(trained)}", flush=True)
     del model
     torch.cuda.empty_cache()
+    print(f"phase 4 (training) took {time.perf_counter() - t4:.1f} s",
+          flush=True)
 
     # phase 5: the ring slice at full width, on a group of this one process
+    t5 = time.perf_counter()
     group = init_distributed()
     try:
         t0 = time.perf_counter()
@@ -5572,8 +6124,11 @@ def main() -> int:
         bad = untouched_baseline(fp)
         if bad:
             return fail(f"ring: {bad}")
+        print(f"phase 5 (the ring slice) took {time.perf_counter() - t5:.1f}"
+              " s", flush=True)
 
         # phase 6: the view-sharded train step at full width, same group
+        t6 = time.perf_counter()
         torch.cuda.empty_cache()
         model = MapAnything(MapAnythingConfig(), generator=torch.Generator(
             device="cuda").manual_seed(1))
@@ -5596,6 +6151,8 @@ def main() -> int:
         if bad:
             return fail(f"view-sharded training: {bad}")
         del model
+        print(f"phase 6 (the view-sharded train step) took "
+              f"{time.perf_counter() - t6:.1f} s", flush=True)
     finally:
         torch.distributed.destroy_process_group()
 
@@ -5697,6 +6254,18 @@ def main() -> int:
     for kname, rows in tp_rows.items():
         train_rows[kname] += rows
 
+    # phase 16: training the model variants and the other criteria
+    t16 = time.perf_counter()
+    torch.cuda.empty_cache()
+    variant_train_rows, phase16_counts, bad = variant_training(torch, fa, fp,
+                                                               F)
+    if bad:
+        return fail(f"phase 16: {bad}")
+    print(f"phase 16 (training the variants and the other criteria) took "
+          f"{time.perf_counter() - t16:.1f} s", flush=True)
+    for kname, rows in variant_train_rows.items():
+        train_rows[kname] += rows
+
     phase_counts = [serving,
                     {key: train[f"{key}_launches"] for key in fa.KERNELS},
                     ring_res["kernel_counts"], block_res["kernel_counts"],
@@ -5705,9 +6274,13 @@ def main() -> int:
                                              + phase11_counts + phase12_counts
                                              + phase13_counts + phase14_counts
                                              + [dict.fromkeys(fa.KERNELS, 0)
-                                                | c for c in phase15_counts])
+                                                | c for c in phase15_counts]
+                                             + phase16_counts)
     kernels = kernels_summary(fp, attn, train_rows, ring_rows, merge,
                               probe_rows, phase_counts)
+    print(f"torch.profiler in this script's own calls: "
+          f"{TRACES['traces']} traces, {TRACES['s']:.1f} s in all, "
+          f"{TRACES['read_s']:.1f} s of it reading them", flush=True)
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

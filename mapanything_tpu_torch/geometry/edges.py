@@ -1,5 +1,5 @@
-"""Edge masks of the inference postprocess; counterparts of
-mapanything_tpu/geometry/edges.py (max_pool_2d, depth_edge,
+"""Edge masks of the inference postprocess and the normal maps; counterparts
+of mapanything_tpu/geometry/edges.py (max_pool_2d, depth_edge, normals_edge,
 points_normal_edges, points_to_normals)."""
 
 from __future__ import annotations
@@ -38,10 +38,11 @@ def depth_edge(depth: torch.Tensor, atol: float | None = None,
     return edge
 
 
-def _pad_hw(x: torch.Tensor, mode: str = "constant") -> torch.Tensor:
+def _pad_hw(x: torch.Tensor, mode: str = "constant",
+            pad: int = 1) -> torch.Tensor:
     shape = x.shape
-    y = F.pad(x.reshape(-1, 1, *shape[-2:]), (1, 1, 1, 1), mode=mode)
-    return y.reshape(*shape[:-2], shape[-2] + 2, shape[-1] + 2)
+    y = F.pad(x.reshape(-1, 1, *shape[-2:]), (pad,) * 4, mode=mode)
+    return y.reshape(*shape[:-2], shape[-2] + 2 * pad, shape[-1] + 2 * pad)
 
 
 def _slice_hw(arr: torch.Tensor, di: int, dj: int, h: int,
@@ -117,30 +118,53 @@ def points_to_normals(point: torch.Tensor, mask: torch.Tensor | None = None
     return torch.stack(planes, dim=-1), nmask
 
 
-def points_normal_edges(point: torch.Tensor, tol: float, kernel_size: int = 3,
-                        mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Pointmap (..., H, W, 3) -> normals -> normal-edge mask (..., H, W).
-
-    Normals are the normalised sum of the four quad cross products around
-    each pixel (zero padding); a pixel is an edge when the largest angle
-    between its normal and a valid neighbour's, dilated over the window,
-    exceeds `tol` degrees (tested as a minimum cosine).
-    """
-    h, w = point.shape[-3], point.shape[-2]
-    (nx, ny, nz), nmask = _normal_planes(point, mask)
+def _window_edges(planes, mask: torch.Tensor | None, tol: float,
+                  kernel_size: int) -> torch.Tensor:
+    """The edge mask of a unit normal map given as three (..., H, W) planes:
+    the largest angle between a pixel's normal and a neighbour's in the
+    window (edge-replicate padding; a masked neighbour counts as angle 0),
+    dilated over the window, exceeds `tol` degrees. Tested as a minimum
+    cosine, which needs no arccos."""
+    nx, ny, nz = planes
+    h, w = nx.shape[-2:]
+    pad = kernel_size // 2
 
     def sl(arr, di, dj):
         return _slice_hw(arr, di, dj, h, w)
 
-    # window minimum of the cosine (== maximum angle), edge-replicate padding
-    npx, npy, npz = (_pad_hw(t, mode="replicate") for t in (nx, ny, nz))
-    nmp = _pad_hw(nmask.float(), mode="replicate") > 0.5
+    npx, npy, npz = (_pad_hw(t, "replicate", pad) for t in planes)
+    nmp = (None if mask is None
+           else _pad_hw(mask.float(), "replicate", pad) > 0.5)
     min_cos = torch.ones_like(nx)
     for di in range(kernel_size):
         for dj in range(kernel_size):
             cos = (nx * sl(npx, di, dj) + ny * sl(npy, di, dj)
                    + nz * sl(npz, di, dj))
-            cos = torch.where(sl(nmp, di, dj), cos, 1.0)
+            if nmp is not None:
+                cos = torch.where(sl(nmp, di, dj), cos, 1.0)
             min_cos = torch.minimum(min_cos, cos.clamp(-1.0, 1.0))
     min_cos = -max_pool_2d(-min_cos, kernel_size)
     return min_cos < math.cos(math.radians(tol))
+
+
+def normals_edge(normals: torch.Tensor, tol: float, kernel_size: int = 3,
+                 mask: torch.Tensor | None = None,
+                 assume_normalized: bool = False) -> torch.Tensor:
+    """Normal-discontinuity mask (..., H, W) of a normal map (..., H, W, 3):
+    the largest angle to a valid neighbour in the window, dilated over the
+    window, exceeds `tol` degrees. The normals are normalised first (plus
+    1e-12) unless `assume_normalized`."""
+    assert normals.shape[-1] == 3
+    if not assume_normalized:
+        normals = normals / (torch.linalg.vector_norm(
+            normals, dim=-1, keepdim=True) + 1e-12)
+    return _window_edges(normals.unbind(-1), mask, tol, kernel_size)
+
+
+def points_normal_edges(point: torch.Tensor, tol: float, kernel_size: int = 3,
+                        mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Pointmap (..., H, W, 3) -> normals -> normal-edge mask (..., H, W):
+    normals_edge of points_to_normals' map and mask, computed plane by
+    plane."""
+    planes, nmask = _normal_planes(point, mask)
+    return _window_edges(planes, nmask, tol, kernel_size)

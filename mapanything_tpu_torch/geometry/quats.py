@@ -103,3 +103,23 @@ def transform_pose_using_quats_and_trans_2_to_1(
     quats = quaternion_multiply(inv_q1, quats2)
     trans = rotate(r1_inv, trans2) - rotate(r1_inv, trans1)
     return quats, trans
+
+
+def quaternion_slerp(q1: torch.Tensor, q2: torch.Tensor,
+                     alpha) -> torch.Tensor:
+    """Spherical interpolation between xyzw quaternions (..., 4) along the
+    shorter arc: q1 at alpha = 0, q2 at 1. Normalised linear interpolation
+    where the two are nearly parallel (sin of the angle < 1e-5)."""
+    q1 = q1 / torch.linalg.vector_norm(q1, dim=-1, keepdim=True)
+    q2 = q2 / torch.linalg.vector_norm(q2, dim=-1, keepdim=True)
+    dot = (q1 * q2).sum(-1, keepdim=True)
+    q2 = torch.where(dot < 0, -q2, q2)  # the shorter arc
+    theta = torch.arccos(dot.abs().clamp(-1.0, 1.0))
+    sin_theta = torch.sin(theta)
+    near = sin_theta < 1e-5
+    safe_sin = torch.where(near, 1.0, sin_theta)
+    w1 = torch.where(near, 1.0 - alpha,
+                     torch.sin((1.0 - alpha) * theta) / safe_sin)
+    w2 = torch.where(near, alpha, torch.sin(alpha * theta) / safe_sin)
+    out = w1 * q1 + w2 * q2
+    return out / torch.linalg.vector_norm(out, dim=-1, keepdim=True)

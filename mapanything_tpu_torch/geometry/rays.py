@@ -1,9 +1,5 @@
 """Pixel-grid, ray and intrinsics math; counterpart of
-mapanything_tpu/geometry/rays.py (depthmap_to_camera_frame,
-depthmap_to_world_frame, get_rays_in_camera_frame,
-depth_along_ray_from_z_depth_and_rays,
-recover_pinhole_intrinsics_from_ray_directions).
-"""
+mapanything_tpu/geometry/rays.py."""
 
 from __future__ import annotations
 
@@ -60,6 +56,46 @@ def get_rays_in_camera_frame(intrinsics: torch.Tensor, height: int,
     origins = torch.zeros(intrinsics.shape[:-2] + (height, width, 3),
                           dtype=intrinsics.dtype, device=intrinsics.device)
     return origins, dirs
+
+
+def project_pts3d_to_image(pts3d: torch.Tensor, intrinsics: torch.Tensor,
+                          return_z_dim: bool) -> torch.Tensor:
+    """Camera-frame points (..., H, W, 3) through K (..., 3, 3) to pixel
+    coordinates (..., H, W, 2), the z divisor clamped to >= 1e-6; with
+    return_z_dim, the projected z as a third channel."""
+    proj = rotate(intrinsics[..., None, None, :, :], pts3d)
+    xy = proj[..., :2] / proj[..., 2:3].clamp_min(1e-6)
+    return torch.cat([xy, proj[..., 2:3]], dim=-1) if return_z_dim else xy
+
+
+def transform_rays(ray_origins: torch.Tensor, ray_directions: torch.Tensor,
+                   transformation: torch.Tensor):
+    """An SE3 transform (..., 4, 4) applied to ray origins (as points) and
+    directions (as vectors), both (..., H, W, 3)."""
+    rot = transformation[..., None, None, :3, :3]
+    return (rotate(rot, ray_origins) + transformation[..., None, None, :3, 3],
+            rotate(rot, ray_directions))
+
+
+def get_rays_in_world_frame(intrinsics: torch.Tensor, height: int,
+                            width: int, normalize_to_unit_sphere: bool,
+                            camera_pose: torch.Tensor | None = None):
+    """get_rays_in_camera_frame, moved to the world frame by a cam2world
+    (..., 4, 4) pose when one is given."""
+    origins, dirs = get_rays_in_camera_frame(intrinsics, height, width,
+                                             normalize_to_unit_sphere)
+    if camera_pose is None:
+        return origins, dirs
+    return transform_rays(origins, dirs, camera_pose)
+
+
+def convert_z_depth_to_depth_along_ray(z_depth: torch.Tensor,
+                                       intrinsics: torch.Tensor
+                                       ) -> torch.Tensor:
+    """Z-depth (..., H, W) and K (..., 3, 3) -> the Euclidean depth along
+    each pixel's ray (..., H, W)."""
+    pts3d_cam, _ = depthmap_to_camera_frame(z_depth, intrinsics)
+    return torch.linalg.vector_norm(pts3d_cam, dim=-1)
 
 
 def depth_along_ray_from_z_depth_and_rays(
@@ -131,3 +167,22 @@ def recover_pinhole_intrinsics_from_ray_directions(
     k[:, 1, 2] = cy
     k[:, 2, 2] = 1.0
     return k.reshape(batch_shape + (3, 3))
+
+
+def _principal_point_shift(k: torch.Tensor, sign: float) -> torch.Tensor:
+    offset = torch.zeros_like(k)
+    offset[..., 0, 2] = 0.5
+    offset[..., 1, 2] = 0.5
+    return k + sign * offset
+
+
+def colmap_to_opencv_intrinsics(k: torch.Tensor) -> torch.Tensor:
+    """The principal point of (..., 3, 3) intrinsics moved by -0.5 px (the
+    COLMAP convention to OpenCV's)."""
+    return _principal_point_shift(k, -1.0)
+
+
+def opencv_to_colmap_intrinsics(k: torch.Tensor) -> torch.Tensor:
+    """The principal point moved by +0.5 px (OpenCV's convention to
+    COLMAP's)."""
+    return _principal_point_shift(k, 1.0)

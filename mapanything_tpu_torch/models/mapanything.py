@@ -408,6 +408,18 @@ def scene_rep_outputs(scene_rep_type: str, raw: torch.Tensor,
     return out
 
 
+def scene_rep_keys(scene_rep_type: str) -> frozenset:
+    """The keys of the outputs a scene_rep_type gives (those of
+    :func:`scene_rep_outputs`, read from a one-pixel call on the CPU)."""
+    raw = torch.zeros(1, 1, 1, 1, dense_dim_for(scene_rep_type))
+    pose = None
+    if scene_rep_family(scene_rep_type).endswith("pose"):
+        pose = {"trans": torch.zeros(1, 1, 3),
+                "quats": torch.tensor([[[0.0, 0.0, 0.0, 1.0]]])}
+    return frozenset(scene_rep_outputs(scene_rep_type, raw, torch.ones(1),
+                                       pose))
+
+
 class _DenseHead(nn.Module):
     """DPT feature + regression tail."""
 

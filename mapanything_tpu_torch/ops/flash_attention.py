@@ -183,14 +183,18 @@ def _check_layout(name: str, x: torch.Tensor) -> None:
     if not _kernel_layout(x):
         raise ValueError(
             f"flash_attention kernel: {name} needs unit stride along D, "
-            f"(B, N, H) strides in multiples of 8 elements and a "
+            f"nonzero (B, N, H) strides in multiples of 8 elements and a "
             f"16-byte aligned base; got strides {x.stride()}")
 
 
 def _kernel_layout(x: torch.Tensor) -> bool:
-    """Unit stride along D, 16-byte rows and base: what the kernels read."""
+    """Unit stride along D, 16-byte rows and base, and no zero stride along
+    an axis of more than one element (an expanded tensor, which a TMA map
+    cannot describe): what the kernels read."""
     vec = 16 // x.element_size()
     return (x.stride(-1) == 1 and not any(s % vec for s in x.stride()[:3])
+            and all(s or n == 1 for s, n in zip(x.stride()[:3],
+                                                 x.shape[:3]))
             and x.data_ptr() % 16 == 0)
 
 
@@ -418,6 +422,9 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
+        """Autograd may hand any layout of dout (an expanded zero, a slice
+        of a wider row); flash_attention_bwd copies one the kernels cannot
+        read into a contiguous tensor."""
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.n_valid)
         return dq, dk, dv, None

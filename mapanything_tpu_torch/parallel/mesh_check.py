@@ -6,7 +6,9 @@ process's step; the counterpart of __graft_entry__.py::dryrun_multichip:
 
 For each T of `--tp` the N ranks form make_mesh(N / T, T)
 (parallel/mesh.py). Every rank builds the released model (`--size test`
-for a tiny one) with the model's own seeded init, and the same synthetic
+for a tiny one; `--trunk_depth D` cuts the released trunk to D layers,
+its DPT taps at layers D / 2 - 1 and 3 D / 4 - 1 as the released 11 and
+17 of 24) with the model's own seeded init, and the same synthetic
 global batch of BATCH x VIEWS views (518^2; 56^2 at `--size test`). For
 each of TASKS (its priors' config, models/tasks.py; the stochastic
 `aug_training` draws its masks from a generator seeded alike everywhere):
@@ -79,6 +81,18 @@ PARAM_LIMIT = 2e-2  # the updated parameters as one vector
 OPTIM = OptimConfig(warmup_steps=0, total_steps=100)
 SEED = 1  # the model's init, as chip_smoke.py's training phases
 MASK_SEED = 8
+
+
+def cut_trunk(depth) -> dict:
+    """The config fields of a released trunk cut to `depth` layers ({} for
+    None): the DPT taps where the released ones sit, half and three quarters
+    of the way up."""
+    if depth is None:
+        return {}
+    if depth < 4 or depth % 4:
+        raise ValueError(f"--trunk_depth {depth}: a multiple of 4 from 4 on")
+    return {"trunk_depth": depth,
+            "trunk_indices": (depth // 2 - 1, 3 * depth // 4 - 1)}
 
 
 def _generator(geom, device):
@@ -216,6 +230,8 @@ def main(argv=None) -> int:
                         help="the model axis of each mesh, comma-separated")
     parser.add_argument("--size", choices=("released", "test"),
                         default="released")
+    parser.add_argument("--trunk_depth", type=int, default=None,
+                        help="cut the released trunk to this many layers")
     parser.add_argument("--steps", type=int, default=3,
                         help="timed steps after the compared one")
     parser.add_argument("--device", default=None,
@@ -240,14 +256,14 @@ def main(argv=None) -> int:
         meshes = [make_mesh(world // tp, tp, group=group) for tp in tps]
         test = args.size == "test"
         cfg = (MapAnythingConfig(dtype=torch.float32, **_TEST_CFG) if test
-               else MapAnythingConfig())
+               else MapAnythingConfig(**cut_trunk(args.trunk_depth)))
         hw = 56 if test else 518
         batch = make_synthetic_batch(BATCH, VIEWS, hw, hw, seed=0,
                                      device=device)
         is_main = dist.get_rank(group) == 0
         res = {"backend": dist.get_backend(group), "ranks": world,
                "batch": BATCH, "views": VIEWS, "res": hw,
-               "size": args.size,
+               "size": args.size, "trunk_depth": cfg.trunk_depth,
                "device": (torch.cuda.get_device_name(device)
                           if device.type == "cuda" else "cpu"),
                "meshes": [{"mesh": mesh.shape, "tasks": {}}

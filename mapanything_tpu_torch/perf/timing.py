@@ -10,7 +10,7 @@ the clock. Python-side launch counters count the captured calls once, at
 capture; counter checks belong to uncaptured calls. :func:`events_ms`
 times calls that allocate gigabytes each (plain versions) by events around
 a run of calls instead. :func:`profile_calls` reads a call's device time,
-device ops and busy share from torch.profiler.
+device ops and busy share from torch.profiler (:func:`read_trace`).
 
 :class:`Timer`, :class:`BlockTimeManager` and :func:`block_timer` are the
 host-side block timers of mapanything_tpu/utils/timing.py (the reference's
@@ -86,19 +86,115 @@ def host_us(fn, reps: int = 20) -> float:
     return (t1 - t0) / reps * 1e6
 
 
+# utility ops the profiler's own reading drops (torch.autograd.profiler_util.
+# _filter_name)
+_FILTERED = frozenset((
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+    "aten::is_leaf", "aten::output_nr", "aten::_version"))
+
+
+def read_trace(prof) -> tuple:
+    """({device op name: summed µs}, {host op name: summed self µs}, device
+    ops) of a finished torch.profiler trace, from kineto's raw events: the
+    profiler's own reading (`prof.events()`) builds a FunctionEvent for each
+    event and their tree, seconds a trace at a train step's ~10k device and
+    ~40k host events. The same numbers: device ops by their span, host ops'
+    self time as the profiler nests them (each thread's synchronous CPU
+    events by start, a child inside its parent's span; runtime calls on
+    their launching op's thread)."""
+    from torch.autograd import DeviceType
+
+    results = prof.profiler.kineto_results
+    device: dict[str, float] = {}
+    host: dict[str, float] = {}
+    n_ops = 0
+    cpu = []  # [thread, start, end, name, correlation, linked]
+    names: dict[str, str] = {}  # demangled, as the profiler names them
+    for e in results.events():
+        name = e.name()
+        if name in _FILTERED or getattr(e, "is_hidden_event",
+                                        lambda: False)():
+            continue
+        if name not in names:
+            names[name] = torch._C._demangle(name) if len(name) > 1 else name
+        name = names[name]
+        kind = e.device_type()
+        if kind == DeviceType.CUDA:
+            if name.startswith(("nccl:", "gloo:")):
+                continue  # a collective's annotation, spanning its work
+            key = name[:90]  # template instances that share a prefix add up
+            device[key] = (device.get(key, 0.0)
+                           + (e.end_ns() - e.start_ns()) / 1e3)
+            n_ops += 1
+        elif e.is_async() or e.start_thread_id() != e.end_thread_id():
+            # outside the nesting: all of its span is its own
+            key = name[:60]
+            host[key] = host.get(key, 0.0) + (e.end_ns() - e.start_ns()) / 1e3
+        else:
+            cpu.append([e.start_thread_id(), e.start_ns(), e.end_ns(), name,
+                        e.correlation_id(), e.linked_correlation_id()])
+    frontend = {ev[4]: ev[0] for ev in cpu if ev[5] == 0}
+    for ev in cpu:
+        if ev[5] > 0 and ev[5] in frontend:
+            ev[0] = frontend[ev[5]]
+    cpu.sort(key=lambda ev: (ev[0], ev[1], -ev[2]))
+    stack: list = []  # [end, name, self ns]
+    thread = None
+
+    def close(item):
+        key = item[1][:60]
+        host[key] = host.get(key, 0.0) + item[2] / 1e3
+
+    for t, start, end, name, _, _ in cpu:
+        if t != thread:
+            while stack:
+                close(stack.pop())
+            thread = t
+        while stack and (start >= stack[-1][0] or end > stack[-1][0]):
+            close(stack.pop())
+        if stack:
+            stack[-1][2] -= end - start
+        stack.append([end, name, end - start])
+    while stack:
+        close(stack.pop())
+    return device, host, n_ops
+
+
+def read_trace_events(prof) -> tuple:
+    """read_trace's numbers from the profiler's own FunctionEvents (slow;
+    the reference the raw reading is held to)."""
+    from torch.autograd import DeviceType
+
+    device: dict[str, float] = {}
+    host: dict[str, float] = {}
+    n_ops = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if e.name.startswith(("nccl:", "gloo:")):
+                continue
+            name = e.name[:90]
+            device[name] = device.get(name, 0.0) + e.time_range.elapsed_us()
+            n_ops += 1
+        else:
+            host[e.name[:60]] = (host.get(e.name[:60], 0.0)
+                                 + e.self_cpu_time_total)
+    return device, host, n_ops
+
+
 def profile_calls(call, wall_ms: float, calls: int = 3, match=None) -> dict:
     """Device time per `call()` from torch.profiler (the sum of the device
     events of `calls` calls over `calls`), the device ops per call, the ten
     device ops that take the most time, the ten host ops that take the
     most host time of their own (self CPU ms per call), and the busy share:
-    device time over `wall_ms`, the median wall time of the untraced calls.
-    With
-    `match` ({key: substring}), also the device ms per call of the kernels
-    whose names hold each substring. NCCL's kernels count in the device
-    time; across cards they include the wait for the other ranks
+    device time over `wall_ms`, the median wall time of the untraced calls;
+    `read_s`, the host seconds from the end of the traced calls to the
+    result (the profiler's stop and the reading of its trace, read_trace).
+    With `match` ({key: substring}), also the device ms per call of the
+    kernels whose names hold each substring. NCCL's kernels count in the
+    device time; across cards they include the wait for the other ranks
     (`nccl_ms` says how much). A profiler that cannot trace the card
     returns {"not_measured": reason}."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     try:
@@ -107,27 +203,17 @@ def profile_calls(call, wall_ms: float, calls: int = 3, match=None) -> dict:
             for _ in range(calls):
                 call()
             torch.cuda.synchronize()
+            t0 = time.perf_counter()
     except RuntimeError as exc:  # a profiler without CUPTI access
         return {"not_measured": str(exc)[:200]}
-    by_name: dict[str, float] = {}
-    host: dict[str, float] = {}
-    n_ops = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            if e.name.startswith(("nccl:", "gloo:")):
-                continue  # a collective's annotation, spanning its work
-            name = e.name[:90]  # template instances that share a prefix add up
-            by_name[name] = (by_name.get(name, 0.0)
-                             + e.time_range.elapsed_us() / 1e3 / calls)
-            n_ops += 1
-        else:
-            host[e.name[:60]] = (host.get(e.name[:60], 0.0)
-                                 + e.self_cpu_time_total / 1e3 / calls)
-    device = sum(by_name.values())
+    device, host, n_ops = read_trace(prof)
+    by_name = {name: us / 1e3 / calls for name, us in device.items()}
+    host = {name: us / 1e3 / calls for name, us in host.items()}
+    total = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     top_host = sorted(host.items(), key=lambda kv: -kv[1])[:10]
-    res = {"device_ms": device, "device_ops": n_ops / calls,
-           "wall_ms": wall_ms, "busy_share": device / wall_ms,
+    res = {"device_ms": total, "device_ops": n_ops / calls,
+           "wall_ms": wall_ms, "busy_share": total / wall_ms,
            "nccl_ms": sum(ms for name, ms in by_name.items()
                           if name.startswith("ncclDevKernel")),
            "top_ops_ms": dict(top), "top_host_self_ms": dict(top_host)}
@@ -135,6 +221,7 @@ def profile_calls(call, wall_ms: float, calls: int = 3, match=None) -> dict:
         res["matched_ms"] = {key: sum(ms for name, ms in by_name.items()
                                       if sub in name)
                              for key, sub in match.items()}
+    res["read_s"] = time.perf_counter() - t0
     return res
 
 

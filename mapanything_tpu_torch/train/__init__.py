@@ -1,15 +1,20 @@
-"""Training slice of the PyTorch port: the released loss, AdamW, the train
-step and its view-sharded form, checkpoints, the training loop and its
-CLI, `python -m mapanything_tpu_torch.train` (counterpart of
-mapanything_tpu/train and scripts/train.py)."""
+"""Training slice of the PyTorch port: the released loss and the composable
+criteria, AdamW, the train step and its view-sharded form, checkpoints, the
+training loop and its CLI, `python -m mapanything_tpu_torch.train`
+(counterpart of mapanything_tpu/train and scripts/train.py)."""
 
 from . import criteria
 from .criteria import MultiLoss, released_criterion
 from .losses import (
     FactoredGeometryConfig,
+    L1Loss,
+    L2Loss,
     OverallLossConfig,
     RobustRegressionLoss,
     bce_with_logits,
+    exclude_top_n_percent,
+    factored_geometry_scale_regr3d,
+    non_ambiguous_mask_loss,
     overall_loss,
 )
 from .step import (
@@ -42,6 +47,8 @@ from .loop import (
 __all__ = [
     "AdamW",
     "FactoredGeometryConfig",
+    "L1Loss",
+    "L2Loss",
     "MetricLogger",
     "MultiLoss",
     "OptimConfig",
@@ -55,11 +62,14 @@ __all__ = [
     "cosine_schedule",
     "create_train_state",
     "criteria",
+    "exclude_top_n_percent",
+    "factored_geometry_scale_regr3d",
     "load_params",
     "load_train_state",
     "make_optimizer",
     "make_train_step",
     "make_view_sharded_train_step",
+    "non_ambiguous_mask_loss",
     "overall_loss",
     "released_criterion",
     "save_params",

@@ -1,5 +1,5 @@
-"""Composable training criteria; counterpart of the part of
-mapanything_tpu/train/criteria.py that the released criterion reaches.
+"""Composable training criteria; counterpart of
+mapanything_tpu/train/criteria.py.
 
 Semantics follow the JAX package (and through it the reference losses.py):
 
@@ -12,14 +12,21 @@ Semantics follow the JAX package (and through it the reference losses.py):
     lowest-loss valid pixels per image, ranked by a stable sort.
 
 Terms keep full-shape tensors with masks instead of gathered vectors. The
-constructors take the options that train/losses.py's OverallLossConfig and
-FactoredGeometryConfig set; the rest of the reference's surface is fixed at
-the released recipe's values: the "?avg_dis" normalisation of
-FactoredGeometryRegr3D (GT always normalised, predictions by their own
-factor unless the sample is metric), no ambiguous-pixel loss, the
-normal/gradient-matching terms on synthetic data only and the top-N%
-exclusion on real data only. Regr3D, PointsPlusScaleRegr3D and the
-Disentangled* family are not ported (ROADMAP queue A item 6).
+criteria take every option of the JAX package's constructors, the
+reference's quirks included (for one, with gt_scale=True in a batch that
+mixes metric and non-metric samples the metric samples' predictions stay
+zero, as the reference leaves them). `flatten_across_image_only` is kept
+and read by nothing, as in the JAX package.
+
+  * base criteria: L1Loss, L2Loss, GenericLLoss, FactoredLLoss (the
+    distance chosen per loss set by `factor=`), RobustRegressionLoss,
+    BCELoss;
+  * set criteria: Regr3D, PointsPlusScaleRegr3D, FactoredGeometryRegr3D,
+    FactoredGeometryScaleRegr3D and their PlusNormalGMLoss forms,
+    DisentangledFactoredGeometryScaleRegr3D and its PlusNormalGMLoss form;
+  * wrappers: ConfLoss, ExcludeTopNPercentPixelLoss,
+    ConfAndExcludeTopNPercentPixelLoss, NonAmbiguousMaskLoss, and MultiLoss
+    arithmetic (`a + 0.3 * b`) over all of them.
 
 Every reduction that crosses processes goes through one seam, a
 :class:`Reduction` passed to the criteria:
@@ -38,7 +45,6 @@ Every reduction that crosses processes goes through one seam, a
 
 The default Reduction() is one process: every reduction local.
 """
-
 from __future__ import annotations
 
 import copy
@@ -50,9 +56,11 @@ import torch.distributed as dist
 
 from ..geometry import (
     apply_log_to_norm,
+    convert_ray_dirs_depth_along_ray_pose_trans_quats_to_pointmap,
     normalize_multiple_pointclouds,
     quaternion_inverse,
     quaternion_to_rotation_matrix,
+    safe_norm,
     transform_pose_using_quats_and_trans_2_to_1,
 )
 from ..geometry.quats import rotate
@@ -75,6 +83,67 @@ class BaseCriterion:
 
     def __call__(self, a, b, factor: Optional[str] = None):
         raise NotImplementedError
+
+
+def _l1(a: Tensor, b: Tensor) -> Tensor:
+    return (a - b).abs().sum(-1)
+
+
+def _l2(a: Tensor, b: Tensor) -> Tensor:
+    return safe_norm(a - b)
+
+
+@dataclasses.dataclass(frozen=True)
+class L1Loss(BaseCriterion):
+    def __call__(self, a, b, factor=None):
+        return _l1(a, b)
+
+
+@dataclasses.dataclass(frozen=True)
+class L2Loss(BaseCriterion):
+    """The Euclidean distance, with a zero subgradient where a == b."""
+
+    def __call__(self, a, b, factor=None):
+        return _l2(a, b)
+
+
+@dataclasses.dataclass(frozen=True)
+class GenericLLoss(BaseCriterion):
+    """The L-norm named by `loss_type`, "l1" or "l2"."""
+
+    loss_type: str = "l2"
+
+    def __call__(self, a, b, factor=None):
+        if self.loss_type == "l1":
+            return _l1(a, b)
+        if self.loss_type == "l2":
+            return _l2(a, b)
+        raise ValueError(f"unsupported loss_type {self.loss_type}")
+
+
+@dataclasses.dataclass(frozen=True)
+class FactoredLLoss(BaseCriterion):
+    """The L-norm of each loss set, chosen by the `factor` the set criterion
+    passes ("points", "depth", "ray_directions", "pose_quats",
+    "pose_trans", "scale"); L2 for any other factor."""
+
+    points_loss_type: str = "l2"
+    depth_loss_type: str = "l1"
+    ray_directions_loss_type: str = "l1"
+    pose_quats_loss_type: str = "l1"
+    pose_trans_loss_type: str = "l1"
+    scale_loss_type: str = "l1"
+
+    def __call__(self, a, b, factor=None):
+        kind = {
+            "points": self.points_loss_type,
+            "depth": self.depth_loss_type,
+            "ray_directions": self.ray_directions_loss_type,
+            "pose_quats": self.pose_quats_loss_type,
+            "pose_trans": self.pose_trans_loss_type,
+            "scale": self.scale_loss_type,
+        }.get(factor, "l2")
+        return _l1(a, b) if kind == "l1" else _l2(a, b)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,6 +250,25 @@ class Reduction:
     def gather_views(self, x: Tensor) -> Tensor:
         return x if self.view_group is None else _gather_views(
             x, self.view_group)
+
+    def all_rows(self, flag: Tensor) -> Tensor:
+        """Whether the (B,) bool `flag` holds in every row of the batch:
+        over every data rank's rows with a data group."""
+        out = flag.all()
+        if self.data_group is not None:
+            out = out.to(torch.int32)
+            dist.all_reduce(out, op=dist.ReduceOp.MIN, group=self.data_group)
+            out = out.bool()
+        return out
+
+    def view_max(self, x: Tensor) -> Tensor:
+        """(B,) maxima over this rank's views -> over every rank's views,
+        without a gradient."""
+        if self.view_group is None:
+            return x
+        x = x.detach().clone()
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.view_group)
+        return x
 
     def normalize(self, pts: Tensor, valid: Tensor, norm_mode: str):
         """normalize_multiple_pointclouds(..., ret_factor=True) over every
@@ -351,17 +439,62 @@ def _log(x: Tensor, enabled: bool) -> Tensor:
     return apply_log_to_norm(x) if enabled else x
 
 
+def _div(x: Tensor, factor: Tensor, key: str) -> Tensor:
+    """x over a (B, 1, 1, 1, 1) factor; the pose translation (B, V, 3)
+    over its (B, 1, 1) form."""
+    return x / (factor[:, :, 0, 0] if key == "pose_trans" else factor)
+
+
 def _divide(quantities, factor: Tensor, **override) -> Dict[str, Tensor]:
     """The points, depth and pose translation of `quantities` divided by a
     (B, 1, 1, 1, 1) factor; `override` replaces entries outright."""
     out = dict(quantities)
     for key in ("pts3d", "pts3d_cam", "depth", "pose_trans"):
-        out[key] = override[key] if key in override else (
-            quantities[key] / (factor[:, :, 0, 0] if key == "pose_trans"
-                               else factor))
+        out[key] = override[key] if key in override else _div(
+            quantities[key], factor, key)
     return out
 
 
+def _metric_rows(batch, gt_pts: Tensor, valid: Tensor, max_metric_scale,
+                 red: Reduction) -> Tensor:
+    """is_metric_scale (B,), and with `max_metric_scale` only where the
+    farthest valid GT point lies nearer than it."""
+    metric = batch["is_metric_scale"]
+    if max_metric_scale:
+        dis = torch.where(valid, torch.linalg.vector_norm(gt_pts, dim=-1),
+                          0.0)
+        farthest = red.view_max(dis.reshape(dis.shape[0], -1).amax(-1))
+        metric = metric & (farthest < max_metric_scale)
+    return metric
+
+
+def _ambiguity(batch, valid: Tensor, value: float):
+    """(the pixel mask, the ambiguous pixels): ambiguous pixels (not
+    non-ambiguous and not valid) join the mask when `value` > 0, and their
+    loss is then `value`."""
+    amb = (~batch["non_ambiguous_mask"]) & (~valid)
+    return (valid | amb if value > 0 else valid), amb
+
+
+def _predicted_metric_factor(pr_factor: Tensor, preds) -> Tensor:
+    """(B, 1): the detached prediction's norm factor, times the predicted
+    metric scale where there is one."""
+    s = preds.get("metric_scaling_factor")
+    pr_metric = pr_factor.detach()[:, 0, 0, 0, :]
+    return pr_metric if s is None else pr_metric * s[:, None]
+
+
+def _scale_term(crit, pr_metric: Tensor, gt_factor: Tensor,
+                metric: Tensor) -> LossTerm:
+    """The metric-scale set: the predicted metric norm factor (B, 1)
+    against the GT's, in log space with loss_in_log, on the metric samples
+    whose GT factor is above 1e-8."""
+    loss = crit.criterion(
+        _log(pr_metric, crit.loss_in_log),
+        _log(gt_factor[:, 0, 0, 0, :], crit.loss_in_log), factor="scale",
+    ) * crit.scale_loss_weight
+    return LossTerm(loss, metric & (gt_factor[:, 0, 0, 0, 0] > 1e-8),
+                    "scale", replicated=True)
 def _pixel_terms(loss_bvn, mask_bvn, rep_type) -> List[LossTerm]:
     """(B, V, N) stacked pixel loss -> V flat per-view terms."""
     return [LossTerm(loss_bvn[:, i],
@@ -385,17 +518,121 @@ def _details_for(terms: List[LossTerm], self_name: str,
     return det
 
 
+# --- Regr3D, PointsPlusScaleRegr3D -------------------------------------------
+
+
+def _norm_mode(norm_mode: str) -> Tuple[bool, str]:
+    """(norm_all, mode) of a norm_mode: "?mode" normalises the non-metric
+    samples' predictions only, "mode" every sample's."""
+    return not norm_mode.startswith("?"), norm_mode.lstrip("?")
+
+
+class Regr3D(SetCriterion):
+    """World-frame pointmap regression in view 0's frame. Sets: pts3d x V.
+
+    norm_mode "?avg_dis": the GT is normalised by its own factor; the
+    non-metric samples' predictions by theirs, the metric samples' by the
+    GT's. Without "?" (norm_all) every sample is treated as non-metric.
+    gt_scale=True leaves the GT unnormalised and the metric samples'
+    predictions as they are in an all-metric batch (zero in a mixed one,
+    the reference's quirk)."""
+
+    def __init__(self, criterion, norm_mode="?avg_dis", gt_scale=False,
+                 ambiguous_loss_value=0.0, max_metric_scale=False,
+                 loss_in_log=True, flatten_across_image_only=False):
+        self.criterion = criterion
+        self.norm_all, self.norm_mode = _norm_mode(norm_mode)
+        self.gt_scale = gt_scale
+        self.ambiguous_loss_value = ambiguous_loss_value
+        self.max_metric_scale = max_metric_scale
+        self.loss_in_log = loss_in_log
+        self.flatten_across_image_only = flatten_across_image_only
+
+    def loss_sets(self, batch, preds, red: Reduction = LOCAL):
+        b, v, h, w, _ = batch["pts3d"].shape
+        valid = batch["valid_mask"]
+        gt_pts = _world_pts_in_view0(batch, red)
+        pr_raw = preds["pts3d"]
+        metric = _metric_rows(batch, gt_pts, valid, self.max_metric_scale,
+                              red)
+        non_metric = torch.ones_like(metric) if self.norm_all else ~metric
+        pr_self = (red.normalize(pr_raw, valid, self.norm_mode)[0]
+                   if self.norm_mode else pr_raw)
+        if self.norm_mode and not self.gt_scale:
+            gt_pts, gt_factor = red.normalize(gt_pts, valid, self.norm_mode)
+            pr_metric = pr_raw / gt_factor
+        else:
+            pr_metric = torch.where(red.all_rows(~non_metric), pr_raw,
+                                    torch.zeros_like(pr_raw))
+        pr_pts = torch.where(non_metric[:, None, None, None, None], pr_self,
+                             pr_metric)
+        mask, amb = _ambiguity(batch, valid, self.ambiguous_loss_value)
+        loss = self.criterion(_log(pr_pts, self.loss_in_log),
+                              _log(gt_pts, self.loss_in_log),
+                              factor="points")
+        if self.ambiguous_loss_value > 0:
+            loss = torch.where(amb, self.ambiguous_loss_value, loss)
+        terms = _pixel_terms(loss.reshape(b, v, h * w),
+                             mask.reshape(b, v, h * w), "pts3d")
+        return terms, _details_for(terms, type(self).__name__, red)
+
+
+class PointsPlusScaleRegr3D(SetCriterion):
+    """World-frame pointmaps divided by the predicted metric scale, plus the
+    metric-scale set. Sets: pts3d x V, scale."""
+
+    def __init__(self, criterion, norm_predictions=True, norm_mode="avg_dis",
+                 ambiguous_loss_value=0.0, loss_in_log=True,
+                 flatten_across_image_only=False,
+                 world_frame_points_loss_weight=1.0, scale_loss_weight=1.0):
+        self.criterion = criterion
+        self.norm_predictions = norm_predictions
+        self.norm_mode = norm_mode
+        self.ambiguous_loss_value = ambiguous_loss_value
+        self.loss_in_log = loss_in_log
+        self.flatten_across_image_only = flatten_across_image_only
+        self.world_frame_points_loss_weight = world_frame_points_loss_weight
+        self.scale_loss_weight = scale_loss_weight
+
+    def loss_sets(self, batch, preds, red: Reduction = LOCAL):
+        b, v, h, w, _ = batch["pts3d"].shape
+        valid = batch["valid_mask"]
+        gt_pts, gt_factor = red.normalize(_world_pts_in_view0(batch, red),
+                                          valid, self.norm_mode)
+        pr_pts = _unscale_preds(preds)["pts3d"]
+        if self.norm_predictions:
+            pr_pts, pr_factor = red.normalize(pr_pts, valid, self.norm_mode)
+        else:
+            pr_factor = torch.ones_like(gt_factor)
+        mask, amb = _ambiguity(batch, valid, self.ambiguous_loss_value)
+        loss = self.criterion(_log(pr_pts, self.loss_in_log),
+                              _log(gt_pts, self.loss_in_log),
+                              factor="points")
+        if self.ambiguous_loss_value > 0:
+            loss = torch.where(amb, self.ambiguous_loss_value, loss)
+        loss = loss * self.world_frame_points_loss_weight
+        terms = _pixel_terms(loss.reshape(b, v, h * w),
+                             mask.reshape(b, v, h * w), "pts3d")
+        terms.append(_scale_term(self, _predicted_metric_factor(pr_factor,
+                                                                preds),
+                                 gt_factor, batch["is_metric_scale"]))
+        return terms, _details_for(terms, type(self).__name__, red)
+
+
 # --- FactoredGeometry[Scale]Regr3D --------------------------------------------
 
 
 class FactoredGeometryRegr3D(SetCriterion):
     """Factored geometry regression without the scale set. Set order:
-    [pts3d?] cam_pts3d depth ray_dirs pose_quats pose_trans, each x V."""
+    [pts3d?] cam_pts3d depth ray_dirs pose_quats pose_trans, each x V.
+    norm_mode, gt_scale and max_metric_scale as in Regr3D, for the points,
+    depth and pose translation alike."""
 
     _has_scale_set = False
-    norm_mode = "avg_dis"
 
-    def __init__(self, criterion, loss_in_log=True,
+    def __init__(self, criterion, norm_mode="?avg_dis", gt_scale=False,
+                 ambiguous_loss_value=0.0, max_metric_scale=False,
+                 loss_in_log=True, flatten_across_image_only=False,
                  depth_type_for_loss="depth_along_ray",
                  cam_frame_points_loss_weight=1.0, depth_loss_weight=1.0,
                  ray_directions_loss_weight=1.0, pose_quats_loss_weight=1.0,
@@ -404,7 +641,12 @@ class FactoredGeometryRegr3D(SetCriterion):
                  compute_world_frame_points_loss=True,
                  world_frame_points_loss_weight=1.0):
         self.criterion = criterion
+        self.norm_all, self.norm_mode = _norm_mode(norm_mode)
+        self.gt_scale = gt_scale
+        self.ambiguous_loss_value = ambiguous_loss_value
+        self.max_metric_scale = max_metric_scale
         self.loss_in_log = loss_in_log
+        self.flatten_across_image_only = flatten_across_image_only
         self.depth_type_for_loss = depth_type_for_loss
         self.cam_frame_points_loss_weight = cam_frame_points_loss_weight
         self.depth_loss_weight = depth_loss_weight
@@ -441,15 +683,36 @@ class FactoredGeometryRegr3D(SetCriterion):
         return gt, pr
 
     def _normalize(self, gt, pr, batch, valid, red):
-        """'?avg_dis' semantics: the GT divided by its own factor;
-        non-metric predictions by theirs, metric ones by the GT's."""
-        metric = batch["is_metric_scale"]
-        _, gt_factor = red.normalize(gt["pts3d"], valid, self.norm_mode)
-        _, pr_factor = red.normalize(pr["pts3d"], valid, self.norm_mode)
-        pr_div = torch.where(metric[:, None, None, None, None], gt_factor,
-                             pr_factor)
-        return (_divide(gt, gt_factor), _divide(pr, pr_div), gt_factor,
-                pr_factor, metric)
+        """The GT divided by its own factor (none with gt_scale or without
+        a norm mode); each non-metric sample's predictions by theirs, each
+        metric sample's by the GT's (Regr3D's rules)."""
+        metric = _metric_rows(batch, gt["pts3d"], valid,
+                              self.max_metric_scale, red)
+        non_metric = torch.ones_like(metric) if self.norm_all else ~metric
+        nm = non_metric[:, None, None, None, None]
+        pr_self, pr_factor = pr["pts3d"], None
+        if self.norm_mode:
+            pr_self, pr_factor = red.normalize(pr["pts3d"], valid,
+                                               self.norm_mode)
+        out_gt, gt_factor = dict(gt), None
+        if self.norm_mode and not self.gt_scale:
+            gt_norm, gt_factor = red.normalize(gt["pts3d"], valid,
+                                               self.norm_mode)
+            out_gt = _divide(gt, gt_factor, pts3d=gt_norm)
+        all_metric = red.all_rows(~non_metric)
+
+        def mix(key, own):
+            x = pr[key]
+            metric_x = (torch.where(all_metric, x, torch.zeros_like(x))
+                        if gt_factor is None else _div(x, gt_factor, key))
+            return torch.where(nm if key != "pose_trans" else nm[:, :, 0, 0],
+                               own, metric_x)
+
+        out_pr = dict(pr, pts3d=mix("pts3d", pr_self))
+        for key in ("pts3d_cam", "depth", "pose_trans"):
+            out_pr[key] = mix(key, pr[key] if pr_factor is None
+                              else _div(pr[key], pr_factor, key))
+        return out_gt, out_pr, gt_factor, pr_factor, metric
 
     def _pose_terms(self, gt, pr, view_has_valid, b, v, red):
         pairwise_arm = self.compute_pairwise_relative_pose_loss
@@ -500,39 +763,44 @@ class FactoredGeometryRegr3D(SetCriterion):
                        for i in range(v)]
         return quats_terms, trans_terms
 
-    def _pixel_sets(self, gt, pr, valid, b, v, h, w):
+    def _pixel_sets(self, gt, pr, batch, valid, b, v, h, w):
         """pts3d? cam_pts3d depth ray_dirs pixel sets in the reference's
-        order."""
+        order; the ambiguous pixels' loss is ambiguous_loss_value where it
+        is set (not on the ray directions, which take every pixel)."""
         n = h * w
-        mask_f = valid.reshape(b, v, n)
+        mask, amb = _ambiguity(batch, valid, self.ambiguous_loss_value)
+        mask_f = mask.reshape(b, v, n)
 
-        def crit(key, log, weight, factor, use_mask, rep_type):
+        def crit(key, log, weight, factor, rep_type, pixels=True):
             loss = self.criterion(_log(pr[key], log), _log(gt[key], log),
                                   factor=factor)
+            if self.ambiguous_loss_value > 0 and pixels:
+                loss = torch.where(amb, self.ambiguous_loss_value, loss)
             loss = (loss * weight).reshape(b, v, n)
-            return _pixel_terms(loss, mask_f if use_mask else None, rep_type)
+            return _pixel_terms(loss, mask_f if pixels else None, rep_type)
 
         terms: List[LossTerm] = []
         if self.compute_world_frame_points_loss:
             terms += crit("pts3d", self.loss_in_log,
-                          self.world_frame_points_loss_weight, "points", True,
+                          self.world_frame_points_loss_weight, "points",
                           "pts3d")
         terms += crit("pts3d_cam", self.loss_in_log,
-                      self.cam_frame_points_loss_weight, "points", True,
+                      self.cam_frame_points_loss_weight, "points",
                       "cam_pts3d")
         terms += crit("depth", self.loss_in_log, self.depth_loss_weight,
-                      "depth", True, self.depth_type_for_loss)
+                      "depth", self.depth_type_for_loss)
         terms += crit("ray_directions", False,
                       self.ray_directions_loss_weight, "ray_directions",
-                      False, "ray_directions")
+                      "ray_directions", pixels=False)
         return terms
 
     def loss_sets(self, batch, preds, red: Reduction = LOCAL):
         terms, details, _ = self._sets(batch, preds, red)
         return terms, details
 
-    def _sets(self, batch, preds, red):
-        """(terms, details, the normalised (gt, pr)) of loss_sets."""
+    def _sets(self, batch, preds, red=LOCAL):
+        """(terms, details, (the normalised gt, pr, the GT factor)) of
+        loss_sets."""
         b, v, h, w, _ = batch["pts3d"].shape
         valid = batch["valid_mask"]
         view_has_valid = valid.reshape(b, v, -1).sum(-1) > 0
@@ -540,29 +808,21 @@ class FactoredGeometryRegr3D(SetCriterion):
         gt_raw, pr_raw = self._gather(batch, preds, red)
         gt, pr, gt_factor, pr_factor, metric = self._normalize(
             gt_raw, pr_raw, batch, valid, red)
-        terms = self._pixel_sets(gt, pr, valid, b, v, h, w)
+        terms = self._pixel_sets(gt, pr, batch, valid, b, v, h, w)
         quats_terms, trans_terms = self._pose_terms(gt, pr, view_has_valid,
                                                     b, v, red)
         terms += quats_terms + trans_terms
 
         if self._has_scale_set:
-            s = preds.get("metric_scaling_factor")
             if pr_factor is None:
                 # the metric factor is always that of the unscaled prediction
                 _, pr_factor = red.normalize(pr_raw["pts3d"], valid,
                                              self.norm_mode)
-            pr_metric_factor = pr_factor.detach()[:, 0, 0, 0, :]
-            if s is not None:
-                pr_metric_factor = pr_metric_factor * s[:, None]
-            gt_metric_factor = gt_factor[:, 0, 0, 0, :]
-            scale_valid = metric & (gt_factor[:, 0, 0, 0, 0] > 1e-8)
-            scale_loss = self.criterion(
-                _log(pr_metric_factor, self.loss_in_log),
-                _log(gt_metric_factor, self.loss_in_log), factor="scale",
-            ) * self.scale_loss_weight
-            terms.append(LossTerm(scale_loss, scale_valid, "scale",
-                                  replicated=True))
-        return terms, _details_for(terms, type(self).__name__, red), (gt, pr)
+            terms.append(_scale_term(
+                self, _predicted_metric_factor(pr_factor, preds), gt_factor,
+                metric))
+        return (terms, _details_for(terms, type(self).__name__, red),
+                (gt, pr, gt_factor))
 
 
 class FactoredGeometryScaleRegr3D(FactoredGeometryRegr3D):
@@ -574,7 +834,9 @@ class FactoredGeometryScaleRegr3D(FactoredGeometryRegr3D):
     _has_scale_set = True
 
     def __init__(self, criterion, norm_predictions=True, norm_mode="avg_dis",
-                 loss_in_log=True, depth_type_for_loss="depth_along_ray",
+                 ambiguous_loss_value=0.0, loss_in_log=True,
+                 flatten_across_image_only=False,
+                 depth_type_for_loss="depth_along_ray",
                  cam_frame_points_loss_weight=1.0, depth_loss_weight=1.0,
                  ray_directions_loss_weight=1.0, pose_quats_loss_weight=1.0,
                  pose_trans_loss_weight=1.0, scale_loss_weight=1.0,
@@ -582,7 +844,10 @@ class FactoredGeometryScaleRegr3D(FactoredGeometryRegr3D):
                  compute_world_frame_points_loss=True,
                  world_frame_points_loss_weight=1.0):
         super().__init__(
-            criterion, loss_in_log=loss_in_log,
+            criterion, norm_mode="avg_dis",
+            ambiguous_loss_value=ambiguous_loss_value,
+            loss_in_log=loss_in_log,
+            flatten_across_image_only=flatten_across_image_only,
             depth_type_for_loss=depth_type_for_loss,
             cam_frame_points_loss_weight=cam_frame_points_loss_weight,
             depth_loss_weight=depth_loss_weight,
@@ -609,36 +874,40 @@ class FactoredGeometryScaleRegr3D(FactoredGeometryRegr3D):
         return out_gt, out_pr, gt_factor, pr_factor, batch["is_metric_scale"]
 
 
-class FactoredGeometryRegr3DPlusNormalGMLoss(FactoredGeometryScaleRegr3D):
-    """Adds per-view normal-consistency and gradient-matching terms after
-    the regression sets: normals on the normalised camera points, gradient
-    matching on their log z, on synthetic samples only."""
+class _NormalGM:
+    """Adds per-view normal-consistency and gradient-matching terms after a
+    set criterion's sets: normals on its normalised camera points, gradient
+    matching on their log z, on synthetic samples only where
+    apply_normal_and_gm_loss_to_synthetic_data_only."""
 
-    def __init__(self, *args, normal_loss_weight=1.0, gm_loss_weight=1.0,
-                 **kw):
+    def __init__(self, *args,
+                 apply_normal_and_gm_loss_to_synthetic_data_only=True,
+                 normal_loss_weight=1.0, gm_loss_weight=1.0, **kw):
         super().__init__(*args, **kw)
+        self.apply_normal_and_gm_loss_to_synthetic_data_only = (
+            apply_normal_and_gm_loss_to_synthetic_data_only)
         self.normal_loss_weight = normal_loss_weight
         self.gm_loss_weight = gm_loss_weight
 
-    def _sets(self, batch, preds, red):
-        terms, details, (gt, pr) = super()._sets(batch, preds, red)
+    def _sets(self, batch, preds, red=LOCAL):
+        terms, details, (gt, pr, gt_factor) = super()._sets(batch, preds,
+                                                            red)
         b, v = batch["pts3d"].shape[:2]
-        valid = batch["valid_mask"]
-        syn = batch.get("is_synthetic")
-        if syn is None:
-            syn = torch.zeros(b, dtype=torch.bool, device=valid.device)
-        mask = valid & syn[:, None, None, None]
+        mask = batch["valid_mask"]
+        if self.apply_normal_and_gm_loss_to_synthetic_data_only:
+            syn = batch.get("is_synthetic")
+            if syn is None:
+                syn = torch.zeros(b, dtype=torch.bool, device=mask.device)
+            mask = mask & syn[:, None, None, None]
 
         normal_terms, gm_terms = [], []
         group = red.data_group
         for i in range(v):
-            nrm = compute_normal_loss(pr["pts3d_cam"][:, i],
-                                      gt["pts3d_cam"][:, i], mask[:, i],
-                                      group)
+            pr_cam, gt_cam = pr["pts3d_cam"][:, i], gt["pts3d_cam"][:, i]
+            nrm = compute_normal_loss(pr_cam, gt_cam, mask[:, i], group)
             gm = compute_gradient_matching_loss(
-                apply_log_to_norm(pr["pts3d_cam"][:, i, ..., 2:]),
-                apply_log_to_norm(gt["pts3d_cam"][:, i, ..., 2:]), mask[:, i],
-                group=group)
+                apply_log_to_norm(pr_cam[..., 2:]),
+                apply_log_to_norm(gt_cam[..., 2:]), mask[:, i], group=group)
             normal_terms.append(LossTerm(nrm * self.normal_loss_weight, None,
                                          "normal", reduced=True))
             gm_terms.append(LossTerm(gm * self.gm_loss_weight, None,
@@ -646,12 +915,117 @@ class FactoredGeometryRegr3DPlusNormalGMLoss(FactoredGeometryScaleRegr3D):
         terms += normal_terms + gm_terms
         details.update(_details_for(normal_terms + gm_terms,
                                     type(self).__name__, red))
-        return terms, details, (gt, pr)
+        return terms, details, (gt, pr, gt_factor)
+
+
+class FactoredGeometryRegr3DPlusNormalGMLoss(_NormalGM,
+                                             FactoredGeometryScaleRegr3D):
+    """FactoredGeometryScaleRegr3D with the normal and gradient-matching
+    terms (as in the JAX package, on the scale criterion)."""
 
 
 class FactoredGeometryScaleRegr3DPlusNormalGMLoss(
         FactoredGeometryRegr3DPlusNormalGMLoss):
     """The released recipe's pixel criterion."""
+
+
+# --- DisentangledFactoredGeometryScaleRegr3D --------------------------------
+
+
+class DisentangledFactoredGeometryScaleRegr3D(SetCriterion):
+    """Disentangled factored loss: each factor is judged by the world-frame
+    pointmap it gives when every other factor is the ground truth
+    (Simonelli et al., ICCV 2019). Sets: depth_along_ray, ray_directions,
+    pose_quats, pose_trans (pixel sets, x V each), scale."""
+
+    def __init__(self, criterion, norm_predictions=True, norm_mode="avg_dis",
+                 loss_in_log=True, flatten_across_image_only=False,
+                 depth_type_for_loss="depth_along_ray",
+                 depth_loss_weight=1.0, ray_directions_loss_weight=1.0,
+                 pose_quats_loss_weight=1.0, pose_trans_loss_weight=1.0,
+                 scale_loss_weight=1.0):
+        if depth_type_for_loss != "depth_along_ray":
+            raise ValueError("the disentangled loss takes depth_along_ray "
+                             "only, as the reference")
+        self.criterion = criterion
+        self.norm_predictions = norm_predictions
+        self.norm_mode = norm_mode
+        self.loss_in_log = loss_in_log
+        self.flatten_across_image_only = flatten_across_image_only
+        self.depth_type_for_loss = depth_type_for_loss
+        self.depth_loss_weight = depth_loss_weight
+        self.ray_directions_loss_weight = ray_directions_loss_weight
+        self.pose_quats_loss_weight = pose_quats_loss_weight
+        self.pose_trans_loss_weight = pose_trans_loss_weight
+        self.scale_loss_weight = scale_loss_weight
+
+    def loss_sets(self, batch, preds, red: Reduction = LOCAL):
+        terms, details, _ = self._sets(batch, preds, red)
+        return terms, details
+
+    def _sets(self, batch, preds, red=LOCAL):
+        """(terms, details, ({"pts3d_cam"} of the GT and the prediction,
+        normalised, the GT factor))."""
+        b, v, h, w, _ = batch["pts3d"].shape
+        valid = batch["valid_mask"]
+        up = _unscale_preds(preds)
+        gt_quats, gt_trans = _gt_pose_in_view0(batch, red)
+        gt_rays = batch["ray_directions_cam"]
+        gt_pts, gt_factor = red.normalize(_world_pts_in_view0(batch, red),
+                                          valid, self.norm_mode)
+        gt_depth = batch["depth_along_ray"] / gt_factor
+        gt_trans = _div(gt_trans, gt_factor, "pose_trans")
+        pr_depth, pr_trans = up["depth_along_ray"], up["cam_trans"]
+        pr_cam = up["pts3d_cam"]
+        if self.norm_predictions:
+            _, pr_factor = red.normalize(up["pts3d"], valid, self.norm_mode)
+            pr_depth = pr_depth / pr_factor
+            pr_trans = _div(pr_trans, pr_factor, "pose_trans")
+            pr_cam = pr_cam / pr_factor
+
+        recombine = (
+            convert_ray_dirs_depth_along_ray_pose_trans_quats_to_pointmap)
+        per_factor = (  # the reference's set order
+            ("depth_along_ray", self.depth_loss_weight,
+             recombine(gt_rays, pr_depth, gt_trans, gt_quats)),
+            ("ray_directions", self.ray_directions_loss_weight,
+             recombine(preds["ray_directions"], gt_depth, gt_trans,
+                       gt_quats)),
+            ("pose_quats", self.pose_quats_loss_weight,
+             recombine(gt_rays, gt_depth, gt_trans, preds["cam_quats"])),
+            ("pose_trans", self.pose_trans_loss_weight,
+             recombine(gt_rays, gt_depth, pr_trans, gt_quats)),
+        )
+        gt_l = _log(gt_pts, self.loss_in_log)
+        mask_f = valid.reshape(b, v, h * w)
+        terms: List[LossTerm] = []
+        for name, weight, pts in per_factor:
+            loss = self.criterion(_log(pts, self.loss_in_log), gt_l,
+                                  factor="points") * weight
+            terms += _pixel_terms(loss.reshape(b, v, h * w), mask_f, name)
+
+        s = preds.get("metric_scaling_factor")
+        if self.norm_predictions:
+            # the factor of the detached metric-scaled prediction
+            scaled = up["pts3d"].detach()
+            if s is not None:
+                scaled = scaled * s[:, None, None, None, None]
+            pr_metric = red.normalize(scaled, valid,
+                                      self.norm_mode)[1][:, 0, 0, 0, :]
+        else:
+            pr_metric = torch.ones_like(gt_factor)[:, 0, 0, 0, :]
+            if s is not None:
+                pr_metric = pr_metric * s[:, None]
+        terms.append(_scale_term(self, pr_metric, gt_factor,
+                                 batch["is_metric_scale"]))
+        return (terms, _details_for(terms, type(self).__name__, red),
+                ({"pts3d_cam": batch["pts3d_cam"] / gt_factor},
+                 {"pts3d_cam": pr_cam}, gt_factor))
+
+
+class DisentangledFactoredGeometryScaleRegr3DPlusNormalGMLoss(
+        _NormalGM, DisentangledFactoredGeometryScaleRegr3D):
+    """The disentangled loss with the normal and gradient-matching terms."""
 
 
 # --- standalone wrappers ------------------------------------------------------
@@ -751,12 +1125,15 @@ class ConfLoss(_SetWrapper):
 
 class ExcludeTopNPercentPixelLoss(_SetWrapper):
     """Drops the top-N% highest per-pixel losses of each image on the
-    selected sets; synthetic samples keep every valid pixel."""
+    selected sets; with apply_to_real_data_only, synthetic samples keep
+    every valid pixel."""
 
-    def __init__(self, pixel_loss, top_n_percent=5.0, loss_set_indices=None):
+    def __init__(self, pixel_loss, top_n_percent=5.0,
+                 apply_to_real_data_only=True, loss_set_indices=None):
         self.pixel_loss = pixel_loss
         self.top_n_percent = top_n_percent
         self.bottom_n_percent = 100.0 - top_n_percent
+        self.apply_to_real_data_only = apply_to_real_data_only
         self.loss_set_indices = ([1] if loss_set_indices is None
                                  else list(loss_set_indices))
 
@@ -769,7 +1146,7 @@ class ExcludeTopNPercentPixelLoss(_SetWrapper):
                                  device=term.loss.device))
         keep = _keep_bottom_n_mask(term.loss, valid, self.bottom_n_percent)
         syn = batch.get("is_synthetic")
-        if syn is not None:
+        if self.apply_to_real_data_only and syn is not None:
             keep = torch.where(syn[:, None], valid, keep)
         return masked_mean(term.loss, keep, red.data_group)
 
@@ -799,12 +1176,14 @@ class ConfAndExcludeTopNPercentPixelLoss(ConfLoss,
     released recipe's wrapper (conf on [0], exclude on [1, 2])."""
 
     def __init__(self, pixel_loss, conf_alpha=1.0, top_n_percent=5.0,
-                 conf_loss_set_indices=None, exclude_loss_set_indices=None):
+                 apply_to_real_data_only=True, conf_loss_set_indices=None,
+                 exclude_loss_set_indices=None):
         assert conf_alpha > 0
         self.pixel_loss = pixel_loss
         self.alpha = conf_alpha
         self.top_n_percent = top_n_percent
         self.bottom_n_percent = 100.0 - top_n_percent
+        self.apply_to_real_data_only = apply_to_real_data_only
         self.conf_loss_set_indices = ([0] if conf_loss_set_indices is None
                                       else list(conf_loss_set_indices))
         self.exclude_loss_set_indices = (
@@ -869,15 +1248,23 @@ __all__ = [
     "BaseCriterion",
     "ConfAndExcludeTopNPercentPixelLoss",
     "ConfLoss",
+    "DisentangledFactoredGeometryScaleRegr3D",
+    "DisentangledFactoredGeometryScaleRegr3DPlusNormalGMLoss",
     "ExcludeTopNPercentPixelLoss",
     "FactoredGeometryRegr3D",
     "FactoredGeometryRegr3DPlusNormalGMLoss",
     "FactoredGeometryScaleRegr3D",
     "FactoredGeometryScaleRegr3DPlusNormalGMLoss",
+    "FactoredLLoss",
+    "GenericLLoss",
+    "L1Loss",
+    "L2Loss",
     "LossTerm",
     "MultiLoss",
     "NonAmbiguousMaskLoss",
+    "PointsPlusScaleRegr3D",
     "Reduction",
+    "Regr3D",
     "RobustRegressionLoss",
     "SetCriterion",
     "masked_mean",

@@ -1,4 +1,4 @@
-"""Flash against math attention on the gradient of the released loss.
+"""Flash against math attention on the gradient of a training loss.
 
     python -m mapanything_tpu_torch.train.grad_check [--steps 14] [--out FILE]
 
@@ -20,7 +20,9 @@ gradient three ways:
     branches that a bf16-level change flips (the quaternion double cover
     min(|q - gt|, |q + gt|) and the exclude-top-N% ranking), so this
     gradient can move by O(1) between two equally valid forwards;
-  * the same two readings for each term of the loss (`term_losses`).
+  * the same two readings for each term of the released loss
+    (`term_losses`); another criterion (`compare(loss_fn=...)`) is read as
+    a whole.
 
 `compare_sharded` reads the view-sharded loss and gradient
 (train/seq_parallel.py) against the unsharded ones the same ways.
@@ -88,9 +90,16 @@ def term_losses(details: Dict[str, torch.Tensor], n_views: int,
     return terms
 
 
-def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
-    a, b = a.double(), b.double()
-    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+def _rel_l2(a: torch.Tensor, b: torch.Tensor,
+            chunk: int = 1 << 26) -> float:
+    """|a - b| / |b| with fp64 sums, over chunks of the flat vectors: a
+    flat gradient of a billion parameters would take 8 GiB in fp64."""
+    diff = ref = 0.0
+    for i in range(0, a.numel(), chunk):
+        x, y = a[i:i + chunk].double(), b[i:i + chunk].double()
+        diff += float((x - y).square().sum())
+        ref += float(y.square().sum())
+    return (diff / max(ref, 1e-60)) ** 0.5
 
 
 NOISE, NOISE_SEED = 1e-3, 5
@@ -104,7 +113,10 @@ def _noisy(img: torch.Tensor) -> torch.Tensor:
 
 
 def _float_outputs(preds: Dict) -> list:
-    return [v for _, v in sorted(preds.items()) if v.is_floating_point()]
+    """The predictions a parameter reaches (a model without the scale
+    token predicts a constant metric scale of 1)."""
+    return [v for _, v in sorted(preds.items())
+            if v.is_floating_point() and v.requires_grad]
 
 
 def _flat_grad(outputs, params, cotangents=None,
@@ -137,10 +149,19 @@ def _inputs(batch: Dict, geom_cfg, seed: int):
     return views, geom_cfg, generator
 
 
-def compare(model, batch: Dict, geom_cfg=None, seed: int = 0) -> Dict:
+def compare(model, batch: Dict, geom_cfg=None, seed: int = 0,
+            loss_fn=None) -> Dict:
     """The readings of the module docstring for one batch ("views" with
     "img", and "gt"), with the model's current parameters; the images
-    alone, or the views with their priors under `geom_cfg`."""
+    alone, or the views with their priors under `geom_cfg`.
+
+    `loss_fn(gt, preds) -> (loss, details)` is the loss read, by default
+    the released criterion (train/losses.py::overall_loss) with the
+    readings of each of its terms; any other criterion (a composed
+    train/criteria.py MultiLoss) is read as a whole, the pulled-back
+    gradients and the total's, one forward's graph at a time."""
+    per_term = loss_fn is None
+    loss_fn = overall_loss if loss_fn is None else loss_fn
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
     n_views = batch["gt"]["pts3d"].shape[1]
@@ -154,25 +175,26 @@ def compare(model, batch: Dict, geom_cfg=None, seed: int = 0) -> Dict:
                           geom, generator())
         finally:
             model.set_attn_impl("auto")
-        loss, details = overall_loss(batch["gt"], preds)
+        loss, details = loss_fn(batch["gt"], preds)
         return loss, details, _float_outputs(preds)
 
     def flat(outputs, cotangents=None):
         return _flat_grad(outputs, params, cotangents)
 
-    loss_m, det_m, outs_m = forward("math")
-    loss_a, det_a, outs_a = forward("auto")
-    loss_n, det_n, outs_n = forward("math", noise=True)
-    cot = [torch.zeros_like(o) if c is None else c for c, o in zip(
-        torch.autograd.grad(loss_m, outs_m, retain_graph=True,
-                            allow_unused=True), outs_m)]
-    vjp_m, vjp_a, vjp_n = (flat(o, cot) for o in (outs_m, outs_a, outs_n))
     ends = torch.tensor([p.numel() for p in params]).cumsum(0).tolist()
     qkv = [slice(end - p.numel(), end)
            for n, p, end in zip(names, params, ends) if ".qkv." in n]
 
     def qkv_part(v):
         return torch.cat([v[q] for q in qkv])
+
+    if not per_term:
+        return _whole_loss_readings(forward, params, qkv_part)
+    loss_m, det_m, outs_m = forward("math")
+    loss_a, det_a, outs_a = forward("auto")
+    loss_n, det_n, outs_n = forward("math", noise=True)
+    cot = _cotangent(loss_m, outs_m)
+    vjp_m, vjp_a, vjp_n = (flat(o, cot) for o in (outs_m, outs_a, outs_n))
 
     la, lm = loss_a.item(), loss_m.item()
     res = {"loss_auto": la, "loss_math": lm,
@@ -200,6 +222,46 @@ def compare(model, batch: Dict, geom_cfg=None, seed: int = 0) -> Dict:
     res["full_loss_grad_rel_l2"] = res["terms"]["total"]["flash_rel_l2"]
     res["full_loss_grad_noise_floor"] = (
         res["terms"]["total"]["noise_floor_rel_l2"])
+    return res
+
+
+def _cotangent(loss, outs) -> list:
+    """d loss / d outs, zeros for an output the loss does not read."""
+    return [torch.zeros_like(o) if c is None else c for c, o in zip(
+        torch.autograd.grad(loss, outs, retain_graph=True,
+                            allow_unused=True), outs)]
+
+
+def _whole_loss_readings(forward, params, qkv_part) -> Dict:
+    """compare's readings of a loss read as a whole, with one forward's
+    graph alive at a time: the math forward's cotangent and its two
+    gradients first, then the flash forward's and the perturbed image's,
+    each held against them and freed before the next forward."""
+    loss_m, _, outs_m = forward("math")
+    cot = _cotangent(loss_m, outs_m)
+    vjp_m = _flat_grad(outs_m, params, cot)
+    full_m = _flat_grad(loss_m, params, retain_graph=False)
+    del outs_m
+    res = {"loss_math": loss_m.item()}
+    total = {"math": res["loss_math"]}
+    for impl, noise, key in (("auto", False, ""),
+                             ("math", True, "_noise_floor")):
+        loss, _, outs = forward(impl, noise)
+        vjp = _flat_grad(outs, params, cot)
+        res[f"grad{key}_rel_l2"] = _rel_l2(vjp, vjp_m)
+        res[f"qkv_grad{key}_rel_l2"] = _rel_l2(qkv_part(vjp), qkv_part(vjp_m))
+        del vjp, outs
+        full = _flat_grad(loss, params, retain_graph=False)
+        total["noise_floor_rel_l2" if noise else "flash_rel_l2"] = _rel_l2(
+            full, full_m)
+        del full
+        if not noise:
+            total["auto"] = res["loss_auto"] = loss.item()
+    res["loss_rel_diff"] = (abs(res["loss_auto"] - res["loss_math"])
+                            / max(abs(res["loss_math"]), 1e-30))
+    res["terms"] = {"total": total}
+    res["full_loss_grad_rel_l2"] = total["flash_rel_l2"]
+    res["full_loss_grad_noise_floor"] = total["noise_floor_rel_l2"]
     return res
 
 
@@ -244,9 +306,7 @@ def compare_sharded(model, batch: Dict, group,
         return loss, _float_outputs(preds)
 
     loss_u, outs = unsharded(img)
-    cot = [torch.zeros_like(o) if c is None else c for c, o in zip(
-        torch.autograd.grad(loss_u, outs, retain_graph=True,
-                            allow_unused=True), outs)]
+    cot = _cotangent(loss_u, outs)
     vjp_u = _flat_grad(outs, params, cot)
     full_u = _flat_grad(loss_u, params, retain_graph=False)
     del outs

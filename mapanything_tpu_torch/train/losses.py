@@ -23,13 +23,37 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-from ..geometry import angle_diff_vec3
+from ..geometry import angle_diff_vec3, apply_log_to_norm
 from ..ops.ring_attention import all_reduce
+
+
+def l1_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a - b).abs().sum(-1)
+
+
+def l2_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.vector_norm(a - b, dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class L1Loss:
+    """The L1 distance over the last axis; `factor` is ignored."""
+
+    def __call__(self, a, b, factor=None):
+        return l1_distance(a, b)
+
+
+@dataclasses.dataclass(frozen=True)
+class L2Loss:
+    """The Euclidean distance over the last axis; `factor` is ignored."""
+
+    def __call__(self, a, b, factor=None):
+        return l2_distance(a, b)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +91,27 @@ def bce_with_logits(logits: torch.Tensor,
     target = target.to(logits.dtype)
     return (logits.clamp_min(0) - logits * target
             + torch.log1p(torch.exp(-logits.abs())))
+
+
+def exclude_top_n_percent(pixel_loss: torch.Tensor, valid: torch.Tensor,
+                          top_n_percent: float,
+                          keep_all: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """The (B, V, HW) mask that keeps, per image, the valid pixels whose
+    loss is at most the one at rank valid - floor(valid * N / 100) of the
+    image's ascending valid losses (every valid pixel where that floor is
+    0, and in the samples where `keep_all` (B,) is True)."""
+    hw = pixel_loss.shape[-1]
+    masked = torch.where(valid, pixel_loss, -torch.inf)
+    sorted_loss = torch.sort(masked, dim=-1).values  # valid ones on top
+    n_excl = (valid.sum(-1) * top_n_percent / 100.0).to(torch.int64)
+    idx = (hw - n_excl - 1).clamp(0, hw - 1)
+    thresh = torch.take_along_dim(sorted_loss, idx[..., None], dim=-1)
+    keep = (valid & (pixel_loss <= thresh)) | ((n_excl[..., None] == 0)
+                                               & valid)
+    if keep_all is not None:
+        keep = torch.where(keep_all[:, None, None], valid, keep)
+    return keep
 
 
 def _smooth(err: torch.Tensor, beta: float) -> torch.Tensor:
@@ -136,6 +181,42 @@ def compute_gradient_matching_loss(prediction: torch.Tensor,
     return total
 
 
+def normal_gm_loss(pr_pts_cam_n: torch.Tensor, gt_pts_cam_n: torch.Tensor,
+                   valid: torch.Tensor,
+                   is_synthetic: Optional[torch.Tensor] = None,
+                   apply_to_synthetic_only: bool = True,
+                   normal_loss_weight: float = 3.0,
+                   gm_loss_weight: float = 3.0
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The normal-consistency and gradient-matching terms of the released
+    pixel criterion, summed over the views: normals on the normalised
+    camera points (B, V, H, W, 3), gradient matching on their log z, under
+    `valid` (B, V, H, W) and, with `apply_to_synthetic_only`, only in the
+    samples `is_synthetic` (B,) marks. Returns (the weighted sum,
+    {"normal_loss", "gm_loss"})."""
+    b, v = valid.shape[:2]
+    mask = valid
+    if apply_to_synthetic_only:
+        syn = (is_synthetic if is_synthetic is not None else torch.zeros(
+            b, dtype=torch.bool, device=valid.device))
+        mask = mask & syn[:, None, None, None]
+    normal_total = gm_total = 0.0
+    for i in range(v):
+        normal_total = normal_total + compute_normal_loss(
+            pr_pts_cam_n[:, i], gt_pts_cam_n[:, i], mask[:, i])
+        gm_total = gm_total + compute_gradient_matching_loss(
+            apply_log_to_norm(pr_pts_cam_n[:, i, ..., 2:]),
+            apply_log_to_norm(gt_pts_cam_n[:, i, ..., 2:]), mask[:, i])
+    normal, gm = normal_loss_weight * normal_total, gm_loss_weight * gm_total
+    return normal + gm, {"normal_loss": normal, "gm_loss": gm}
+
+
+def non_ambiguous_mask_loss(logits: torch.Tensor,
+                            gt_non_ambiguous: torch.Tensor) -> torch.Tensor:
+    """NonAmbiguousMaskLoss(BCELoss()) over (B, V, H, W): the mean BCE."""
+    return bce_with_logits(logits, gt_non_ambiguous).mean()
+
+
 @dataclasses.dataclass(frozen=True)
 class FactoredGeometryConfig:
     norm_predictions: bool = True
@@ -159,6 +240,68 @@ class OverallLossConfig:
     normal_loss_weight: float = 3.0
     gm_loss_weight: float = 3.0
     factored: FactoredGeometryConfig = FactoredGeometryConfig()
+
+
+_SET_TYPES = {"pose_quats": "view", "pose_trans": "view", "scale": "sample"}
+
+
+def factored_geometry_scale_regr3d(
+        gt: Dict[str, torch.Tensor], preds: Dict[str, torch.Tensor],
+        criterion=RobustRegressionLoss(alpha=0.5, scaling_c=0.05),
+        cfg: FactoredGeometryConfig = FactoredGeometryConfig(),
+        return_normalized: bool = False):
+    """The ordered loss sets of FactoredGeometryScaleRegr3D, as the JAX
+    package's function of that name returns them:
+    {name: {"loss", "mask", "type"}} with name in the set order
+    [pts3d] cam_pts3d <depth type> ray_directions pose_quats pose_trans
+    scale and type "pixel" (B, V, HW), "view" (B, V) or, with the pairwise
+    arm, (B, V, V), or "sample" (B,); the masks alike (None: every
+    element). The sets are the criterion's per-view terms
+    (train/criteria.py), stacked along the view axis. With
+    return_normalized, also {"pr_pts_cam_n", "gt_pts_cam_n"}.
+
+    As the JAX function, and unlike the criterion, the scale set of
+    `norm_predictions=False` compares the predicted metric scale itself
+    (a prediction factor of 1) with the GT factor.
+    """
+    from .criteria import FactoredGeometryScaleRegr3D, _log
+
+    w = cfg.weights
+    crit = FactoredGeometryScaleRegr3D(
+        criterion, norm_predictions=cfg.norm_predictions,
+        norm_mode=cfg.norm_mode, loss_in_log=cfg.loss_in_log,
+        depth_type_for_loss=cfg.depth_type_for_loss,
+        compute_pairwise_relative_pose_loss=(
+            cfg.compute_pairwise_relative_pose_loss),
+        compute_world_frame_points_loss=cfg.compute_world_frame_points_loss,
+        world_frame_points_loss_weight=w[0],
+        cam_frame_points_loss_weight=w[1], depth_loss_weight=w[2],
+        ray_directions_loss_weight=w[3], pose_quats_loss_weight=w[4],
+        pose_trans_loss_weight=w[5], scale_loss_weight=w[6])
+    terms, _, (gt_n, pr_n, gt_factor) = crit._sets(gt, preds)
+    grouped: Dict[str, list] = {}
+    for t in terms:
+        grouped.setdefault(t.rep_type, []).append(t)
+    losses = {}
+    for name, ts in grouped.items():
+        kind = _SET_TYPES.get(name, "pixel")
+        if kind == "sample":
+            (t,) = ts
+            loss, mask = t.loss, t.mask
+        else:
+            loss = torch.stack([t.loss for t in ts], dim=1)
+            mask = (None if ts[0].mask is None
+                    else torch.stack([t.mask for t in ts], dim=1))
+        losses[name] = {"loss": loss, "mask": mask, "type": kind}
+    if not cfg.norm_predictions:
+        s = preds["metric_scaling_factor"][:, None]
+        losses["scale"]["loss"] = criterion(
+            _log(s, cfg.loss_in_log),
+            _log(gt_factor[:, 0, 0, 0, :], cfg.loss_in_log)) * w[6]
+    if return_normalized:
+        return losses, {"pr_pts_cam_n": pr_n["pts3d_cam"],
+                        "gt_pts_cam_n": gt_n["pts3d_cam"]}
+    return losses
 
 
 def overall_loss(gt: Dict[str, torch.Tensor], preds: Dict[str, torch.Tensor],

@@ -126,7 +126,13 @@ def make_view_sharded_train_step(
     a gloo group.
     """
 
-    check_released_scene_rep(model)
+    # the JAX package's view-sharded step computes the released criterion
+    # only (mapanything_tpu/train/seq_parallel.py:78-98), so it takes the
+    # same scene representations as make_train_step, on the alternating
+    # trunk (MapAnything.forward refuses a seq_group on any other)
+    check_released_scene_rep(
+        model, "the view-sharded step (the released criterion only, as the "
+        "JAX package's)")
     if getattr(model, "tp_split", None):
         raise ValueError("a tensor-parallel model cannot train view-sharded: "
                          "tensor parallelism and the ring both use the "

@@ -44,7 +44,7 @@ from torch import nn
 import torch.distributed as dist
 
 from ..models import GeometricInputConfig, MapAnything
-from ..models.mapanything import RELEASED_SCENE_REP
+from ..models.mapanything import scene_rep_family, scene_rep_keys
 from ..parallel.distributed import all_reduce_grads
 from .criteria import Reduction
 from .losses import OverallLossConfig, overall_loss
@@ -208,17 +208,33 @@ def create_train_state(model: MapAnything,
     return TrainState(model=model, optimizer=make_optimizer(optim_cfg, model))
 
 
-def check_released_scene_rep(model: MapAnything) -> None:
-    """Raise NotImplementedError for a model whose scene representation
-    the released criterion cannot take (it reads the factored rays, depth
-    and pose): the criteria of the other families are ROADMAP queue A
-    item 6 (A9)."""
+# the predictions the released criterion reads (train/criteria.py)
+RELEASED_LOSS_KEYS = frozenset({
+    "metric_scaling_factor", "pts3d", "pts3d_cam", "depth_along_ray",
+    "ray_directions", "cam_trans", "cam_quats", "conf",
+    "non_ambiguous_mask_logits"})
+
+
+def check_released_scene_rep(model: MapAnything,
+                             step: str = "the train step") -> None:
+    """Raise ValueError for a model whose outputs lack a key the released
+    criterion reads: the scene representations the JAX package's step fails
+    on (KeyError there). The ones it trains are the pose families with
+    +confidence+mask. The message names the missing keys and the composed
+    criteria that take the family (forward, criterion, backward, AdamW, as
+    tests/test_criteria.py composes them)."""
     srt = model.cfg.scene_rep_type
-    if srt != RELEASED_SCENE_REP:
-        raise NotImplementedError(
-            f"training scene_rep_type {srt!r}: the released criterion takes "
-            f"{RELEASED_SCENE_REP!r}; the other families' criteria are "
-            "ROADMAP queue A item 6 (A9)")
+    missing = RELEASED_LOSS_KEYS - scene_rep_keys(srt)
+    if missing:
+        criteria = ("FactoredGeometryScaleRegr3D or a Disentangled* "
+                    "criterion" if scene_rep_family(srt).endswith("pose")
+                    else "Regr3D or PointsPlusScaleRegr3D")
+        raise ValueError(
+            f"{step} trains the released criterion, which reads "
+            f"{sorted(missing)}; scene_rep_type {srt!r} does not output "
+            f"them. Compose {criteria} from train/criteria.py for it (with "
+            "ConfLoss where it has +confidence, NonAmbiguousMaskLoss where "
+            "it has +mask)")
 
 
 def make_loss_fn(model: MapAnything, geom_cfg: GeometricInputConfig,

@@ -159,6 +159,26 @@ def test_default_manager_and_verbose(capsys):
                     capsys.readouterr().out)
 
 
+def test_read_trace_matches_the_profilers_events():
+    """perf/timing.py::read_trace, kineto's raw events, gives the
+    profiler's own FunctionEvent numbers: every host op's self time, with
+    nesting and several threads (a backward), and no device op on the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+
+    layer = torch.nn.Sequential(torch.nn.Linear(16, 32), torch.nn.GELU(),
+                                torch.nn.Linear(32, 4))
+    x = torch.randn(8, 16)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            layer(x).square().sum().backward()
+    raw, ref = PT.read_trace(prof), PT.read_trace_events(prof)
+    assert raw[0] == ref[0] == {} and raw[2] == ref[2] == 0
+    assert raw[1].keys() == ref[1].keys()
+    assert any(name.startswith("autograd::engine") for name in raw[1])
+    for name, us in ref[1].items():
+        assert raw[1][name] == pytest.approx(us, rel=1e-9, abs=1e-6), name
+
+
 # ---------------------------------------------------------------------------
 # the checkpoint inspector and converter
 

@@ -85,7 +85,61 @@ def _geometry_cases():
         cases[f"normalize_{mode}"] = ("normalize_multiple_pointclouds",
                                       (pts, valid, mode),
                                       {"ret_factor": True})
+    pose2 = np.asarray(JG.pose_quats_trans_to_matrix(
+        jnp.asarray(_quats(rng, 2, 3)), jnp.asarray(_rand(rng, 2, 3, 3))))
+    rays = _rand(rng, 2, 3, 5, 6, 3)
+    cam_pts = _rand(rng, 2, 3, 5, 6, 3) * np.float32([1, 1, 0]) + np.float32(
+        [0, 0, 3])
+    q1, q2 = _quats(rng, 5), _quats(rng, 5)
+    q2[0] = -q1[0]  # the shorter arc flips q2
+    q2[1] = q1[1]  # parallel: the normalised lerp
+    # a smooth normal field with a 50 degree fold at column 3 (sample 0
+    # only in the second case): edges along the fold, none elsewhere
+    normals = np.float32([0, 0, 1]) + _rand(rng, 2, 3, 5, 6, 3, scale=0.02)
+    fold = np.float32([np.sin(0.87), 0, np.cos(0.87)])
+    normals[..., 3:, :] += fold - np.float32([0, 0, 1])
+    smooth = normals.copy()
+    smooth[1, ..., 3:, :] -= fold - np.float32([0, 0, 1])
+    cases.update({
+        "geotrf_linear": ("geotrf", (pose[..., :3, :3], pts), {}),
+        "geotrf_homogeneous": ("geotrf", (pose, pts), {"ncol": 2}),
+        "inv": ("inv", (pose,), {}),
+        "closed_form_pose_inverse": ("closed_form_pose_inverse", (pose,), {}),
+        "transform_pts3d": ("transform_pts3d", (pts, pose), {}),
+        "relative_pose_transformation": ("relative_pose_transformation",
+                                         (pose, pose2), {}),
+        "convert_raymap_z_depth_quats_to_pointmap": (
+            "convert_raymap_z_depth_quats_to_pointmap",
+            (pts, rays, depth[..., None], _quats(rng, 2, 3, 5, 6)), {}),
+        "convert_z_depth_to_depth_along_ray": (
+            "convert_z_depth_to_depth_along_ray", (depth, k), {}),
+        "transform_rays": ("transform_rays", (pts, rays, pose), {}),
+        "get_rays_in_world_frame": ("get_rays_in_world_frame", (k, 5, 6),
+                                    {"normalize_to_unit_sphere": True,
+                                     "camera_pose": pose}),
+        "project_pts3d_to_image": ("project_pts3d_to_image", (cam_pts, k),
+                                   {"return_z_dim": False}),
+        "project_pts3d_to_image_z": ("project_pts3d_to_image", (cam_pts, k),
+                                     {"return_z_dim": True}),
+        "colmap_to_opencv_intrinsics": ("colmap_to_opencv_intrinsics", (k,),
+                                        {}),
+        "opencv_to_colmap_intrinsics": ("opencv_to_colmap_intrinsics", (k,),
+                                        {}),
+        "quaternion_slerp": ("quats.quaternion_slerp", (q1, q2, 0.3), {}),
+        "normals_edge": ("normals_edge", (normals, 30.0),
+                         {"mask": valid}),
+        "normals_edge_normalized": ("normals_edge", (
+            smooth / np.linalg.norm(smooth, axis=-1, keepdims=True), 20.0),
+            {"kernel_size": 5, "assume_normalized": True}),
+    })
     return cases
+
+
+def _fn(package, name):
+    """package.name, or package.module.name for a dotted name."""
+    for part in name.split("."):
+        package = getattr(package, part)
+    return package
 
 
 _GEOMETRY = _geometry_cases()
@@ -95,15 +149,22 @@ _GEOMETRY = _geometry_cases()
 def test_geometry_matches_jax(case):
     name, args, kw = _GEOMETRY[case]
     with jax.default_matmul_precision(HIGHEST):
-        ref = getattr(JG, name)(*[jnp.asarray(a) if isinstance(a, np.ndarray)
-                                  else a for a in args], **kw)
-    out = getattr(PG, name)(*[torch.tensor(a)
-                              if isinstance(a, np.ndarray) else a
-                              for a in args], **kw)
+        ref = _fn(JG, name)(*[jnp.asarray(a) if isinstance(a, np.ndarray)
+                              else a for a in args],
+                            **{key: jnp.asarray(a) if isinstance(
+                                a, np.ndarray) else a
+                               for key, a in kw.items()})
+    out = _fn(PG, name)(*[torch.tensor(a) if isinstance(a, np.ndarray) else a
+                          for a in args],
+                        **{key: torch.tensor(a) if isinstance(a, np.ndarray)
+                           else a for key, a in kw.items()})
     if not isinstance(ref, tuple):
         ref, out = (ref,), (out,)
     for o, r in zip(out, ref):
-        _close(o, r, case)
+        if np.asarray(r).dtype == bool:
+            np.testing.assert_array_equal(_np(o), np.asarray(r), case)
+        else:
+            _close(o, r, case)
 
 
 def test_safe_norm_gradient_at_zero_matches_jax():

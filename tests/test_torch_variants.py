@@ -427,14 +427,60 @@ def test_postprocess_each_family(jax_arm_outputs, family):
 
 
 def test_train_step_refuses_other_scene_reps():
-    """The released criterion reads the factored rays, depth and pose; a
-    pointmap model's training waits for its criterion (ROADMAP A9)."""
+    """A pointmap model's outputs lack the factored rays, depth, pose and
+    confidence that the released criterion reads: both train steps refuse
+    it, naming the missing keys and the criteria that take the family."""
     from mapanything_tpu_torch.models import images_only_config
+    from mapanything_tpu_torch.train.seq_parallel import (
+        make_view_sharded_train_step,
+    )
     from mapanything_tpu_torch.train.step import make_train_step
 
     model = _tiny_model(scene_rep_type="pointmap", dense_output_dim=3)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="cam_quats.*Regr3D"):
         make_train_step(model, images_only_config())
+    with pytest.raises(ValueError, match="view-sharded.*cam_quats"):
+        make_view_sharded_train_step(model, images_only_config())
+
+
+@pytest.fixture(scope="module")
+def jax_loss_gt():
+    from mapanything_tpu.data.synthetic import make_synthetic_batch
+
+    with jax.default_matmul_precision(HIGHEST):
+        return make_synthetic_batch(B, V, H, W, seed=3)["gt"]
+
+
+def _jax_total(gt, preds):
+    from mapanything_tpu.train.losses import overall_loss
+
+    return overall_loss(gt, preds)[0]
+
+
+@pytest.mark.parametrize("arm", ARMS)
+def test_train_gate_matches_jax_loss(jax_arm_outputs, jax_loss_gt, arm):
+    """make_train_step takes exactly the arms whose outputs JAX's
+    overall_loss (its make_train_step's loss) reads without error."""
+    from mapanything_tpu_torch.models import images_only_config
+    from mapanything_tpu_torch.train.step import make_train_step
+
+    preds = {k: jnp.asarray(v) for k, v in jax_arm_outputs[arm].items()}
+    try:  # a missing key raises while tracing; the arms it takes share
+        with jax.default_matmul_precision(HIGHEST):  # one compile
+            loss = float(jax.jit(_jax_total)(jax_loss_gt, preds))
+        jax_trains = np.isfinite(loss)
+    except KeyError:
+        jax_trains = False
+    model = MapAnything(MapAnythingConfig(
+        dtype=torch.float32, **TINY, scene_rep_type=arm,
+        dense_output_dim=dense_dim_for(arm)), device="cpu")
+    try:
+        make_train_step(model, images_only_config())
+        port_trains = True
+    except ValueError:
+        port_trains = False
+    assert port_trains == jax_trains, arm
+    assert jax_trains == (arm.endswith("pose+confidence+mask")), arm
 
 
 def test_luma_histograms_rank_like_jax():
