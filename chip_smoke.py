@@ -444,9 +444,10 @@ Phases, in order (any failure exits non-zero and prints no result line):
      skipped, 1 card".
 
  16. Training the model variants and the criteria outside the released
-     recipe at full width and depth (encoders L, trunk 1024 x 24 x 16, DPT
-     256; bf16 with fp32 parameters, the model's own seeded init,
-     make_synthetic_batch on the card), one model at a time. 16c first:
+     recipe at full width (encoders L, trunk 1024 x 16, DPT 256), the
+     trunk cut to VARIANT_TRUNK_DEPTH = 4 layers (cut_trunk; bf16 with
+     fp32 parameters, the model's own seeded init, make_synthetic_batch
+     on the card), one model at a time. 16c first:
      the forward with lse, dK/dV, dQ and the pair against their plain
      versions (phase 2b's method and limits, over q's real rows for the
      outputs, the lse and dQ and the keys' for dK and dV) at
@@ -466,7 +467,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
      2e-2 rel-L2, each beside its noise floor; where a floor exceeds 2e-2,
      flash at most 1.1x as far as bf16 math from an fp32 twin); then 1
      warm-up and 3 timed steps, each with exactly one forward with lse,
-     one dK/dV and one dQ launch per attention (48; 168 for the cross
+     one dK/dV and one dQ launch per attention (28; 48 for the cross
      trunk) and nothing else, a finite loss and grad_norm, parameters that
      changed; the median step wall, device ms and busy share of a traced
      step, peak GiB. 16b, the composed step (forward, criterion, backward,
@@ -476,8 +477,37 @@ Phases, in order (any failure exits non-zero and prints no result line):
      Regr3DPlusNormalGMLoss) on pointmap+raydirs+depth+pose, and
      FactoredGeometryScaleRegr3D(FactoredLLoss()) on the released model.
 
+ 17. The external-model adapters (models/adapters.py) over their interface
+     fakes (tests/torch_adapter_fakes.py; no foreign checkpoint or pip
+     package is in the repository). 17a, each of the nine (VGGT, Pi3 and
+     MoGe over torch stand-ins; PosedDepth, DUSt3R with an aligner that
+     fits a scale by Adam under enable_grad, MASt3R, MUSt3R, Pow3R and
+     AnyCalib over host callables) on the card and on the CPU, same
+     make_synthetic_batch inputs at 518x392 (the harnesses' size), fp32, under inference mode:
+     every key within 1e-5 rel-L2 of the CPU's (masks equal), on the card
+     and finite; the GT-exact fakes (PosedDepth, MASt3R, MUSt3R, Pow3R
+     with its 0.5 scale error to undo, AnyCalib) within the JAX tests'
+     tolerances of the ground truth; the device-to-host copies and host
+     reads inside a call, counted at the ATen dispatcher
+     (perf/timing.py::host_transfers): none for the module adapters, some
+     for the callables (which take host arrays). 17b, the
+     unmodified harnesses on the card: the dense N-view benchmark over
+     DUSt3R, MASt3R, MUSt3R (pointmaps_abs_rel < 1e-2), VGGT, Pi3 and MoGe
+     (finite); the calibration benchmark over AnyCalib (< 1e-2 degrees);
+     RMVD over MoGe. 17c, VGGT's stand-in at VGGT-1B's attention width (a
+     14x14 patch conv, 2 x (a frame and a global nn/layers.py::Block), dim
+     1024, 16 heads of 64, bf16) on 2 views at 518^2: the forward kernel
+     against its plain version at its two shapes (2, 1369, 16, 64) and
+     (1, 2738, 16, 64); one adapter call with exactly 4 forward launches,
+     0 plain, probe and baseline; flash against math within 1e-2 rel-L2;
+     no device-to-host copy or host read; wall, device ms and busy share.
+     17d, convert_dataset.main on a raw 4-frame ScanNet++ v2 scene at
+     518x392 with --undistort and --pseudo-depth FILE, a MoGe stand-in
+     pickled whole, on the card: the stored depth and mask bitwise the
+     adapter's outputs; the stage's wall.
+
 The last two lines are the kernels' JSON summary (each kernel's launches:
-the counts phases 3-16 read, summed) and
+the counts phases 3-17 read, summed) and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -5361,10 +5391,16 @@ def multi_gpu_training(torch, fa, fp, F):
 
 
 # phase 16: training the model variants and the criteria outside the
-# released recipe at full width and depth, and the training kernels at the
+# released recipe at full width, the trunk cut to 4 layers, and the training kernels at the
 # shapes only the variants give them (phase 13's VARIANT_SHAPES)
 VARIANT_TRAIN_SEED = 16
 VARIANT_TIMED_STEPS = 3
+VARIANT_TRUNK_DEPTH = 4
+# launches a step: the encoder's 24 blocks and each trunk layer's one, or
+# the cross trunk's six (self- and cross-attention for the reference view,
+# the batch of the other views and the token)
+VARIANT_LAUNCHES = 24 + VARIANT_TRUNK_DEPTH
+VARIANT_CROSS_LAUNCHES = 24 + 6 * VARIANT_TRUNK_DEPTH
 # the predictions of an own-init model at the released width are flat
 # enough that a bf16-level change of attention can move the gradient past
 # GRAD_LIMIT; where the noise floor itself (math on an image perturbed by
@@ -5698,6 +5734,7 @@ def variant_training(torch, fa, fp, F):
         images_only_config,
         mapanything_ablations_config,
     )
+    from mapanything_tpu_torch.parallel.mesh_check import cut_trunk
     from mapanything_tpu_torch.train import criteria as PC
     from mapanything_tpu_torch.train import step as T
     from mapanything_tpu_torch.train.grad_check import compare
@@ -5712,30 +5749,31 @@ def variant_training(torch, fa, fp, F):
     if bad:
         return rows, counts, bad
     geom = images_only_config()
+    cut = cut_trunk(VARIANT_TRUNK_DEPTH)
     pose = {f: f + "+confidence+mask" for f in (
         "campointmap+pose", "pointmap+raydirs+depth+pose")}
     # (stage, name, config, view counts, (w, h), launches a step,
     # criterion or None for the released recipe's step)
     runs = [
-        ("16a", "global", MapAnythingConfig(info_sharing_type="global"),
-         (2,), (518, 518), FORWARD_LAUNCHES, None),
-        ("16a", "cross", MapAnythingConfig(info_sharing_type="cross"),
-         (2, 4), (518, 518), CROSS_LAUNCHES, None),
-        ("16a", "ablations", mapanything_ablations_config(), (2,),
-         (518, 518), FORWARD_LAUNCHES, None),
+        ("16a", "global", MapAnythingConfig(info_sharing_type="global", **cut),
+         (2,), (518, 518), VARIANT_LAUNCHES, None),
+        ("16a", "cross", MapAnythingConfig(info_sharing_type="cross", **cut),
+         (2, 4), (518, 518), VARIANT_CROSS_LAUNCHES, None),
+        ("16a", "ablations", mapanything_ablations_config(**cut), (2,),
+         (518, 518), VARIANT_LAUNCHES, None),
         ("16a", "radio_l", MapAnythingConfig(
-            encoder_type="radio", patch_size=16, data_norm_type="radio"),
-         (2,), (512, 384), FORWARD_LAUNCHES, None),
+            encoder_type="radio", patch_size=16, data_norm_type="radio",
+            **cut), (2,), (512, 384), VARIANT_LAUNCHES, None),
         ("16a", "croco_l", MapAnythingConfig(
-            encoder_type="croco", patch_size=16, data_norm_type="croco"),
-         (2,), (512, 384), FORWARD_LAUNCHES, None),
-    ] + [("16a", fam, MapAnythingConfig(scene_rep_type=srt,
-                                        dense_output_dim=dense_dim_for(srt)),
-          (2,), (518, 518), FORWARD_LAUNCHES, None)
+            encoder_type="croco", patch_size=16, data_norm_type="croco",
+            **cut), (2,), (512, 384), VARIANT_LAUNCHES, None),
+    ] + [("16a", fam, MapAnythingConfig(
+        scene_rep_type=srt, dense_output_dim=dense_dim_for(srt), **cut),
+          (2,), (518, 518), VARIANT_LAUNCHES, None)
          for fam, srt in pose.items()] + [
-        ("16b", name, MapAnythingConfig(scene_rep_type=srt,
-                                        dense_output_dim=dense_dim_for(srt)),
-         (2,), (518, 518), FORWARD_LAUNCHES, crit)
+        ("16b", name, MapAnythingConfig(
+            scene_rep_type=srt, dense_output_dim=dense_dim_for(srt), **cut),
+         (2,), (518, 518), VARIANT_LAUNCHES, crit)
         for name, (srt, crit) in variant_criteria(PC).items()]
     for stage, name, cfg, views, (w, h), launches, crit in runs:
         # what earlier phases left in reference cycles goes first: the
@@ -5784,6 +5822,392 @@ def variant_training(torch, fa, fp, F):
     return rows, counts, None
 
 
+# phase 17: the external-model adapters (models/adapters.py) over their
+# interface fakes (tests/torch_adapter_fakes.py: no VGGT, Pi3, MoGe,
+# DUSt3R, MASt3R, MUSt3R, Pow3R or AnyCalib checkpoint or package is in the
+# repository): each on the card against its own CPU run, through the
+# unmodified harnesses, VGGT's stand-in at VGGT-1B's attention width, and
+# the MoGe labelling stage through convert_dataset
+ADAPTER_SIZE = (518, 392)  # (w, h) of 17a-17b: the harnesses' images
+ADAPTER_LIMIT = 1e-5  # rel-L2 of each key, card against CPU, fp32
+GT_DENSE_LIMIT = 1e-2  # pointmaps_abs_rel of the GT-exact fakes
+GT_RAY_LIMIT_DEG = 1e-2
+VGGT_WIDTH = dict(dim=1024, heads=16, pairs=2)  # VGGT-1B's attention width
+VGGT_LAUNCHES = 2 * VGGT_WIDTH["pairs"]  # a frame and a global one a pair
+VGGT_SHAPES = [  # 2 views at 518^2: 37 x 37 patches a frame, no extra token
+    ("vggt_frame_518", (2, 1369, 16, 64), None),
+    ("vggt_global_2view_518", (1, 2738, 16, 64), None),
+]
+PSEUDO_FRAMES, PSEUDO_SIZE = 4, (518, 392)
+MODULE_ADAPTERS = ("vggt", "pi3", "moge")  # no host copy inside their call
+
+
+def adapter_cases(FK, PA, GeometricInputConfig):
+    """(name, views, build(device, batch)) of the nine adapters, each over
+    its fake, on `device`, for that device's batch."""
+    w, h = ADAPTER_SIZE
+
+    def vggt():
+        fake = FK.VGGTStandIn()
+        fake.set_attn_impl("math")  # fp32: the flash kernel takes bf16 only
+        return fake
+
+    return [
+        ("vggt", 2, lambda dev, b: PA.VGGTAdapter(vggt().to(dev))),
+        ("pi3", 2, lambda dev, b: PA.Pi3Adapter(FK.Pi3StandIn().to(dev))),
+        ("moge", 2, lambda dev, b: PA.MoGeAdapter(FK.MoGeStandIn().to(dev))),
+        ("posed_depth", 3, lambda dev, b: PA.PosedDepthAdapter(
+            FK.posed_depth_scene_fn(b), device=dev)),
+        ("dust3r", 2, lambda dev, b: PA.DUSt3RAdapter(
+            FK.aligning_scene_fn(b), device=dev)),
+        ("mast3r", 2, lambda dev, b: PA.MASt3RAdapter(
+            FK.posed_depth_scene_fn(b), device=dev)),
+        ("must3r", 3, lambda dev, b: PA.MUSt3RAdapter(
+            FK.must3r_scene_fn(b), device=dev)),
+        ("pow3r", 2, lambda dev, b: PA.Pow3RAdapter(
+            FK.pow3r_pair_fn(b)[0], geom_cfg=GeometricInputConfig(),
+            device=dev)),
+        ("anycalib", 2, lambda dev, b: PA.AnyCalibAdapter(
+            FK.anycalib_calib_fn(h, w), device=dev)),
+    ]
+
+
+def gt_errors(torch, FK, name, preds, batch) -> dict:
+    """The GT-exact fakes against the synthetic ground truth with the JAX
+    tests' tolerances (tests/test_adapters.py): {what: max |got - want|
+    over (atol + rtol |want|)}, at most 1 where within them."""
+    import numpy as np
+
+    gt = {k: v.double().cpu() for k, v in batch["gt"].items()}
+    got = {k: v.double().cpu() for k, v in preds.items()}
+
+    def err(a, b, rtol, atol):
+        b = torch.as_tensor(b, dtype=torch.float64)
+        return float(((a - b).abs() / (atol + rtol * b.abs())).max())
+
+    if name in ("posed_depth", "mast3r"):
+        return {"pts3d": err(got["pts3d"], gt["pts3d"], 2e-3, 2e-3),
+                "cam_trans": err(got["cam_trans"], gt["camera_pose_trans"],
+                                 0.0, 1e-4)}
+    if name == "must3r":
+        return {"depth_along_ray": err(got["depth_along_ray"],
+                                       gt["depth_along_ray"], 1e-4, 1e-5)}
+    if name == "pow3r":  # view 2's own points were given at 0.5 x scale
+        _, w2c0, c2w = FK.pow3r_pair_fn(batch)
+        w2c0 = w2c0.astype(np.float64)
+        want = (np.einsum("bij,bhwj->bhwi", w2c0[:, :3, :3],
+                          gt["pts3d"][:, 1].numpy())
+                + w2c0[:, None, None, :3, 3])
+        return {"pts3d_view2": err(got["pts3d"][:, 1], want, 5e-3, 5e-3),
+                "cam_trans_view2": err(got["cam_trans"][:, 1],
+                                       (w2c0 @ c2w[:, 1])[:, :3, 3], 0.0,
+                                       1e-3)}
+    if name == "anycalib":
+        return {"rays": err(got["ray_directions"],
+                            gt["ray_directions_cam"][:, :1], 1e-4, 1e-5)}
+    return {}
+
+
+def adapters_card_vs_cpu(torch, FK, PA, GeometricInputConfig):
+    """17a: each adapter over its fake on the card and on the CPU, on the
+    same inputs, under inference mode (as the harnesses call them): every
+    key within ADAPTER_LIMIT rel-L2 (masks equal), on the card and finite;
+    the GT-exact fakes within the JAX tests' tolerances; no device-to-host
+    copy or host read inside a module adapter's call, some in each
+    callable's (they take host arrays: 0 there would mean the counter sees
+    nothing), perf/timing.py::host_transfers. Returns (readings, failure
+    or None)."""
+    from mapanything_tpu_torch.data.synthetic import make_synthetic_batch
+    from mapanything_tpu_torch.perf.timing import host_transfers
+
+    w, h = ADAPTER_SIZE
+    res = {}
+    cases = adapter_cases(FK, PA, GeometricInputConfig)
+    for i, (name, views, build) in enumerate(cases):
+        t0 = time.perf_counter()
+        card_b, cpu_b = (make_synthetic_batch(1, views, h, w, seed=170 + i,
+                                              device=dev)
+                         for dev in ("cuda", "cpu"))
+        card_a, cpu_a = build("cuda", card_b), build("cpu", cpu_b)
+        with torch.inference_mode():
+            card = card_a(card_b["views"])
+            cpu = cpu_a(cpu_b["views"])
+            copies = host_transfers(lambda: card_a(card_b["views"]))
+        r = {"copies": copies,
+             "on_card": all(t.is_cuda for t in card.values()),
+             "finite": all(bool(torch.isfinite(t).all())
+                           for t in card.values() if t.is_floating_point()),
+             "rel_l2": {key: (float(not torch.equal(val.cpu(), cpu[key]))
+                              if val.dtype == torch.bool
+                              else rel_l2(val.cpu(), cpu[key]))
+                        for key, val in card.items()},
+             "gt": gt_errors(torch, FK, name, card, card_b),
+             "s": time.perf_counter() - t0}
+        res[name] = r
+        print(f"17a {name}: {json.dumps(r)}", flush=True)
+        if not (r["on_card"] and r["finite"]
+                and max(r["rel_l2"].values()) <= ADAPTER_LIMIT
+                and all(e <= 1.0 for e in r["gt"].values())):
+            return res, f"17a {name}: {r}"
+        moved = copies["copies"] + copies["reads"]
+        if (moved == 0) != (name in MODULE_ADAPTERS):
+            return res, f"17a {name}: device-to-host transfers {copies}"
+    return res, None
+
+
+def adapter_harnesses(torch, FK, PA, GeometricInputConfig, folder):
+    """17b: the unmodified harnesses on the card: the dense N-view benchmark
+    over DUSt3R (the Adam-fitting aligner), MASt3R, MUSt3R, VGGT, Pi3 and
+    MoGe, the calibration benchmark over AnyCalib, RMVD over MoGe. The
+    GT-exact fakes score pointmaps_abs_rel < GT_DENSE_LIMIT and a ray error
+    < GT_RAY_LIMIT_DEG; the others are finite. Returns (readings, failure
+    or None)."""
+    tests_on_path()
+    from torch_eval_oracles import ListLoader
+
+    from mapanything_tpu_torch.benchmarks.calibration import (
+        run_calibration_benchmark,
+    )
+    from mapanything_tpu_torch.benchmarks.dense_n_view import (
+        run_dense_n_view_benchmark,
+    )
+    from mapanything_tpu_torch.benchmarks.rmvd import (
+        RMVDAdaptor,
+        evaluate_mvs_depth,
+    )
+    from mapanything_tpu_torch.data.image import rgb
+    from mapanything_tpu_torch.data.synthetic import make_synthetic_batch
+
+    w, h = ADAPTER_SIZE
+    batch = make_synthetic_batch(2, 2, h, w, seed=171, device="cuda")
+    loader = ListLoader([{g: {k: v.cpu().numpy() for k, v in batch[g].items()}
+                          for g in ("views", "gt")}])
+    cases = {name: build for name, _, build in adapter_cases(
+        FK, PA, GeometricInputConfig)}
+    res, bad = {}, []
+    for name in ("dust3r", "mast3r", "must3r", "vggt", "pi3", "moge"):
+        t0 = time.perf_counter()
+        s = run_dense_n_view_benchmark(
+            cases[name]("cuda", batch), loader, None,
+            output_json=os.path.join(folder, f"{name}.json"))
+        res[f"dense_{name}"] = {"pointmaps_abs_rel": s["pointmaps_abs_rel"],
+                                "num_sets": s["num_sets"],
+                                "s": time.perf_counter() - t0}
+        if not (s["num_sets"] == 2 and (
+                math.isfinite(s["pointmaps_abs_rel"])
+                if name in MODULE_ADAPTERS
+                else s["pointmaps_abs_rel"] < GT_DENSE_LIMIT)):
+            bad.append(f"dense {name}: {s}")
+    t0 = time.perf_counter()
+    s = run_calibration_benchmark(cases["anycalib"]("cuda", batch), loader,
+                                  None, output_json=os.path.join(
+                                      folder, "anycalib.json"))
+    res["calibration_anycalib"] = {
+        "ray_angular_error_deg_mean": s["ray_angular_error_deg_mean"],
+        "num_images": s["num_images"], "s": time.perf_counter() - t0}
+    if not (s["num_images"] == 2
+            and s["ray_angular_error_deg_mean"] < GT_RAY_LIMIT_DEG):
+        bad.append(f"calibration anycalib: {s}")
+    t0 = time.perf_counter()
+    rmvd = RMVDAdaptor(cases["moge"]("cuda", batch),
+                       inference_conditioning="image",
+                       evaluate_single_view=True)
+    imgs01 = rgb(batch["views"]["img"][0].cpu().numpy())
+    sample = {"images": [im.transpose(2, 0, 1)[None] for im in imgs01],
+              "keyview_idx": 0,
+              "gt_depth": batch["gt"]["pts3d_cam"][0, 0, ..., 2].cpu().numpy()}
+    m = evaluate_mvs_depth(rmvd, [sample])
+    res["rmvd_moge"] = {**m, "s": time.perf_counter() - t0}
+    if not (m["num_samples"] == 1 and math.isfinite(m["depth_abs_rel"])):
+        bad.append(f"rmvd moge: {m}")
+    print(f"17b harnesses: {json.dumps(res)}", flush=True)
+    return res, (f"17b: {bad}" if bad else None)
+
+
+def vggt_stand_in(torch, fa, fp, F):
+    """17c: VGGT's stand-in at VGGT-1B's attention width (tests/
+    torch_adapter_fakes.py::VGGTStandIn: a 14 x 14 patch conv and 2 x (a
+    frame Block, a global Block) of dim 1024, 16 heads of 64, bf16) through
+    VGGTAdapter on 2 views at 518^2, under inference mode. The forward
+    kernel against its plain version at its two shapes first (rows for the
+    kernels' line); then one call: exactly VGGT_LAUNCHES forward launches,
+    0 plain, probe and baseline; finite outputs of the contract's shapes;
+    flash against math within ERR_LIMIT rel-L2 (pts3d, depth along the
+    ray); no device-to-host copy or host read; its wall, device ms and
+    busy share.
+    Returns (kernel rows, the call's launches, readings, failure or
+    None)."""
+    tests_on_path()
+    import torch_adapter_fakes as FK
+
+    from mapanything_tpu_torch.data.synthetic import make_synthetic_batch
+    from mapanything_tpu_torch.models.adapters import VGGTAdapter
+    from mapanything_tpu_torch.perf.timing import host_transfers
+
+    rows = kernel_vs_plain(torch, fa, fp, F, VGGT_SHAPES, seed=1700,
+                           baseline=False)
+    for name, row in rows:
+        row["at"] = name
+        if not max(row["max_abs_err"], row["rel_l2"]) <= ERR_LIMIT:
+            return rows, {}, {}, f"17c: kernel disagrees at {name}: {row}"
+    t0 = time.perf_counter()
+    fake = FK.VGGTStandIn(**VGGT_WIDTH, dtype=torch.bfloat16)
+    adapter = VGGTAdapter(fake.cuda())
+    res = {"build_s": time.perf_counter() - t0,
+           "parameters_m": sum(p.numel() for p in fake.parameters()) / 1e6}
+    views = make_synthetic_batch(1, 2, 518, 518, seed=172,
+                                 device="cuda")["views"]
+
+    def call():
+        with torch.inference_mode():
+            return adapter(views)
+
+    fa.reset_launch_counts()
+    preds = call()
+    torch.cuda.synchronize()
+    launched = launches_of(fa)
+    bad = (expect_launches(fa, {"fwd": VGGT_LAUNCHES}, "17c")
+           or untouched_baseline(fp))
+    res["launches"] = launched
+    shapes = {k: list(v.shape) for k, v in preds.items()}
+    res["finite"] = all(bool(torch.isfinite(v).all()) for v in preds.values()
+                        if v.is_floating_point())
+    fake.set_attn_impl("math")
+    ref = call()
+    fake.set_attn_impl("auto")
+    res["flash_vs_math"] = {k: rel_l2(preds[k].cpu(), ref[k].cpu())
+                            for k in ("pts3d", "depth_along_ray")}
+    res["copies"] = host_transfers(call)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    prof = profile_calls(torch, call, statistics.median(walls), 2,
+                         match={"flash": "flash_fwd"})
+    res["call"] = {key: prof[key] for key in (
+        "wall_ms", "device_ms", "busy_share", "device_ops", "matched_ms",
+        "not_measured") if key in prof}
+    res["walls_ms"] = walls
+    print(f"17c VGGT stand-in, 2 views at 518^2: {json.dumps(res)}",
+          flush=True)
+    if not bad and not (
+            res["finite"] and shapes["pts3d"] == [1, 2, 518, 518, 3]
+            and shapes["cam_quats"] == [1, 2, 4]
+            and max(res["flash_vs_math"].values()) <= ERR_LIMIT
+            and res["copies"] == {"copies": 0, "reads": 0}):
+        bad = f"17c: {res} shapes {shapes}"
+    del adapter, fake, preds, ref
+    torch.cuda.empty_cache()
+    return rows, launched, res, bad
+
+
+def moge_labelling(torch, folder):
+    """17d: convert_dataset.main on a raw 4-frame ScanNet++ v2 scene at
+    518 x 392 (tests/torch_offline_scenes.py::write_scannetpp_raw) with
+    --undistort (the labeller reads the undistorted images) and
+    --pseudo-depth FILE, FILE a MoGe stand-in pickled whole (tests/
+    torch_adapter_fakes.py::MoGeStandIn), no --device (the card). Gates:
+    every frame's stored depth and mask bitwise what MoGeAdapter returned
+    on the card (EXR holds fp32); the stage's wall. Returns (readings,
+    failure or None)."""
+    from unittest import mock
+
+    import numpy as np
+
+    tests_on_path()
+    import torch_adapter_fakes as FK
+    from torch_offline_scenes import room_cameras, write_scannetpp_raw
+
+    from mapanything_tpu_torch import convert_dataset as CLI
+    from mapanything_tpu_torch.data import pseudo_depth as PD
+    from mapanything_tpu_torch.data.wai import load_frame, load_scene_meta
+    from mapanything_tpu_torch.models.adapters import MoGeAdapter
+
+    w, h = PSEUDO_SIZE
+    raw = os.path.join(folder, "raw")
+    write_scannetpp_raw(raw, "scene0",
+                        room_cameras(PSEUDO_FRAMES, step=OFFLINE_YAW), w, h)
+    ckpt = os.path.join(folder, "moge.pt")
+    torch.save(FK.MoGeStandIn(), ckpt)
+    outputs, walls = [], {}
+    forward = MoGeAdapter.forward
+
+    def recording(self, views, *args, **kw):
+        out = forward(self, views, *args, **kw)
+        outputs.append(out)
+        return out
+
+    t0 = time.perf_counter()
+    with mock.patch.object(MoGeAdapter, "forward", recording), \
+            stage_walls(torch, walls, [
+                (PD, "run_pseudo_depth_stage", "pseudo_depth_stage_s")]):
+        roots = CLI.main(["scannetppv2", raw, os.path.join(folder, "wai"),
+                          "--undistort", "--pseudo-depth", ckpt])
+    res = {"cli_s": time.perf_counter() - t0, **walls,
+           "adapter_calls": len(outputs),
+           "on_card": all(t.is_cuda for out in outputs for t in out.values())}
+    z = np.concatenate([o["pts3d_cam"][0, ..., 2].cpu().numpy()
+                        for o in outputs])
+    z = np.where(np.isfinite(z) & (z > 0), z, 0.0)
+    mask = np.concatenate([o["non_ambiguous_mask"][0].cpu().numpy()
+                           for o in outputs])
+    root = roots[0]
+    meta = load_scene_meta(os.path.join(root, "scene_meta.json"))
+    keys = ["pred_depth/moge2", "pred_mask/moge2"]
+    same = []
+    for i in range(len(meta["frames"])):
+        got = load_frame(root, i, keys, scene_meta=meta)
+        same.append(np.array_equal(got[keys[0]], z[i])
+                    and np.array_equal(got[keys[1]], mask[i]))
+    res.update(frames=len(meta["frames"]), stored_equal_outputs=all(same),
+               image_shape=list(z.shape[1:]),
+               mask_share=float(mask.mean()))
+    print(f"17d MoGe labelling through convert_dataset: {json.dumps(res)}",
+          flush=True)
+    if not (res["frames"] == PSEUDO_FRAMES and res["on_card"]
+            and res["stored_equal_outputs"] and res["adapter_calls"] == 1
+            and res["image_shape"] == [h, w]):
+        return res, f"17d: {res}"
+    return res, None
+
+
+def adapters_path(torch, fa, fp, F):
+    """Phase 17. Returns (17c's kernel rows, the kernel counts of its main
+    call, failure or None)."""
+    tests_on_path()
+    import torch_adapter_fakes as FK
+
+    from mapanything_tpu_torch.models import GeometricInputConfig
+    from mapanything_tpu_torch.models import adapters as PA
+
+    walls = {}
+    t0 = time.perf_counter()
+    _, bad = adapters_card_vs_cpu(torch, FK, PA, GeometricInputConfig)
+    walls["17a_s"] = time.perf_counter() - t0
+    if bad:
+        return [], [], bad
+    with tempfile.TemporaryDirectory() as folder:
+        t0 = time.perf_counter()
+        _, bad = adapter_harnesses(torch, FK, PA, GeometricInputConfig,
+                                   folder)
+        walls["17b_s"] = time.perf_counter() - t0
+        if bad:
+            return [], [], bad
+        t0 = time.perf_counter()
+        rows, launched, _, bad = vggt_stand_in(torch, fa, fp, F)
+        walls["17c_s"] = time.perf_counter() - t0
+        if bad:
+            return rows, [launched], bad
+        t0 = time.perf_counter()
+        _, bad = moge_labelling(torch, folder)
+        walls["17d_s"] = time.perf_counter() - t0
+    print(f"phase 17 walls: {json.dumps(walls)}", flush=True)
+    return rows, [launched], bad
+
+
 def timing(row):
     return {key: row[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms", "mma_ms",
@@ -5793,7 +6217,7 @@ def timing(row):
 def kernels_summary(fp, attn, train_rows, ring_rows, merge, probe_rows,
                     phase_counts) -> list:
     """The kernels' JSON rows: each kernel at its main-path shape with its
-    launches in phases 3-16 (phase_counts: the kernel counts each of those
+    launches in phases 3-17 (phase_counts: the kernel counts each of those
     runs read, reset just before it), the baselines and the probes."""
     launches = {kname: sum(counts[key] for counts in phase_counts)
                 for kname, key in COUNTER.items()}
@@ -6266,6 +6690,16 @@ def main() -> int:
     for kname, rows in variant_train_rows.items():
         train_rows[kname] += rows
 
+    # phase 17: the external-model adapters over their interface fakes
+    t17 = time.perf_counter()
+    torch.cuda.empty_cache()
+    adapter_rows, phase17_counts, bad = adapters_path(torch, fa, fp, F)
+    if bad:
+        return fail(f"phase 17: {bad}")
+    print(f"phase 17 (the external-model adapters) took "
+          f"{time.perf_counter() - t17:.1f} s", flush=True)
+    attn = attn + adapter_rows
+
     phase_counts = [serving,
                     {key: train[f"{key}_launches"] for key in fa.KERNELS},
                     ring_res["kernel_counts"], block_res["kernel_counts"],
@@ -6275,7 +6709,8 @@ def main() -> int:
                                              + phase13_counts + phase14_counts
                                              + [dict.fromkeys(fa.KERNELS, 0)
                                                 | c for c in phase15_counts]
-                                             + phase16_counts)
+                                             + phase16_counts
+                                             + phase17_counts)
     kernels = kernels_summary(fp, attn, train_rows, ring_rows, merge,
                               probe_rows, phase_counts)
     print(f"torch.profiler in this script's own calls: "

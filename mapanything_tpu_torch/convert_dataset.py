@@ -12,7 +12,9 @@ separately:
         --test-split-file test_scenes.txt --undistort --render-depth
 
 The conversion and the undistortion run on the host; the mesh ray cast
-(`--render-depth`) runs on the card, or on the CPU with `--device cpu`.
+(`--render-depth`) and the MoGe labelling (`--pseudo-depth MOGE_CKPT`, a
+MoGe model pickled whole, which runs code as it loads: a trusted file only)
+run on the card, or on the CPU with `--device cpu`.
 Without a card and without `--device cpu` the CLI raises before it
 converts anything. Generic COLMAP captures go through `python -m
 mapanything_tpu_torch.data.conversion` instead.
@@ -24,10 +26,6 @@ import argparse
 import os
 from pathlib import Path
 from typing import List, Optional, Sequence
-
-MOGE_ITEM = ("ROADMAP queue A item 9 (the external adapters: MoGeAdapter "
-             "is not ported)")
-
 
 def _discover_scenes(dataset, root):
     """Source-specific scene-name discovery, mirroring each reference
@@ -104,8 +102,10 @@ def parser() -> argparse.ArgumentParser:
                     help="ray-cast the scene mesh into every frame "
                          "(scannetppv2 rendered_depth modality)")
     ap.add_argument("--pseudo-depth", metavar="MOGE_CKPT", default=None,
-                    help="the MoGe pseudo-depth stage; not ported: "
-                         + MOGE_ITEM)
+                    help="run the MoGe pseudo-depth stage after conversion "
+                         "with this local torch file, a MoGe model pickled "
+                         "whole: loading it runs code, so pass only a "
+                         "trusted file")
     ap.add_argument("--device", default=None,
                     help="'cpu' to run the device stages on the CPU; the "
                          "card by default")
@@ -121,9 +121,6 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Path]:
 
     ap = parser()
     args = ap.parse_args(argv)
-    if args.pseudo_depth:
-        raise NotImplementedError(
-            f"--pseudo-depth {args.pseudo_depth}: {MOGE_ITEM}")
     if args.dataset == "ase" and not args.ase_calib:
         ap.error("--ase-calib is required for the ase recipe")
     device = resolve_device(args.device)
@@ -154,6 +151,14 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Path]:
         fn = CORPUS_CONVERTERS[args.dataset]
         recipes[args.dataset] = lambda s: fn(src, dst, s, link=link)
     convert = recipes[args.dataset]
+    moge = None
+    if args.pseudo_depth:
+        import torch
+
+        # a whole pickled module, as the JAX script loads it: the port's
+        # weights-only rule cannot read one
+        moge = torch.load(args.pseudo_depth, map_location=device,
+                          weights_only=False)
 
     roots = []
     for scene in scenes:
@@ -166,6 +171,12 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Path]:
             print(f"[{args.dataset}] rendering mesh depth {scene}",
                   flush=True)
             converters.render_scene_depth_stage(root, device=device)
+        if moge is not None:
+            from .data.pseudo_depth import run_pseudo_depth_stage
+            from .models.adapters import MoGeAdapter
+
+            print(f"[{args.dataset}] pseudo-depth {scene}", flush=True)
+            run_pseudo_depth_stage(root, MoGeAdapter(moge))
         roots.append(Path(root))
     print(f"converted {len(scenes)} scene(s) -> {args.out_root}")
     return roots

@@ -24,6 +24,7 @@ from PIL.ImageOps import exif_transpose
 IMAGE_NORMALIZATION_DICT = {
     "dinov2": (np.array([0.485, 0.456, 0.406]), np.array([0.229, 0.224, 0.225])),
     "croco": (np.array([0.5, 0.5, 0.5]), np.array([0.5, 0.5, 0.5])),
+    "dust3r": (np.array([0.5, 0.5, 0.5]), np.array([0.5, 0.5, 0.5])),
     "radio": (np.array([0.0, 0.0, 0.0]), np.array([1.0, 1.0, 1.0])),
     "identity": (np.array([0.0, 0.0, 0.0]), np.array([1.0, 1.0, 1.0])),
 }
@@ -51,6 +52,22 @@ def find_closest_aspect_ratio(aspect_ratio: float, resolution_set: int = 518):
     """Closest bucket (width, height) for an aspect ratio."""
     table = RESOLUTION_MAPPINGS[resolution_set]
     return table[min(table, key=lambda k: abs(k - aspect_ratio))]
+
+
+def rgb(img: np.ndarray, norm_type: str = "dinov2") -> np.ndarray:
+    """Normalised images back to [0, 1] RGB float32 on the host (the
+    visualisers' denormalisation): HWC or NHWC, or CHW / NCHW (moved to
+    channels last); uint8 is divided by 255, floats get img * std + mean,
+    clipped."""
+    img = np.asarray(img)
+    if img.ndim == 3 and img.shape[0] == 3:
+        img = img.transpose(1, 2, 0)
+    elif img.ndim == 4 and img.shape[1] == 3 and img.shape[-1] != 3:
+        img = img.transpose(0, 2, 3, 1)
+    if img.dtype == np.uint8:
+        return np.float32(img) / 255.0
+    mean, std = IMAGE_NORMALIZATION_DICT[norm_type]
+    return np.clip(img * std + mean, 0.0, 1.0).astype(np.float32)
 
 
 # ---------------------------------------------------------------------------

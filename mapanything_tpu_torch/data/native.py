@@ -1,6 +1,7 @@
 """ctypes binding of the data layer's host ops in native/dataops.cpp: the
-covisibility random walk and the uint8 normalisation (the JAX package binds
-the same source in mapanything_tpu/native.py).
+covisibility random walk, the uint8 normalisation and the uint8 bilinear
+resize with normalisation (the JAX package binds the same source in
+mapanything_tpu/native.py).
 
 The library is built from the unchanged source with g++ at first use, into
 ``build/host/`` at the repository root; its file name carries a hash of the
@@ -85,6 +86,10 @@ def load_library() -> ctypes.CDLL:
     lib.covis_random_walk.restype = ctypes.c_int
     lib.normalize_u8.argtypes = [u8p, ctypes.c_int, f32p, f32p, f32p]
     lib.normalize_u8.restype = None
+    lib.resize_normalize_u8.argtypes = [
+        u8p, ctypes.c_int, ctypes.c_int, f32p, ctypes.c_int, ctypes.c_int,
+        f32p, f32p]
+    lib.resize_normalize_u8.restype = None
     return lib
 
 
@@ -116,4 +121,23 @@ def normalize_u8(img: np.ndarray, mean: np.ndarray,
     load_library().normalize_u8(
         img.reshape(-1), img.size, np.ascontiguousarray(mean, np.float32),
         np.ascontiguousarray(std, np.float32), dst.reshape(-1))
+    return dst
+
+
+def resize_normalize_u8(img: np.ndarray, out_hw: tuple[int, int],
+                        mean: np.ndarray, std: np.ndarray) -> np.ndarray:
+    """A (H, W, 3) uint8 image resized to out_hw = (h, w) by torch's
+    bilinear rule (align_corners=False), then (v / 255 - mean) / std, in
+    float32."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    if img.ndim != 3 or img.shape[-1] != 3:
+        raise ValueError(f"expected (H, W, 3), got {img.shape}")
+    dh, dw = out_hw
+    if dh <= 0 or dw <= 0:
+        raise ValueError(f"the output size must be positive, got {out_hw}")
+    dst = np.empty((dh, dw, 3), np.float32)
+    load_library().resize_normalize_u8(
+        img, img.shape[0], img.shape[1], dst, dh, dw,
+        np.ascontiguousarray(mean, np.float32).reshape(3),
+        np.ascontiguousarray(std, np.float32).reshape(3))
     return dst

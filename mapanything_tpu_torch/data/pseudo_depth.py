@@ -14,9 +14,9 @@ at load time (wai_datasets.py confidence_modality).
 The model plugs in through the port's adapter contract
 (`models/adapters.py`): called as ``adapter(views)`` with the stacked
 (B, V, H, W, 3) normalised images on the adapter's device, it returns
-{pts3d_cam, non_ambiguous_mask, ...} as tensors. MapAnything
-(`MapAnythingAdapter`) self-labels through it; MoGe's adapter is ROADMAP
-queue A item 9. The JAX package calls ``adapter.apply(params, views)``
+{pts3d_cam, non_ambiguous_mask, ...} as tensors. MoGe labels through
+`MoGeAdapter` (the reference's stage; `convert_dataset --pseudo-depth`),
+MapAnything self-labels through `MapAnythingAdapter`. The JAX package calls ``adapter.apply(params, views)``
 with numpy (1, V, H, W, 3) images instead.
 
 Modalities are written under the flat keys the port's reader consumes

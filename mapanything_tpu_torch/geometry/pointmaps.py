@@ -51,32 +51,35 @@ def rigid_points_registration(pts_a: torch.Tensor, pts_b: torch.Tensor,
     (R (..., 3, 3), t (..., 3)) or, with_scale, (R, t, s (...,)).
 
     The SVD's U and V are unique only up to sign (cuSOLVER and LAPACK may
-    differ); the det correction makes R, t and s agree. The fp32 products
-    run without TF32, as the JAX package's precision="highest".
+    differ); the det correction makes R, t and s agree. The sums run in
+    fp64 and the results come back in the points' dtype: in fp32 the
+    weighted sums over an image's H x W points, ordered as each device
+    orders them, put the card's translation 1e-5 off the CPU's.
     """
-    from ..utils.device import full_fp32
-
+    dtype = pts_a.dtype
+    pts_a, pts_b = pts_a.double(), pts_b.double()
     if weights is None:
-        weights = torch.ones(pts_a.shape[:-1], dtype=pts_a.dtype,
+        weights = torch.ones(pts_a.shape[:-1], dtype=torch.float64,
                              device=pts_a.device)
-    w = weights / weights.sum(-1, keepdim=True).clamp_min(1e-12)
-    with full_fp32():
-        mu_a = (pts_a * w[..., None]).sum(-2)  # (..., 3)
-        mu_b = (pts_b * w[..., None]).sum(-2)
-        ac = pts_a - mu_a[..., None, :]
-        bc = pts_b - mu_b[..., None, :]
-        cov = torch.einsum("...ni,...nj->...ij", bc * w[..., None], ac)
-        u, s, vt = torch.linalg.svd(cov)
-        det = torch.linalg.det(u @ vt)
-        d = torch.cat([torch.ones(det.shape + (2,), dtype=cov.dtype,
-                                  device=cov.device), det[..., None]], -1)
-        r = (u * d[..., None, :]) @ vt
-        rot_mu_a = (r * mu_a[..., None, :]).sum(-1)
+    w = weights.double()
+    w = w / w.sum(-1, keepdim=True).clamp_min(1e-12)
+    mu_a = (pts_a * w[..., None]).sum(-2)  # (..., 3)
+    mu_b = (pts_b * w[..., None]).sum(-2)
+    ac = pts_a - mu_a[..., None, :]
+    bc = pts_b - mu_b[..., None, :]
+    cov = torch.einsum("...ni,...nj->...ij", bc * w[..., None], ac)
+    u, s, vt = torch.linalg.svd(cov)
+    det = torch.linalg.det(u @ vt)
+    d = torch.cat([torch.ones(det.shape + (2,), dtype=cov.dtype,
+                              device=cov.device), det[..., None]], -1)
+    r = (u * d[..., None, :]) @ vt
+    rot_mu_a = (r * mu_a[..., None, :]).sum(-1)
+    out = (r, mu_b - rot_mu_a)
     if with_scale:
         var_a = (w * (ac * ac).sum(-1)).sum(-1)
         scale = (s * d).sum(-1) / var_a.clamp_min(1e-12)
-        return r, mu_b - scale[..., None] * rot_mu_a, scale
-    return r, mu_b - rot_mu_a
+        out = (r, mu_b - scale[..., None] * rot_mu_a, scale)
+    return tuple(x.to(dtype) for x in out)
 
 
 def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -5,6 +5,17 @@ from typing import Any, Dict
 
 from torch import nn
 
+from .adapters import (
+    AnyCalibAdapter,
+    DUSt3RAdapter,
+    MASt3RAdapter,
+    MoGeAdapter,
+    MUSt3RAdapter,
+    Pi3Adapter,
+    PosedDepthAdapter,
+    Pow3RAdapter,
+    VGGTAdapter,
+)
 from .mapanything import (
     GeometricInputConfig,
     MapAnything,
@@ -48,14 +59,23 @@ def mapanything_ablations_config(**overrides) -> MapAnythingConfig:
 
 
 __all__ = [
+    "AnyCalibAdapter",
+    "DUSt3RAdapter",
     "GeometricInputConfig",
     "MODEL_CONFIGS",
     "MapAnything",
     "MapAnythingConfig",
+    "MASt3RAdapter",
+    "MUSt3RAdapter",
     "MemoryPolicy",
     "ModularDUSt3R",
     "ModularDUSt3RConfig",
+    "MoGeAdapter",
+    "Pi3Adapter",
+    "PosedDepthAdapter",
+    "Pow3RAdapter",
     "TASK_NAMES",
+    "VGGTAdapter",
     "aug_training_config",
     "dense_dim_for",
     "images_only_config",

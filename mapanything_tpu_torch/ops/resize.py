@@ -1,9 +1,11 @@
-"""Bilinear resize with torch semantics (align_corners=True by default).
+"""Bilinear and nearest resizes with torch semantics (bilinear with
+align_corners=True by default).
 
-Counterpart of mapanything_tpu/ops/resize.py::bilinear_resize, which builds
-torch-exact interpolation matrices for XLA; here F.interpolate is the
-operation itself. In fp32 the two agree to rounding; in bf16 the JAX version
-rounds between its two separable passes and this one does not.
+Counterparts of mapanything_tpu/ops/resize.py, which builds torch-exact
+interpolation matrices (bilinear) and index gathers (nearest) for XLA; here
+F.interpolate and indexing are the operations themselves. In fp32 the
+bilinear resizes agree to rounding; in bf16 the JAX version rounds between
+its two separable passes and this one does not. Nearest is a gather: equal.
 """
 
 from __future__ import annotations
@@ -46,3 +48,15 @@ def bilinear_resize(x: torch.Tensor, out_hw: tuple[int, int],
     """Resize (N, H, W, C) to (N, h, w, C)."""
     y = bilinear_resize_nchw(x.permute(0, 3, 1, 2), out_hw, align_corners)
     return y.permute(0, 2, 3, 1)
+
+
+def nearest_resize(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Resize (..., H, W, C) to (..., h, w, C) by torch's "nearest" rule:
+    output row i reads input row floor(i * H / h), the same for columns."""
+    h, w = x.shape[-3], x.shape[-2]
+    oh, ow = out_hw
+    if (h, w) == (oh, ow):
+        return x
+    rows = torch.arange(oh, device=x.device) * h // oh
+    cols = torch.arange(ow, device=x.device) * w // ow
+    return x[..., rows, :, :][..., :, cols, :]

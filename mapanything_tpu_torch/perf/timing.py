@@ -12,6 +12,9 @@ times calls that allocate gigabytes each (plain versions) by events around
 a run of calls instead. :func:`profile_calls` reads a call's device time,
 device ops and busy share from torch.profiler (:func:`read_trace`).
 
+:func:`host_transfers` counts what a call moves from the card to the host,
+at the ATen dispatcher.
+
 :class:`Timer`, :class:`BlockTimeManager` and :func:`block_timer` are the
 host-side block timers of mapanything_tpu/utils/timing.py (the reference's
 utils/timing.py): named wall-clock spans that accumulate their total and
@@ -223,6 +226,41 @@ def profile_calls(call, wall_ms: float, calls: int = 3, match=None) -> dict:
                              for key, sub in match.items()}
     res["read_s"] = time.perf_counter() - t0
     return res
+
+
+def host_transfers(call) -> dict:
+    """What one `call()` moves from the card to the host, counted at the
+    ATen dispatcher (a TorchDispatchMode sees every op that reaches it:
+    `.cpu()` arrives as `to` under inference mode, as `_to_copy` outside
+    it): "copies", the ops that take a CUDA tensor and return a host
+    tensor (`to`, `_to_copy`, `copy_` into host memory), and "reads", the
+    ops that hand the host a device value (`_local_scalar_dense`: .item(),
+    bool(), float(); `equal`; `nonzero`, whose output size the host waits
+    for)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    aten = torch.ops.aten
+    reads = (aten._local_scalar_dense, aten.equal, aten.nonzero,
+             aten.is_nonzero)
+    counts = {"copies": 0, "reads": 0}
+
+    def tensors(tree):
+        return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(x.is_cuda for x in tensors((args, kwargs))):
+                if func.overloadpacket in reads:
+                    counts["reads"] += 1
+                elif any(not x.is_cuda for x in tensors(out)):
+                    counts["copies"] += 1
+            return out
+
+    with Count():
+        call()
+    return counts
 
 
 class Timer:

@@ -65,6 +65,12 @@ def vit_layer_flops(tokens: int, dim: int) -> int:
     return attn_lin + attn_mm + mlp
 
 
+def attention_matmul_flops(n: int, dim: int) -> int:
+    """The two products of one attention over n tokens, QK^T and PV: the
+    part a flash kernel executes."""
+    return 2 * 2 * n * n * dim
+
+
 def analytic_flops(res_h: int, views: int, res_w: int | None = None) -> dict:
     """Forward FLOPs at (res_h, res_w) per view: encoder / trunk / dpt /
     total / per_view."""

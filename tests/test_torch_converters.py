@@ -267,11 +267,42 @@ def test_cli_tree_matches_jax_cli(dataset, flags, tmp_path):
                                 assert_render_close})
 
 
-def test_cli_refuses_pseudo_depth_naming_item_9(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        CLI.main(["tav2_wb", str(tmp_path), str(tmp_path / "out"),
-                  "--pseudo-depth", "moge.pt", "--device", "cpu"])
-    assert not (tmp_path / "out").exists()
+@pytest.mark.parametrize("with_mask", [True, False])
+def test_cli_pseudo_depth_matches_jax_stage(tmp_path, with_mask):
+    """--pseudo-depth FILE, a MoGe stand-in pickled whole
+    (tests/torch_adapter_fakes.py), against the JAX package's
+    run_pseudo_depth_stage(root, MoGeAdapter(model)) on the same converted
+    scene: the stored depth within 1e-5, the mask equal."""
+    from mapanything_tpu.data.pseudo_depth import run_pseudo_depth_stage
+    from mapanything_tpu.models.adapters import MoGeAdapter
+
+    import torch_adapter_fakes as FK
+
+    JT._write_tav2_scene(tmp_path / "raw")
+    ckpt = tmp_path / "moge.pt"
+    torch.save(FK.MoGeStandIn(with_mask=with_mask), ckpt)
+    roots = CLI.main(["tav2_wb", str(tmp_path / "raw"), str(tmp_path / "out"),
+                      "--pseudo-depth", str(ckpt), "--device", "cpu"])
+    jax_root = JV.convert_tav2_wb_scene(tmp_path / "raw", tmp_path / "jax",
+                                        "Supermarket", link=False)
+    run_pseudo_depth_stage(jax_root, MoGeAdapter(
+        torch.load(ckpt, weights_only=False)))
+    keys = ["pred_depth/moge2", "pred_mask/moge2"]
+    metas = [load_scene_meta(root / "scene_meta.json")
+             for root in (roots[0], jax_root)]
+    assert all(set(keys) <= set(meta["frame_modalities"]) for meta in metas)
+    for i in range(len(metas[0]["frames"])):
+        got, want = (load_frame(root, i, keys, scene_meta=meta)
+                     for root, meta in zip((roots[0], jax_root), metas))
+        np.testing.assert_allclose(got[keys[0]], want[keys[0]], rtol=1e-5,
+                                   atol=1e-5)
+        assert got[keys[0]].min() > 0
+        np.testing.assert_array_equal(got[keys[1]], want[keys[1]])
+        mask = got[keys[1]]
+        if with_mask:  # the stand-in's mask: all but the two left columns
+            assert mask[:, 2:].all() and not mask[:, :2].any()
+        else:
+            assert mask.all()
 
 
 def test_cli_defaults_to_the_card(tmp_path):

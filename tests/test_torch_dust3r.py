@@ -278,6 +278,39 @@ def test_rigid_points_registration_recovers_scale_and_skips_outliers():
     np.testing.assert_allclose(t.numpy(), [1.0, -2.0, 0.5], atol=1e-4)
 
 
+def umeyama_fp64(a, b, w):
+    """The weighted Umeyama fit in numpy fp64: (R, t, s)."""
+    a, b, w = (np.asarray(x, np.float64) for x in (a, b, w))
+    w = w / w.sum()
+    mu_a, mu_b = w @ a, w @ b
+    ac, bc = a - mu_a, b - mu_b
+    u, sv, vt = np.linalg.svd((bc * w[:, None]).T @ ac)
+    d = np.array([1.0, 1.0, np.linalg.det(u @ vt)])
+    r = (u * d) @ vt
+    s = (sv * d).sum() / (w @ (ac * ac).sum(-1))
+    return r, mu_b - s * r @ mu_a, s
+
+
+def test_rigid_points_registration_sums_in_fp64():
+    """An image's worth of fp32 points far from their origin (518 x 392,
+    offset 50): the fit is the fp64 inputs' fit rounded once to fp32
+    (bitwise), and matches numpy's fp64 one."""
+    rng = np.random.default_rng(7)
+    r_true, t_true, a, b = known_transform(8, 518 * 392, scale=0.5)
+    a = (a + 50.0).astype(np.float32)
+    b = (b + 0.01 * rng.standard_normal(b.shape)).astype(np.float32)
+    w = rng.uniform(0.1, 2.0, len(a)).astype(np.float32)
+    got = rigid_points_registration(torch.from_numpy(a), torch.from_numpy(b),
+                                    torch.from_numpy(w), with_scale=True)
+    wide = rigid_points_registration(
+        *(torch.from_numpy(x).double() for x in (a, b, w)), with_scale=True)
+    for g, x in zip(got, wide):
+        assert g.dtype == torch.float32
+        assert torch.equal(g, x.float())
+    for g, want in zip(got, umeyama_fp64(a, b, w)):
+        np.testing.assert_allclose(g.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
 def test_adapter_recovers_a_known_pose():
     """A stub model whose forward and swapped runs are related by a known
     rigid transform (tests/test_adapters.py:124): the adapter recovers it."""
