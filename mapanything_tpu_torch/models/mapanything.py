@@ -93,6 +93,7 @@ from ..nn.radio import RadioViT
 from ..nn.trunk import (AlternatingAttentionTrunk, CrossAttentionTrunk,
                         GlobalAttentionTrunk)
 from ..ops.ring_attention import all_gather, all_reduce
+from ..perf.timing import span
 from ..utils.device import resolve_device
 
 RELEASED_SCENE_REP = "raydirs+depth+pose+confidence+mask"
@@ -563,55 +564,60 @@ class MapAnything(nn.Module):
         b, v, h, w, _ = imgs.shape
         gh, gw = h // cfg.patch_size, w // cfg.patch_size
 
-        enc = self.encoder(imgs.reshape(b * v, h, w, 3), mlp_chunk)
+        with span("model.encoder"):
+            enc = self.encoder(imgs.reshape(b * v, h, w, 3), mlp_chunk)
         enc_dim = enc.shape[-1]
-        fused = self.fuse_geometric_priors(
-            enc.reshape(b, v, gh, gw, enc_dim).float(), views, geom_cfg,
-            generator, seq_group, batch_shard)
-        fused = self.fusion_norm(fused)
-        if self.scale_token is not None:
-            tok = self.scale_token[None, None, :].expand(b, 1, enc_dim)
-        else:  # the ablations: no extra token
-            tok = fused.new_zeros((b, 0, enc_dim))
-        trunk_in = fused.to(cfg.dtype)
-        if cfg.info_sharing_type == "alternating":
-            final, intermediates, tok_out = self.info_sharing(
-                trunk_in, tok, seq_group, mlp_chunk,
-                self.view_pe_indices(b, v, generator, seq_group,
-                                     batch_shard))
-        else:
-            final, intermediates, tok_out = self.info_sharing(
-                trunk_in, tok, mlp_chunk)
+        with span("model.fuse"):
+            fused = self.fuse_geometric_priors(
+                enc.reshape(b, v, gh, gw, enc_dim).float(), views, geom_cfg,
+                generator, seq_group, batch_shard)
+            fused = self.fusion_norm(fused)
+            if self.scale_token is not None:
+                tok = self.scale_token[None, None, :].expand(b, 1, enc_dim)
+            else:  # the ablations: no extra token
+                tok = fused.new_zeros((b, 0, enc_dim))
+            trunk_in = fused.to(cfg.dtype)
+        with span("model.trunk"):
+            if cfg.info_sharing_type == "alternating":
+                final, intermediates, tok_out = self.info_sharing(
+                    trunk_in, tok, seq_group, mlp_chunk,
+                    self.view_pe_indices(b, v, generator, seq_group,
+                                         batch_shard))
+            else:
+                final, intermediates, tok_out = self.info_sharing(
+                    trunk_in, tok, mlp_chunk)
 
-        # hook 0 is the fused, normed encoder features
-        hooks = [fused.to(cfg.dtype)] + intermediates + [final]
-        hooks = [x.reshape(b * v, gh, gw, x.shape[-1]) for x in hooks]
-        n, chunk = b * v, chunks.dense_head_chunk
-        if memory_efficient and n > chunk:
-            # the same head `chunk` views at a time; the last chunk is
-            # zero-padded to `chunk` views, its pad rows sliced off
-            parts = []
-            for i in range(0, n, chunk):
-                part = [x[i:i + chunk] for x in hooks]
-                m = part[0].shape[0]
-                part = [F.pad(x, (0, 0, 0, 0, 0, 0, 0, chunk - m))
-                        for x in part]
-                parts.append(self.dense_head(part, (h, w))[:m])
-            raw_dense = torch.cat(parts)
-            del parts
-        else:
-            raw_dense = self.dense_head(hooks, (h, w))  # (B*V, H, W, C) fp32
-        raw = raw_dense.reshape(b, v, h, w, cfg.dense_output_dim)
-        if self.scale_head is not None:
-            raw_scale = self.scale_head(tok_out[:, 0, :].float())  # (B, 1)
-            metric_scale = scale_adaptor(raw_scale)[:, 0]  # (B,)
-        else:
-            metric_scale = torch.ones((b,), device=raw.device)
-        pose = None
-        if self.pose_head is not None:
-            pose = pose_adaptor(self.pose_head(hooks[-1]).reshape(b, v, 7))
-        return scene_rep_outputs(cfg.scene_rep_type, raw, metric_scale, pose,
-                                 cfg.use_factored_global_pointmaps)
+        with span("model.dense_head"):
+            # hook 0 is the fused, normed encoder features
+            hooks = [fused.to(cfg.dtype)] + intermediates + [final]
+            hooks = [x.reshape(b * v, gh, gw, x.shape[-1]) for x in hooks]
+            n, chunk = b * v, chunks.dense_head_chunk
+            if memory_efficient and n > chunk:
+                # the same head `chunk` views at a time; the last chunk is
+                # zero-padded to `chunk` views, its pad rows sliced off
+                parts = []
+                for i in range(0, n, chunk):
+                    part = [x[i:i + chunk] for x in hooks]
+                    m = part[0].shape[0]
+                    part = [F.pad(x, (0, 0, 0, 0, 0, 0, 0, chunk - m))
+                            for x in part]
+                    parts.append(self.dense_head(part, (h, w))[:m])
+                raw_dense = torch.cat(parts)
+                del parts
+            else:  # (B*V, H, W, C) fp32
+                raw_dense = self.dense_head(hooks, (h, w))
+            raw = raw_dense.reshape(b, v, h, w, cfg.dense_output_dim)
+        with span("model.pose_scale"):
+            if self.scale_head is not None:
+                raw_scale = self.scale_head(tok_out[:, 0, :].float())  # (B, 1)
+                metric_scale = scale_adaptor(raw_scale)[:, 0]  # (B,)
+            else:
+                metric_scale = torch.ones((b,), device=raw.device)
+            pose = None
+            if self.pose_head is not None:
+                pose = pose_adaptor(self.pose_head(hooks[-1]).reshape(b, v, 7))
+            return scene_rep_outputs(cfg.scene_rep_type, raw, metric_scale,
+                                     pose, cfg.use_factored_global_pointmaps)
 
     def view_pe_indices(self, b: int, v: int,
                         generator: Optional[torch.Generator],

@@ -24,6 +24,7 @@ from ..nn.adaptors import confidence_adaptor
 from ..nn.croco import CroCoViT, CrossAttention, DecoderBlock
 from ..nn.heads import LinearFeature
 from ..nn.layers import Attention, Dense, FusedLayerNorm, init_weights_
+from ..perf.timing import span
 from ..utils.device import resolve_device
 
 
@@ -100,17 +101,22 @@ class ModularDUSt3R(nn.Module):
             raise ValueError(f"ModularDUSt3R is a 2-view model, got {v} views")
         gh, gw = h // cfg.patch_size, w // cfg.patch_size
 
-        feats = self.encoder(imgs.reshape(b * v, h, w, 3))
-        feats = feats.reshape(b, v, gh * gw, self.encoder.embed_dim)
-        x1 = self.decoder_embed(feats[:, 0])
-        x2 = self.decoder_embed(feats[:, 1])
-        for i in range(cfg.decoder_depth):
-            x1, x2 = (getattr(self, f"dec1_{i}")(x1, x2),
-                      getattr(self, f"dec2_{i}")(x2, x1))
-        x1, x2 = self.dec_norm(x1), self.dec_norm(x2)
+        with span("model.encoder"):
+            feats = self.encoder(imgs.reshape(b * v, h, w, 3))
+            feats = feats.reshape(b, v, gh * gw, self.encoder.embed_dim)
+        with span("model.decoder"):
+            x1 = self.decoder_embed(feats[:, 0])
+            x2 = self.decoder_embed(feats[:, 1])
+            for i in range(cfg.decoder_depth):
+                x1, x2 = (getattr(self, f"dec1_{i}")(x1, x2),
+                          getattr(self, f"dec2_{i}")(x2, x1))
+            x1, x2 = self.dec_norm(x1), self.dec_norm(x2)
 
         dim = cfg.decoder_dim
-        pts1, conf1 = _split_pointmap(self.head1(x1.reshape(b, gh, gw, dim)))
-        pts2, conf2 = _split_pointmap(self.head2(x2.reshape(b, gh, gw, dim)))
-        return {"pts3d": torch.stack([pts1, pts2], dim=1),
-                "conf": torch.stack([conf1, conf2], dim=1)[..., 0]}
+        with span("model.heads"):
+            pts1, conf1 = _split_pointmap(
+                self.head1(x1.reshape(b, gh, gw, dim)))
+            pts2, conf2 = _split_pointmap(
+                self.head2(x2.reshape(b, gh, gw, dim)))
+            return {"pts3d": torch.stack([pts1, pts2], dim=1),
+                    "conf": torch.stack([conf1, conf2], dim=1)[..., 0]}

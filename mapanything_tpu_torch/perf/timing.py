@@ -15,6 +15,11 @@ device ops and busy share from torch.profiler (:func:`read_trace`).
 :func:`host_transfers` counts what a call moves from the card to the host,
 at the ATen dispatcher.
 
+:func:`span` marks a layer boundary of the program (the names in
+:data:`SPANS`) on torch.profiler's timeline, the clock of the device
+operations in the same trace; with no profiler running it costs one flag
+read.
+
 :class:`Timer`, :class:`BlockTimeManager` and :func:`block_timer` are the
 host-side block timers of mapanything_tpu/utils/timing.py (the reference's
 utils/timing.py): named wall-clock spans that accumulate their total and
@@ -89,6 +94,48 @@ def host_us(fn, reps: int = 20) -> float:
     return (t1 - t0) / reps * 1e6
 
 
+# The program's spans, one at each layer boundary; tools that read a trace
+# find each layer's interval by these names.
+SPANS = (
+    # utils/inference.py::InferencePipeline.infer
+    "infer.prepare",      # validate, preprocess, stack_views (the host stack
+                          # and the copy to the device), the geometric
+                          # config, the memory policy, the generator
+    "infer.forward",      # the model, or view_sharded_forward: the model.*
+                          # spans and what lies between them, such as the
+                          # view-sharded path's gathers and collectives
+    "infer.postprocess",  # postprocess_outputs and unstack_views
+    # models/mapanything.py::MapAnything.forward
+    "model.encoder",      # the image encoder (ModularDUSt3R's too)
+    "model.fuse",         # fuse_geometric_priors, fusion_norm, the scale token
+    "model.trunk",        # info_sharing, with its view-PE rows
+    "model.dense_head",   # the hooks and the dense head, chunked or not
+    "model.pose_scale",   # the scale and pose heads, scene_rep_outputs
+    # models/modular_dust3r.py::ModularDUSt3R.forward
+    "model.decoder",      # decoder_embed, both branches' blocks, dec_norm
+    "model.heads",        # head1, head2 and the pointmap split
+    # train/step.py: make_train_step, loss_and_grads, make_loss_fn
+    "train.forward",      # loss_fn: the model and the criterion
+    "train.loss",         # overall_loss, inside train.forward
+    "train.backward",     # .backward() (its launches run on autograd's
+                          # thread), the gradient list, the all-reduce
+    "train.optimizer",    # the global norm, the clip, AdamW, the gradients
+                          # freed
+)
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A torch.profiler range named `name` (one of :data:`SPANS`) while a
+    profiler records; else one shared null context, so that a span costs
+    one flag read when nothing records (record_function would cost ~10 µs
+    even then)."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.autograd.profiler.record_function(name)
+
+
 # utility ops the profiler's own reading drops (torch.autograd.profiler_util.
 # _filter_name)
 _FILTERED = frozenset((
@@ -105,7 +152,8 @@ def read_trace(prof) -> tuple:
     ~40k host events. The same numbers: device ops by their span, host ops'
     self time as the profiler nests them (each thread's synchronous CPU
     events by start, a child inside its parent's span; runtime calls on
-    their launching op's thread)."""
+    their launching op's thread). The device-side ranges of record_function
+    spans (:func:`span`'s) and of collectives are no device ops: left out."""
     from torch.autograd import DeviceType
 
     results = prof.profiler.kineto_results
@@ -124,8 +172,8 @@ def read_trace(prof) -> tuple:
         name = names[name]
         kind = e.device_type()
         if kind == DeviceType.CUDA:
-            if name.startswith(("nccl:", "gloo:")):
-                continue  # a collective's annotation, spanning its work
+            if e.is_user_annotation() or name.startswith(("nccl:", "gloo:")):
+                continue  # a span's or a collective's range over its work
             key = name[:90]  # template instances that share a prefix add up
             device[key] = (device.get(key, 0.0)
                            + (e.end_ns() - e.start_ns()) / 1e3)
@@ -174,7 +222,7 @@ def read_trace_events(prof) -> tuple:
     n_ops = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            if e.name.startswith(("nccl:", "gloo:")):
+            if e.is_user_annotation or e.name.startswith(("nccl:", "gloo:")):
                 continue
             name = e.name[:90]
             device[name] = device.get(name, 0.0) + e.time_range.elapsed_us()
@@ -322,5 +370,6 @@ def block_timer(name: str, manager: Optional[BlockTimeManager] = None,
             print(f"[{name}] {dt * 1000:.2f} ms")
 
 
-__all__ = ["BlockTimeManager", "Timer", "block_timer", "default_manager",
-           "device_ms", "events_ms", "host_us", "profile_calls"]
+__all__ = ["SPANS", "BlockTimeManager", "Timer", "block_timer",
+           "default_manager", "device_ms", "events_ms", "host_us",
+           "profile_calls", "span"]

@@ -46,6 +46,7 @@ import torch.distributed as dist
 from ..models import GeometricInputConfig, MapAnything
 from ..models.mapanything import scene_rep_family, scene_rep_keys
 from ..parallel.distributed import all_reduce_grads
+from ..perf.timing import span
 from .criteria import Reduction
 from .losses import OverallLossConfig, overall_loss
 
@@ -252,7 +253,8 @@ def make_loss_fn(model: MapAnything, geom_cfg: GeometricInputConfig,
     def loss_fn(batch: Dict, generator: Optional[torch.Generator] = None
                 ) -> tuple:
         preds = model(batch["views"], geom_cfg, generator, batch_shard=shard)
-        return overall_loss(batch["gt"], preds, loss_cfg, red)
+        with span("train.loss"):
+            return overall_loss(batch["gt"], preds, loss_cfg, red)
 
     return loss_fn
 
@@ -267,12 +269,14 @@ def loss_and_grads(loss_fn, params, batch: Dict,
     and the gradients are summed over `data_group`."""
     for p in params:
         p.grad = None
-    loss, details = loss_fn(batch, generator)
-    details.pop("_share", loss).backward()
-    grads = [torch.zeros_like(p) if p.grad is None else p.grad
-             for p in params]
-    if data_group is not None:
-        all_reduce_grads(grads, data_group)
+    with span("train.forward"):
+        loss, details = loss_fn(batch, generator)
+    with span("train.backward"):
+        details.pop("_share", loss).backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in params]
+        if data_group is not None:
+            all_reduce_grads(grads, data_group)
     return loss.detach(), details, grads
 
 
@@ -302,13 +306,14 @@ def make_train_step(model: MapAnything, geom_cfg: GeometricInputConfig,
                    generator: Optional[torch.Generator] = None):
         loss, details, grads = loss_and_grads(
             loss_fn, state.optimizer.params, batch, generator, data_group)
-        norm = state.optimizer.norm(grads)
-        metrics = {"loss": loss,
-                   **{k: v.detach() for k, v in details.items()},
-                   "grad_norm": norm}
-        state.apply_gradients(grads, norm)
-        for p in state.optimizer.params:
-            p.grad = None  # free the gradients before the next forward
+        with span("train.optimizer"):
+            norm = state.optimizer.norm(grads)
+            metrics = {"loss": loss,
+                       **{k: v.detach() for k, v in details.items()},
+                       "grad_norm": norm}
+            state.apply_gradients(grads, norm)
+            for p in state.optimizer.params:
+                p.grad = None  # free the gradients before the next forward
         return state, metrics
 
     return train_step

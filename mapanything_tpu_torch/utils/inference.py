@@ -32,6 +32,7 @@ from ..models.mapanything import (
 from ..models.tasks import task_config
 from ..ops.quantile import quantile_threshold
 from ..parallel.inference import view_sharded_forward
+from ..perf.timing import span
 
 ALLOWED_VIEW_KEYS = {
     "img", "data_norm_type", "depth_z", "ray_directions", "intrinsics",
@@ -375,45 +376,49 @@ class InferencePipeline:
         for this shape and the device's memory; True chunks the model and
         the postprocess (8 views); False runs unchunked.
         """
-        views = validate_input_views_for_inference(views)
-        device = next(self.model.parameters()).device
-        views = preprocess_input_views_for_inference(views, device)
-        batched = stack_views(views, device)
+        with span("infer.prepare"):
+            views = validate_input_views_for_inference(views)
+            device = next(self.model.parameters()).device
+            views = preprocess_input_views_for_inference(views, device)
+            batched = stack_views(views, device)
 
-        geom_cfg = geometric_input_config(
-            batched, task, ignore_calibration_inputs=ignore_calibration_inputs,
-            ignore_depth_inputs=ignore_depth_inputs,
-            ignore_pose_inputs=ignore_pose_inputs,
-            ignore_depth_scale_inputs=ignore_depth_scale_inputs,
-            ignore_pose_scale_inputs=ignore_pose_scale_inputs)
+            geom_cfg = geometric_input_config(
+                batched, task,
+                ignore_calibration_inputs=ignore_calibration_inputs,
+                ignore_depth_inputs=ignore_depth_inputs,
+                ignore_pose_inputs=ignore_pose_inputs,
+                ignore_depth_scale_inputs=ignore_depth_scale_inputs,
+                ignore_pose_scale_inputs=ignore_pose_scale_inputs)
 
-        bsz, nv, ih, iw = batched["img"].shape[:4]
-        if memory_efficient_inference == "auto":
-            pol = resolve_memory_policy(self.model.cfg, bsz, nv, ih, iw,
-                                        hbm_gb=_device_memory_gb(device))
-            mem_eff, post_chunk = pol.memory_efficient, pol.post_view_chunk
-            chunking = pol.cfg
-        else:
-            mem_eff = bool(memory_efficient_inference)
-            post_chunk = 8 if mem_eff else None
-            chunking = None
+            bsz, nv, ih, iw = batched["img"].shape[:4]
+            if memory_efficient_inference == "auto":
+                pol = resolve_memory_policy(self.model.cfg, bsz, nv, ih, iw,
+                                            hbm_gb=_device_memory_gb(device))
+                mem_eff, post_chunk = (pol.memory_efficient,
+                                       pol.post_view_chunk)
+                chunking = pol.cfg
+            else:
+                mem_eff = bool(memory_efficient_inference)
+                post_chunk = 8 if mem_eff else None
+                chunking = None
 
-        generator = (torch.Generator(device=device).manual_seed(0)
-                     if geom_cfg.sparse_depth_prob > 0.0 else None)
-        if self.view_shard_group is None:
-            preds = self.model(batched, geom_cfg, generator, mem_eff,
-                               chunking=chunking)
-        else:
-            preds = view_sharded_forward(self.model, batched,
-                                         self.view_shard_group, geom_cfg,
-                                         generator, memory_efficient=mem_eff,
-                                         chunking=chunking)
-        out = postprocess_outputs(
-            preds, batched["img"], data_norm_type=data_norm_type,
-            apply_mask=apply_mask, mask_edges=mask_edges,
-            edge_normal_threshold=edge_normal_threshold,
-            edge_depth_threshold=edge_depth_threshold,
-            apply_confidence_mask=apply_confidence_mask,
-            confidence_percentile=confidence_percentile,
-            view_chunk=post_chunk)
-        return unstack_views(out, nv)
+            generator = (torch.Generator(device=device).manual_seed(0)
+                         if geom_cfg.sparse_depth_prob > 0.0 else None)
+        with span("infer.forward"):
+            if self.view_shard_group is None:
+                preds = self.model(batched, geom_cfg, generator, mem_eff,
+                                   chunking=chunking)
+            else:
+                preds = view_sharded_forward(
+                    self.model, batched, self.view_shard_group, geom_cfg,
+                    generator, memory_efficient=mem_eff, chunking=chunking)
+        with span("infer.postprocess"):
+            out = postprocess_outputs(
+                preds, batched["img"], data_norm_type=data_norm_type,
+                apply_mask=apply_mask, mask_edges=mask_edges,
+                edge_normal_threshold=edge_normal_threshold,
+                edge_depth_threshold=edge_depth_threshold,
+                apply_confidence_mask=apply_confidence_mask,
+                confidence_percentile=confidence_percentile,
+                view_chunk=post_chunk)
+            return unstack_views(out, nv)
