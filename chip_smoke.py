@@ -103,12 +103,16 @@ Phases, in order (any failure exits non-zero and prints no result line):
      grad_check.py for why). The seeded init makes this reading the same
      in every run. Then make_synthetic_batch(1, 4, 518, 518) on the card,
      make_train_step with OptimConfig(warmup_steps=2, total_steps=100):
-     2 warm-up steps, then 10 timed steps. Checks exactly 48 forward-with-lse,
-     48 dK/dV and 48 dQ launches and no plain launch per step, a finite loss
-     and grad_norm at every step, and that the parameters changed; prints
-     the median step time, the peak device memory and the train MFU
-     (utils/flops.py::train_step_flops over the step time and the H100 SXM
-     bf16 dense peak). Traces 2 more steps with torch.profiler. Last,
+     2 warm-up steps (the eager warm-up and the CUDA graph's capture),
+     then 10 timed steps, replays of the graph. Checks no plain launch
+     and, per step, exactly 48 forward-with-lse, 48 dK/dV and 48 dQ
+     launches from the host where the step was not a replay and none where
+     it was, a finite loss and grad_norm at every step, and that the
+     parameters changed; prints the median step time, the peak device
+     memory and the train MFU (utils/flops.py::train_step_flops over the
+     step time and the H100 SXM bf16 dense peak). Traces 2 more steps with
+     torch.profiler, and one more, a replay, whose device trace must hold
+     exactly 48 of each of the three training kernels by name. Last,
      compare again on the trained model, printed and not held to a limit:
      the training steps are not bitwise deterministic, so that state and
      its reading differ from run to run.
@@ -1322,15 +1326,15 @@ def run_training(torch, fa, T, model, make_synthetic_batch, geom_cfg,
     times, losses, norms = [], [], []
     for i in range(TRAIN_STEPS):
         fa.reset_launch_counts()
+        counted = step_counts(step)
         t0 = time.perf_counter()
         state, m = step(state, batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         counts = dict(fa.flash_attention.kernel_counts)
         plain = fa.flash_attention.plain_launches
-        want = dict.fromkeys(fa.KERNELS, 0) | {
-            "fwd_lse": FORWARD_LAUNCHES, "dkv": FORWARD_LAUNCHES,
-            "dq": FORWARD_LAUNCHES}
+        want = dict.fromkeys(fa.KERNELS, 0) | host_launches(
+            step, counted, TRAIN_LAUNCHES)
         if counts != want or plain != 0:
             return res, (f"step {i}: kernel launches {counts} and {plain} "
                          f"plain, expected {want} and 0")
@@ -1356,7 +1360,10 @@ def run_training(torch, fa, T, model, make_synthetic_batch, geom_cfg,
     res["mfu"] = res["train_step_flops"] / (step_ms / 1e3) / peak_flops
     res["profile"] = profile_calls(torch, lambda: step(state, batch),
                                    step_ms, calls=2)
-    return res, None
+    res["replay_kernels"], bad = replay_launches(
+        torch, step, lambda: step(state, batch), TRAIN_LAUNCHES)
+    res["train_step"] = step_counts(step)
+    return res, bad
 
 
 def run_ring_slice(torch, fa, RC, model, group, InferencePipeline, views):
@@ -1824,6 +1831,53 @@ def launches_of(fa) -> dict:
     return dict(fa.flash_attention.kernel_counts)
 
 
+# the names of the training kernels in a device trace
+REPLAY_KERNELS = {"fwd_lse": "flash_fwd_sm90", "dkv": "flash_bwd_dkv_sm90",
+                  "dq": "flash_bwd_dq_sm90"}
+
+
+def step_counts(step) -> dict:
+    """make_train_step's counter of captures, replays and eager steps, of
+    `step` or of its `train_step` (VariantStep's); {} for a step without
+    one."""
+    return dict(getattr(getattr(step, "train_step", step), "counts", None)
+                or {})
+
+
+def host_launches(step, before: dict, want: dict) -> dict:
+    """The attention launches a train step made from the host since its
+    counter read `before`: `want` where it ran eagerly or was captured
+    (the capture counts the launches it records), none where it replayed
+    its CUDA graph. A replay's launches show in its device trace alone
+    (replay_launches)."""
+    replays = step_counts(step).get("replays", 0)
+    return {} if replays > before.get("replays", 0) else want
+
+
+def replay_launches(torch, step, call, want: dict) -> tuple:
+    """The training kernels that one `call()`, a replay of the train step's
+    CUDA graph, runs on the card, counted by name in its device trace
+    (perf/timing.py::trace_kernel_counts), against `want`. Returns (the
+    counts, failure or None); a call that does not replay fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mapanything_tpu_torch.perf.timing import trace_kernel_counts
+
+    counted = step_counts(step)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    if host_launches(step, counted, want):
+        return {}, "the traced train step did not replay its graph"
+    found = trace_kernel_counts(prof, REPLAY_KERNELS.values())
+    counts = {key: found[name] for key, name in REPLAY_KERNELS.items()}
+    if counts != want:
+        return counts, (f"a replayed train step ran {counts} training "
+                        f"kernels on the card, expected {want}")
+    return counts, None
+
+
 def expect_launches(fa, want: dict, what: str) -> str | None:
     counts, plain = launches_of(fa), fa.flash_attention.plain_launches
     full = dict.fromkeys(fa.KERNELS, 0) | want
@@ -1864,11 +1918,14 @@ def aug_training_steps(torch, fa, T, model, batch, geom_cfg, draw_prior_masks,
     for i in range(warmup + steps):
         states.append(gen.get_state())
         fa.reset_launch_counts()
+        counted = step_counts(step)
         t0 = time.perf_counter()
         state, m = step(state, batch, gen)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-        bad = expect_launches(fa, TRAIN_LAUNCHES, f"aug_training step {i}")
+        bad = expect_launches(fa,
+                              host_launches(step, counted, TRAIN_LAUNCHES),
+                              f"aug_training step {i}")
         if bad:
             return res, launches, bad
         launches = add_counts(launches, launches_of(fa))
@@ -2005,11 +2062,14 @@ def stage2_steps(torch, fa, T, make_model, make_synthetic_batch, geom_cfg,
     times, launches = [], {}
     for i in range(3):
         fa.reset_launch_counts()
+        counted = step_counts(step)
         t0 = time.perf_counter()
         state, m = step(state, batch, gen)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        bad = expect_launches(fa, CKPT_LAUNCHES, f"{STAGE2_VIEWS}-view step")
+        bad = expect_launches(fa,
+                              host_launches(step, counted, CKPT_LAUNCHES),
+                              f"{STAGE2_VIEWS}-view step")
         if bad:
             return res, launches, bad
         launches = add_counts(launches, launches_of(fa))
@@ -2871,22 +2931,27 @@ def cli_training(torch, fa, fp, F):
 
         # 10c: the CLI, in this process, with its loader, steps,
         # validation and checkpoint saves instrumented
-        steps, val, saves, loaders = [], [], [], []
+        steps, val, saves, loaders, made = [], [], [], [], []
         make_step, test_epoch = L.make_train_step, L.test_one_epoch
         save, get_loader = L.save_train_state, DL.get_train_data_loader
 
         def counted_step(*args, **kw):
             step = make_step(*args, **kw)
+            made.append(step)
 
             def run(state, batch, generator=None):
                 fa.reset_launch_counts()
+                counted = step_counts(step)
                 t_start = time.perf_counter()
                 state, metrics = step(state, batch, generator)
                 steps.append({"t": t_start, "loss": metrics["loss"],
                               "shape": list(batch["views"]["img"].shape),
                               "counts": launches_of(fa),
+                              "want": host_launches(step, counted,
+                                                    TRAIN_LAUNCHES),
                               "plain": fa.flash_attention.plain_launches})
                 return state, metrics
+            run.counts = step.counts
             return run
 
         def counted_eval(model, loader, *args, **kw):
@@ -2934,6 +2999,8 @@ def cli_training(torch, fa, fp, F):
         res.update({
             "steps": len(steps), "losses": losses,
             "batch_shapes": [s["shape"] for s in steps],
+            "replayed": [not s["want"] for s in steps],
+            "train_step": step_counts(made[0]) if made else {},
             "step_interval_ms": walls,
             "step_interval_ms_median": (statistics.median(walls)
                                         if walls else None),
@@ -2944,7 +3011,7 @@ def cli_training(torch, fa, fp, F):
         })
         bad = None
         for i, s in enumerate(steps):
-            full = dict.fromkeys(fa.KERNELS, 0) | TRAIN_LAUNCHES
+            full = dict.fromkeys(fa.KERNELS, 0) | s["want"]
             if s["counts"] != full or s["plain"] != 0:
                 bad = (f"CLI step {i}: kernel launches {s['counts']} and "
                        f"{s['plain']} plain, expected {full} and 0")
@@ -5665,12 +5732,14 @@ def timed_variant_steps(torch, fa, step, batch, launches, what) -> tuple:
     times, losses, norms = [], [], []
     for i in range(VARIANT_TIMED_STEPS):
         fa.reset_launch_counts()
+        counted = step_counts(step)
         t0 = time.perf_counter()
         loss, norm = step(batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         counts.append(launches_of(fa))
-        bad = expect_launches(fa, want, f"{what} step {i}")
+        bad = expect_launches(fa, host_launches(step, counted, want),
+                              f"{what} step {i}")
         if bad:
             return res, counts, bad
         losses.append(float(loss))

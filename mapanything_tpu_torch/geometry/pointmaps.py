@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 
 from .norm import safe_norm
-from .quats import quaternion_to_rotation_matrix, rotate
+from .quats import quaternion_to_rotation_matrix, rotate, unit_w
 
 
 def convert_ray_dirs_depth_along_ray_pose_trans_quats_to_pointmap(
@@ -136,7 +136,7 @@ def closed_form_pose_inverse(
         translation_vectors = pose_matrices[..., :3, 3:]
     rot_t = rotation_matrices.transpose(-1, -2)
     top = torch.cat([rot_t, -_matmul(rot_t, translation_vectors)], dim=-1)
-    bottom = pose_matrices.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(
+    bottom = unit_w(pose_matrices).expand(
         pose_matrices.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 

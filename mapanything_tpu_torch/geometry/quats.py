@@ -59,19 +59,25 @@ def rotation_matrix_to_quaternion(matrix: torch.Tensor) -> torch.Tensor:
     return standardize_quaternion(out[..., [1, 2, 3, 0]])  # wxyz -> xyzw
 
 
+def unit_w(like: torch.Tensor) -> torch.Tensor:
+    """[0, 0, 0, 1] in `like`'s dtype and on its device (the identity xyzw
+    quaternion, a homogeneous matrix's last row), made there: no copy from
+    the host, which a CUDA graph's capture cannot hold."""
+    return torch.eye(4, dtype=like.dtype, device=like.device)[3]
+
+
 def pose_quats_trans_to_matrix(quats: torch.Tensor,
                                trans: torch.Tensor) -> torch.Tensor:
     """(..., 4) quats + (..., 3) trans -> (..., 4, 4) SE3 matrices."""
     rot = quaternion_to_rotation_matrix(quats)
     top = torch.cat([rot, trans[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rot.dtype,
-                          device=rot.device).expand(rot.shape[:-2] + (1, 4))
+    bottom = unit_w(rot).expand(rot.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 
 def quaternion_inverse(quat: torch.Tensor) -> torch.Tensor:
     """Inverse of (..., 4) xyzw quaternions: the conjugate over |q|^2."""
-    conj = quat * quat.new_tensor([-1.0, -1.0, -1.0, 1.0])
+    conj = torch.cat([-quat[..., :3], quat[..., 3:]], dim=-1)
     return conj / (quat * quat).sum(-1, keepdim=True)
 
 

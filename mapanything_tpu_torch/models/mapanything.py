@@ -75,6 +75,7 @@ from ..geometry import (
     safe_norm,
     transform_pose_using_quats_and_trans_2_to_1,
 )
+from ..geometry.quats import unit_w
 from ..nn.adaptors import (
     confidence_adaptor,
     depth_adaptor,
@@ -736,8 +737,7 @@ class MapAnything(nn.Module):
                 t0 = all_gather(t0, seq_group)[0]
             rel_q, rel_t = transform_pose_using_quats_and_trans_2_to_1(
                 q0.expand_as(quats), t0.expand_as(trans), quats, trans)
-            rel_q = torch.where(mask, rel_q,
-                                rel_q.new_tensor([0.0, 0.0, 0.0, 1.0]))
+            rel_q = torch.where(mask, rel_q, unit_w(rel_q))
             rel_t = torch.where(mask, rel_t, 0.0)
             if seq_group is None:
                 scaled_t, t_norm = normalize_pose_translations(

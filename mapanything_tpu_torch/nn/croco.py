@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from ..ops.attention import sdpa
+from ..utils.device import device_constant
 from .dinov2 import PatchEmbed
 from .layers import Attention, Block, Dense, FusedLayerNorm, Mlp
 
@@ -38,6 +39,14 @@ CROCO_CONFIGS = {
     "base": dict(embed_dim=768, depth=12, num_heads=12),
     "large": dict(embed_dim=1024, depth=24, num_heads=16),
 }
+
+
+@device_constant
+def _pos_embed(gh: int, gw: int, dim: int, device,
+               dtype: torch.dtype) -> torch.Tensor:
+    """sincos_pos_embed_2d in `dtype` on `device`."""
+    return torch.from_numpy(sincos_pos_embed_2d(gh, gw, dim)).to(device,
+                                                                 dtype)
 
 
 def sincos_pos_embed_2d(gh: int, gw: int, dim: int) -> np.ndarray:
@@ -160,8 +169,7 @@ class CroCoViT(nn.Module):
         gh, gw = h // self.patch_size, w // self.patch_size
         x = self.patch_embed(x.permute(0, 3, 1, 2))  # (B, C, gh, gw)
         x = x.flatten(2).transpose(1, 2)
-        pos = torch.from_numpy(sincos_pos_embed_2d(gh, gw, self.embed_dim))
-        x = x + pos.to(x.device, self.dtype)[None]
+        x = x + _pos_embed(gh, gw, self.embed_dim, x.device, self.dtype)[None]
         for blk in self.blocks:
             x = blk(x, None, mlp_chunk)
         return self.norm(x).reshape(b, gh, gw, self.embed_dim)

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.device import device_constant
 from .layers import Block, Conv2d, FusedLayerNorm, checkpointed
 
 DINOV2_CONFIGS = {
@@ -74,6 +75,15 @@ def torch_bicubic_resize_matrix(src: int, dst: int, scale: float) -> np.ndarray:
     return mat
 
 
+@device_constant
+def _bicubic_matrices(src_hw: tuple, dst_hw: tuple, offset: float,
+                      device) -> tuple:
+    """interpolate_pos_embed's two resize matrices on `device`."""
+    return tuple(torch.tensor(torch_bicubic_resize_matrix(s, d, (d + offset)
+                                                          / s), device=device)
+                 for s, d in zip(src_hw, dst_hw))
+
+
 def interpolate_pos_embed(patch_pos_embed: torch.Tensor,
                           src_hw: tuple[int, int], dst_hw: tuple[int, int],
                           interpolate_offset: float = 0.1) -> torch.Tensor:
@@ -84,14 +94,9 @@ def interpolate_pos_embed(patch_pos_embed: torch.Tensor,
     if (sh, sw) == (dh, dw):
         return patch_pos_embed
     c = patch_pos_embed.shape[-1]
-    dev = patch_pos_embed.device
     grid = patch_pos_embed.reshape(sh, sw, c).float()
-    mh = torch.tensor(
-        torch_bicubic_resize_matrix(sh, dh, (dh + interpolate_offset) / sh),
-        device=dev)
-    mw = torch.tensor(
-        torch_bicubic_resize_matrix(sw, dw, (dw + interpolate_offset) / sw),
-        device=dev)
+    mh, mw = _bicubic_matrices((sh, sw), (dh, dw), interpolate_offset,
+                               patch_pos_embed.device)
     out = torch.einsum("ij,jkc->ikc", mh, grid)
     out = torch.einsum("kj,ijc->ikc", mw, out)
     return out.reshape(dh * dw, c)

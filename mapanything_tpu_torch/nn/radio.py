@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.device import device_constant
 from .layers import Block, Conv2d, FusedLayerNorm, checkpointed
 
 RADIO_CONFIGS = {
@@ -69,6 +70,13 @@ def bilinear_resize_matrix(src: int, dst: int) -> np.ndarray:
     return mat
 
 
+@device_constant
+def _bilinear_matrices(src_hw: tuple, dst_hw: tuple, device) -> tuple:
+    """resample_pos_embed_bilinear's two resize matrices on `device`."""
+    return tuple(torch.tensor(bilinear_resize_matrix(s, d), device=device)
+                 for s, d in zip(src_hw, dst_hw))
+
+
 def resample_pos_embed_bilinear(pos: torch.Tensor, src_hw: tuple,
                                 dst_hw: tuple) -> torch.Tensor:
     """Bilinear-resample (src_h*src_w, C) pos-embeds to (dst_h*dst_w, C) in
@@ -78,8 +86,7 @@ def resample_pos_embed_bilinear(pos: torch.Tensor, src_hw: tuple,
         return pos
     c = pos.shape[-1]
     grid = pos.reshape(sh, sw, c).float()
-    mh = torch.tensor(bilinear_resize_matrix(sh, dh), device=pos.device)
-    mw = torch.tensor(bilinear_resize_matrix(sw, dw), device=pos.device)
+    mh, mw = _bilinear_matrices((sh, sw), (dh, dw), pos.device)
     out = torch.einsum("ij,jkc->ikc", mh, grid)
     out = torch.einsum("kj,ijc->ikc", mw, out)
     return out.reshape(dh * dw, c)

@@ -15,6 +15,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.device import device_constant
+
 
 @functools.lru_cache(maxsize=16)
 def rope_2d_cos_sin(gh: int, gw: int, head_dim: int, freq: float = 100.0):
@@ -37,9 +39,11 @@ def rope_2d_cos_sin(gh: int, gw: int, head_dim: int, freq: float = 100.0):
     return cos, sin
 
 
+@device_constant
 def rope_tables(gh: int, gw: int, head_dim: int, freq: float,
                 device) -> tuple[torch.Tensor, torch.Tensor]:
-    """`rope_2d_cos_sin` as fp32 tensors on `device`."""
+    """`rope_2d_cos_sin` as fp32 tensors on `device`, made once a size
+    (utils/device.py::device_constant)."""
     return tuple(torch.tensor(t, device=device)
                  for t in rope_2d_cos_sin(gh, gw, head_dim, freq))
 

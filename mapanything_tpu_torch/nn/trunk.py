@@ -40,6 +40,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.device import device_constant
 from .croco import DecoderBlock
 from .layers import (Block, Dense, FusedLayerNorm, RingGlobalBlock,
                      checkpointed)
@@ -223,6 +224,12 @@ class GlobalAttentionTrunk(_Trunk):
         return self._finish(x, taps, tok, (gh, gw))
 
 
+@device_constant
+def _other_views_index(v: int, p: int, t: int, device) -> torch.Tensor:
+    """other_views_index on `device`."""
+    return torch.from_numpy(other_views_index(v, p, t)).to(device)
+
+
 def other_views_index(v: int, p: int, t: int) -> np.ndarray:
     """(V, (V-1)*P + T) int64: row i lists the positions in [all views'
     patches | T extra tokens] of every key but view i's own patches."""
@@ -273,7 +280,7 @@ class CrossAttentionTrunk(_Trunk):
         b, v, gh, gw, _ = features.shape
         p, t, dim = gh * gw, extra_tokens.shape[1], self.dim
         x, tok = self._project(features, extra_tokens)
-        index = torch.from_numpy(other_views_index(v, p, t)).to(x.device)
+        index = _other_views_index(v, p, t, x.device)
         masked = self.layers[0].cross_attn.attn_impl == "math"
         if masked:  # (V, V*P + T): True = attendable
             mask = torch.zeros((v, v * p + t), dtype=torch.bool,

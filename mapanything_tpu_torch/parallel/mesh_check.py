@@ -116,8 +116,9 @@ def _recording(state):
 
 def _timed(step, state, batch, geom, device, steps) -> dict:
     """`steps` steps after the one already taken: median wall ms, the
-    kernel launches of one step, a profile of one more, peak memory; {}
-    for none."""
+    kernel launches of the last step (from the host: none where the step
+    replays its CUDA graph), a profile of one more, peak memory; {} for
+    none."""
     if not steps:
         return {}
     if device.type == "cuda":
@@ -156,8 +157,10 @@ def reference(cfg, batch, geom, device, steps) -> dict:
     model = _model(cfg, device)
     state = create_train_state(model, OPTIM)
     params = state.optimizer.params
-    loss, _ = overall_loss(batch["gt"], model(batch["views"], geom,
-                                              _generator(geom, device)))
+    # the loss alone: a detail kept alive would hold the autograd graph,
+    # and with it the accumulators the timed step's capture needs
+    loss = overall_loss(batch["gt"], model(batch["views"], geom,
+                                           _generator(geom, device)))[0]
     loss.backward()
     grads = [torch.zeros_like(p) if p.grad is None else p.grad
              for p in params]

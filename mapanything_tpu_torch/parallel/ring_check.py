@@ -223,7 +223,8 @@ def check_block_gradient(dim, heads, n, group, device, dtype) -> dict:
 def _timed_steps(step, model, batch, device, steps, seed=0) -> dict:
     """2 warm-up and `steps` timed calls of step(state, batch, generator)
     from a fresh TrainState, one generator seeded `seed` for all of them:
-    wall ms per step, the launch counts of the last step, the losses, the
+    wall ms per step, the launch counts of the last step (from the host:
+    none where the unsharded step replays its CUDA graph), the losses, the
     peak memory and a profile of one more step."""
     state = create_train_state(model, OptimConfig(warmup_steps=2,
                                                   total_steps=100))

@@ -10,7 +10,9 @@ the clock. Python-side launch counters count the captured calls once, at
 capture; counter checks belong to uncaptured calls. :func:`events_ms`
 times calls that allocate gigabytes each (plain versions) by events around
 a run of calls instead. :func:`profile_calls` reads a call's device time,
-device ops and busy share from torch.profiler (:func:`read_trace`).
+device ops and busy share from torch.profiler (:func:`read_trace`);
+:func:`trace_kernel_counts` counts a trace's kernels by name, a graph's
+replayed launches among them.
 
 :func:`host_transfers` counts what a call moves from the card to the host,
 at the ATen dispatcher.
@@ -114,13 +116,19 @@ SPANS = (
     # models/modular_dust3r.py::ModularDUSt3R.forward
     "model.decoder",      # decoder_embed, both branches' blocks, dec_norm
     "model.heads",        # head1, head2 and the pointmap split
-    # train/step.py: make_train_step, loss_and_grads, make_loss_fn
+    # train/step.py: make_train_step, loss_and_grads, make_loss_fn; the
+    # first four are the eager step's
     "train.forward",      # loss_fn: the model and the criterion
     "train.loss",         # overall_loss, inside train.forward
     "train.backward",     # .backward() (its launches run on autograd's
                           # thread), the gradient list, the all-reduce
     "train.optimizer",    # the global norm, the clip, AdamW, the gradients
                           # freed
+    "train.graph",        # a replay of the captured step: the batch copied
+                          # into the graph's inputs, the optimizer's scalars
+                          # written, the replay, the metrics cloned; no
+                          # train.forward, .loss, .backward or .optimizer
+                          # span opens under it
 )
 
 _NO_SPAN = contextlib.nullcontext()
@@ -231,6 +239,20 @@ def read_trace_events(prof) -> tuple:
             host[e.name[:60]] = (host.get(e.name[:60], 0.0)
                                  + e.self_cpu_time_total)
     return device, host, n_ops
+
+
+def trace_kernel_counts(prof, names) -> dict:
+    """{name: the device ops of a finished torch.profiler trace whose names
+    hold `name`}: the launches that a CUDA graph's replay makes, which no
+    host-side counter sees."""
+    from torch.autograd import DeviceType
+
+    found = dict.fromkeys(names, 0)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            for name in names:
+                found[name] += name in e.name()
+    return found
 
 
 def profile_calls(call, wall_ms: float, calls: int = 3, match=None) -> dict:
@@ -372,4 +394,4 @@ def block_timer(name: str, manager: Optional[BlockTimeManager] = None,
 
 __all__ = ["SPANS", "BlockTimeManager", "Timer", "block_timer",
            "default_manager", "device_ms", "events_ms", "host_us",
-           "profile_calls", "span"]
+           "profile_calls", "span", "trace_kernel_counts"]

@@ -63,7 +63,7 @@ from ..geometry import (
     safe_norm,
     transform_pose_using_quats_and_trans_2_to_1,
 )
-from ..geometry.quats import rotate
+from ..geometry.quats import rotate, unit_w
 from ..ops.ring_attention import all_gather, all_reduce
 from .losses import (
     OverallLossConfig,
@@ -414,7 +414,7 @@ def _gt_pose_in_view0(batch, red: Reduction) -> Tuple[Tensor, Tensor]:
         red.first_view(quats)[:, None].expand_as(quats),
         red.first_view(trans)[:, None].expand_as(trans), quats, trans)
     first = red.is_first_view(quats.shape[1], quats.device)[None, :, None]
-    rq = torch.where(first, rq.new_tensor([0.0, 0.0, 0.0, 1.0]), rq)
+    rq = torch.where(first, unit_w(rq), rq)
     rt = torch.where(first, 0.0, rt)
     return rq, rt
 

@@ -308,12 +308,19 @@ def train_one_epoch(model, state, train_step, loader, epoch: int,
 
     if not main:
         return state, generator
+    # make_train_step's counter of graph captures, replays and eager steps
+    counts = getattr(train_step, "counts", None)
+    if counts is not None:
+        print(f"Epoch [{epoch}] train step: {counts['captures']} captures, "
+              f"{counts['replays']} replays, {counts['eager']} eager "
+              "(since the step was made)")
     with open(log_path, "a") as f:
         f.write(json.dumps({
             "epoch": epoch,
             "train_loss_med": logger.meters["loss"].median,
             "train_loss_avg": logger.meters["loss"].global_avg,
             "steps": n_steps,
+            **({} if counts is None else {"train_step": dict(counts)}),
         }) + "\n")
     return state, generator
 

@@ -30,6 +30,14 @@ gradients are summed over the data group in flat buckets, the global norm
 counts every sharded gradient's squares once over the model group, and
 AdamW updates the local parts. So the step computes what the one-rank step
 computes on the whole batch.
+
+On the card, a step whose inputs match an earlier step's replays a CUDA
+graph of the whole step: forward, criterion, backward, the norm, the clip
+and AdamW, captured once for each batch shape (make_train_step). AdamW
+reads its per-step scalars, the groups' learning rates and the bias
+corrections, from a device tensor that the host writes before each step,
+so the captured update follows the schedule. A mesh, gradient
+accumulation and parameters on the CPU keep the step eager.
 """
 
 from __future__ import annotations
@@ -121,6 +129,11 @@ class AdamW:
     clips the gradients in place; `norm`, their global norm, may be passed
     by a caller that has it already. A tensor-parallel model's parameters
     are its local parts, and their norm is the model group's (model_norm).
+
+    An inner step is `write_scalars()`, the host's part (the count, the
+    schedule), then `update(grads, norm)`, the device's: the update reads
+    its learning rates and bias corrections from `scalars`, so that a CUDA
+    graph of `update` replays each step's values.
     """
 
     def __init__(self, cfg: OptimConfig, model: nn.Module):
@@ -132,6 +145,10 @@ class AdamW:
         self.params = [p for _, p in named]
         self.labels = [group_label(n) for n in self.names]
         self.decay = [p.ndim > 1 for p in self.params]
+        # the inner step's scalars (write_scalars): -lr of the encoder
+        # group and of the rest, then 1 - b1**count and 1 - b2**count
+        self.scalars = torch.zeros(4, dtype=torch.float32,
+                                   device=self.params[0].device)
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0  # inner steps taken (optax's count)
@@ -150,27 +167,44 @@ class AdamW:
             if self.mini_step:
                 return
             grads, norm = self.acc, None
-        self._inner_step(grads, self.norm(grads) if norm is None else norm)
+        self.write_scalars()
+        self.update(grads, self.norm(grads) if norm is None else norm)
         if self.acc is not None:
             for acc in self.acc:
                 acc.zero_()
 
-    @torch.no_grad()
-    def _inner_step(self, grads, norm) -> None:
+    def write_scalars(self) -> None:
+        """Count one inner step and write its scalars to `scalars`: a copy
+        from pinned memory on the current stream, ahead of the update that
+        reads them. Each is the fp32 rounding of the Python float the
+        update once took as an argument."""
         cfg = self.cfg
-        clip = torch.where(norm < cfg.grad_clip, 1.0, cfg.grad_clip / norm)
-        torch._foreach_mul_(grads, clip)
         lr = self.schedule(self.count)
         self.count += 1
+        host = torch.tensor([-(lr * cfg.encoder_lr_scale), -lr,
+                             1 - cfg.b1 ** self.count,
+                             1 - cfg.b2 ** self.count], dtype=torch.float32)
+        if self.scalars.is_cuda:
+            host = host.pin_memory()
+        self.scalars.copy_(host, non_blocking=True)
+
+    @torch.no_grad()
+    def update(self, grads, norm) -> None:
+        """The inner step's device work: the clip, the moments and the
+        update, its per-step scalars read from `scalars`."""
+        cfg = self.cfg
+        lr_encoder, lr_rest, bias1, bias2 = self.scalars.unbind()
+        clip = torch.where(norm < cfg.grad_clip, 1.0, cfg.grad_clip / norm)
+        torch._foreach_mul_(grads, clip)
         # the moments, as optax.scale_by_adam (eps after the square root)
         torch._foreach_mul_(self.mu, cfg.b1)
         torch._foreach_add_(self.mu, grads, alpha=1 - cfg.b1)
         torch._foreach_mul_(self.nu, cfg.b2)
         torch._foreach_addcmul_(self.nu, grads, grads, value=1 - cfg.b2)
-        denom = torch._foreach_div(self.nu, 1 - cfg.b2 ** self.count)
+        denom = torch._foreach_div(self.nu, bias2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, 1e-8)
-        upd = torch._foreach_div(self.mu, 1 - cfg.b1 ** self.count)
+        upd = torch._foreach_div(self.mu, bias1)
         torch._foreach_div_(upd, denom)
         del denom
         decayed = [i for i, d in enumerate(self.decay) if d]
@@ -178,12 +212,12 @@ class AdamW:
             torch._foreach_add_([upd[i] for i in decayed],
                                 [self.params[i] for i in decayed],
                                 alpha=cfg.weight_decay)
-        for label, scale in (("encoder", cfg.encoder_lr_scale), ("rest", 1.0)):
+        for label, neg_lr in (("encoder", lr_encoder), ("rest", lr_rest)):
             idx = [i for i, g in enumerate(self.labels) if g == label]
             if idx:
-                torch._foreach_add_([self.params[i] for i in idx],
-                                    [upd[i] for i in idx],
-                                    alpha=-(lr * scale))
+                scaled = [upd[i] for i in idx]
+                torch._foreach_mul_(scaled, neg_lr)
+                torch._foreach_add_([self.params[i] for i in idx], scaled)
 
 
 @dataclasses.dataclass
@@ -280,6 +314,90 @@ def loss_and_grads(loss_fn, params, batch: Dict,
     return loss.detach(), details, grads
 
 
+def graphable(state: TrainState, batch: Dict, mesh=None) -> bool:
+    """Whether a CUDA graph can serve the step: the parameters and the
+    batch's tensors on one card, no mesh (its collectives) and no gradient
+    accumulation (the micro-steps' Python branch)."""
+    opt = state.optimizer
+    device = opt.params[0].device
+    if device.type != "cuda" or mesh is not None or opt.acc is not None:
+        return False
+    return all(t.device == device for part in ("views", "gt")
+               for t in batch[part].values() if isinstance(t, torch.Tensor))
+
+
+def step_signature(state: TrainState, batch: Dict,
+                   generator: Optional[torch.Generator],
+                   geom_cfg: GeometricInputConfig) -> tuple:
+    """(binding, shape): what a captured step is bound to. The binding is
+    what the graph reads and writes by address: the generator's identity,
+    and the identity and storage of the optimizer's parameters, moments
+    and scalars. The shape is the key, shape, dtype and device of each
+    tensor of the batch's views and gt (a plain value by its value, any
+    other by its identity) and the geometric config."""
+    plain = (str, int, float, bool, type(None))
+
+    def part(d):
+        return tuple(
+            (k, (tuple(v.shape), v.dtype, v.device)
+             if isinstance(v, torch.Tensor)
+             else v if isinstance(v, plain) else id(v))
+            for k, v in sorted(d.items()))
+
+    opt = state.optimizer
+    tensors = [*opt.params, *opt.mu, *opt.nu, opt.scalars]
+    binding = (id(generator), id(opt),
+               tuple((id(t), t.data_ptr()) for t in tensors))
+    return binding, (part(batch["views"]), part(batch["gt"]), geom_cfg)
+
+
+def next_path(signature: Optional[tuple], warmed, captured) -> str:
+    """"eager", "capture" or "replay": a step no graph can serve (signature
+    None) or of a signature not yet run (not in `warmed`) runs eagerly; the
+    second of a signature is captured and replayed, the later ones are
+    replayed (the signature in `captured`)."""
+    if signature is None or signature not in warmed:
+        return "eager"
+    return "replay" if signature in captured else "capture"
+
+
+# raised, from CUDA's own error, where the capture of a step fails
+CAPTURE_FAILED = (
+    "CUDA refused to capture the training step. One cause is an autograd "
+    "graph that the caller keeps alive from an earlier forward on the "
+    "default stream (a loss, or a loss detail, not let go): it holds the "
+    "parameters' gradient accumulators on that stream, which a capture may "
+    "not touch. Let go of such losses and their details before the step")
+
+
+@dataclasses.dataclass
+class _Captured:
+    """One captured step: the graph, its static batch and its metrics."""
+
+    graph: "torch.cuda.CUDAGraph"
+    batch: Dict
+    metrics: Dict
+
+
+class _StepGraphs:
+    """make_train_step's captured steps, one for each signature seen twice,
+    all of one binding (step_signature), whose generator and state are held
+    so that no other object takes their ids. The graphs share one memory
+    pool: one replays at a time and its metrics are cloned out before the
+    next, so their activations are one step's, and each graph kept adds
+    its static batch. A new binding drops them."""
+
+    def __init__(self):
+        self.side = None  # the warm-ups' stream
+        self.reset(None, None)
+
+    def reset(self, binding, held) -> None:
+        self.binding, self.held = binding, held
+        self.warmed: set = set()  # the signatures run eagerly once
+        self.captured: Dict[tuple, _Captured] = {}
+        self.pool = None
+
+
 def make_train_step(model: MapAnything, geom_cfg: GeometricInputConfig,
                     loss_cfg: OverallLossConfig = OverallLossConfig(),
                     mesh=None) -> Callable:
@@ -291,19 +409,33 @@ def make_train_step(model: MapAnything, geom_cfg: GeometricInputConfig,
     masks of a stochastic `geom_cfg` are drawn from it, and a stochastic
     config without one raises ValueError. metrics: "loss", every loss
     detail, and "grad_norm", the global norm before clipping; all are
-    tensors on the model's device.
+    tensors on the model's device, the step's own.
 
     With `mesh` (parallel/mesh.py, after shard_params and before
     create_train_state for a tensor-parallel model), `batch` holds this
     data rank's rows (shard_batch) and the step is the module docstring's:
     the loss, grad_norm and updated parameters of the one-rank step on the
     whole batch, and the loss details are the whole batch's too.
+
+    On the card, without a mesh or accumulation (graphable), the step
+    keeps a CUDA graph of itself for each step_signature (a training
+    loader's aspect-ratio buckets and view counts each get their own). The
+    first step of a signature runs eagerly, on a side stream, as capture's
+    warm-up; the second is captured, and it and the later ones are
+    replays: the batch copied into the graph's inputs, the optimizer's
+    scalars written, one replay, the metrics cloned out (the span
+    "train.graph"). The generator's draws are the eager step's: the graph
+    advances it as the step would. A step with another generator or state
+    drops the graphs. A capture that CUDA refuses raises RuntimeError
+    (CAPTURE_FAILED). `train_step.counts` counts the "captures", the
+    "replays" and the "eager" steps.
     """
     loss_fn = make_loss_fn(model, geom_cfg, loss_cfg, mesh)
     data_group = None if mesh is None else mesh.data_group
+    graphs = _StepGraphs()
+    counts = {"captures": 0, "replays": 0, "eager": 0}
 
-    def train_step(state: TrainState, batch: Dict,
-                   generator: Optional[torch.Generator] = None):
+    def run(state, batch, generator, apply) -> Dict:
         loss, details, grads = loss_and_grads(
             loss_fn, state.optimizer.params, batch, generator, data_group)
         with span("train.optimizer"):
@@ -311,11 +443,78 @@ def make_train_step(model: MapAnything, geom_cfg: GeometricInputConfig,
             metrics = {"loss": loss,
                        **{k: v.detach() for k, v in details.items()},
                        "grad_norm": norm}
-            state.apply_gradients(grads, norm)
+            apply(grads, norm)
             for p in state.optimizer.params:
                 p.grad = None  # free the gradients before the next forward
+        return metrics
+
+    def eager(state, batch, generator) -> Dict:
+        counts["eager"] += 1
+        return run(state, batch, generator, state.apply_gradients)
+
+    def capture(state, batch, generator) -> _Captured:
+        g = torch.cuda.CUDAGraph()
+        if generator is not None:
+            g.register_generator_state(generator)
+        static = {part: {k: v.clone() if isinstance(v, torch.Tensor) else v
+                         for k, v in batch[part].items()}
+                  for part in ("views", "gt")}
+        if graphs.pool is None:
+            graphs.pool = torch.cuda.graph_pool_handle()
+        try:
+            with torch.cuda.graph(g, pool=graphs.pool,
+                                  capture_error_mode="thread_local"):
+                metrics = run(state, static, generator,
+                              state.optimizer.update)
+        except torch.cuda.OutOfMemoryError:
+            raise
+        except RuntimeError as err:
+            raise RuntimeError(CAPTURE_FAILED) from err
+        counts["captures"] += 1
+        return _Captured(g, static, metrics)
+
+    def warm_up(state, batch, generator) -> Dict:
+        """An eager step on a side stream, as capture requires."""
+        if graphs.side is None:
+            graphs.side = torch.cuda.Stream(state.optimizer.params[0].device)
+        main = torch.cuda.current_stream()
+        graphs.side.wait_stream(main)
+        with torch.cuda.stream(graphs.side):
+            metrics = eager(state, batch, generator)
+        main.wait_stream(graphs.side)
+        return metrics
+
+    def train_step(state: TrainState, batch: Dict,
+                   generator: Optional[torch.Generator] = None):
+        signature = (step_signature(state, batch, generator, geom_cfg)
+                     if graphable(state, batch, mesh) else None)
+        binding = None if signature is None else signature[0]
+        if binding != graphs.binding:
+            graphs.reset(binding, None if binding is None
+                         else (generator, state))
+        path = next_path(signature, graphs.warmed, graphs.captured)
+        if path == "eager":
+            if signature is None:
+                return state, eager(state, batch, generator)
+            graphs.warmed.add(signature)
+            return state, warm_up(state, batch, generator)
+        if path == "capture":
+            graphs.captured[signature] = capture(state, batch, generator)
+        step = graphs.captured[signature]
+        with span("train.graph"):
+            if path == "replay":
+                for part, static in step.batch.items():
+                    for k, v in static.items():
+                        if isinstance(v, torch.Tensor):
+                            v.copy_(batch[part][k])
+                counts["replays"] += 1
+            state.optimizer.write_scalars()
+            step.graph.replay()
+            metrics = {k: v.clone() for k, v in step.metrics.items()}
+        state.step += 1
         return state, metrics
 
+    train_step.counts = counts
     return train_step
 
 
@@ -326,10 +525,13 @@ __all__ = [
     "cosine_schedule",
     "create_train_state",
     "global_norm",
+    "graphable",
     "group_label",
     "loss_and_grads",
     "make_loss_fn",
     "make_optimizer",
     "make_train_step",
     "model_norm",
+    "next_path",
+    "step_signature",
 ]

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import numpy as np
 import torch
@@ -29,6 +30,23 @@ def to_device(batch, device):
     if isinstance(batch, torch.Tensor):
         return batch.to(device)
     return batch
+
+
+def device_constant(make):
+    """`make(*args)` (a size's constant tensors on a device, the device
+    among the args) made once for each args and kept for the process: a
+    copy to the card inside a training step would stop its CUDA graph's
+    capture, and a captured step reads the tensors by address, so none may
+    be freed while a graph lives (the args are a deployment's few sizes).
+    Made outside inference mode, so that a training step may save it for
+    its backward; callers read the tensors and never write them."""
+
+    @functools.cache
+    def cached(*args):
+        with torch.inference_mode(False):
+            return make(*args)
+
+    return functools.wraps(make)(cached)
 
 
 @contextlib.contextmanager

@@ -2,9 +2,17 @@
 `infer`, ModularDUSt3R's forward and the training step records its span
 once a call under torch.profiler, the model's spans nest inside the entry
 that calls the model, and with no profiler running a span is one shared
-null context that never builds a record_function."""
+null context that never builds a record_function. The span of a graph
+replay ("train.graph") opens only on the card
+(tests/test_torch_train_cuda.py); here the eager step never records it,
+and perfbench's graph_replay_share.train reads it from a hand-made
+trace."""
 
 from __future__ import annotations
+
+import importlib.util
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -42,6 +50,8 @@ ROWS = {
 }
 # the span each model span lies in, by entry
 PARENT = {"infer": "infer.forward", "train": "train.forward"}
+# the spans that open only on the card: a replay of the captured step
+CARD_ONLY = ("train.graph",)
 
 
 def _mapanything():
@@ -113,8 +123,54 @@ def test_each_layer_records_its_span_once_a_call(entry):
 
 
 def test_every_span_is_some_entry_row():
-    assert set(timing.SPANS) == set().union(*ROWS.values())
+    assert set(timing.SPANS) == set().union(*ROWS.values(), CARD_ONLY)
     assert len(set(timing.SPANS)) == len(timing.SPANS)
+
+
+def test_the_cpu_step_is_eager_and_counts_it():
+    """Parameters on the CPU keep every step eager: no train.graph span, the
+    step's counter all "eager"."""
+    model = _mapanything()
+    state = PS.create_train_state(model, PS.OptimConfig())
+    step = PS.make_train_step(model, images_only_config())
+    batch = make_synthetic_batch(1, 2, H, W, seed=0, device="cpu")
+    batch = {"views": {"img": batch["views"]["img"]}, "gt": batch["gt"]}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(CALLS):
+            step(state, batch)
+    names = [name for name, _, _ in _annotations(prof)]
+    assert "train.graph" not in names
+    assert names.count("train.forward") == CALLS
+    assert step.counts == {"captures": 0, "replays": 0, "eager": CALLS}
+
+
+def _graph_share_reader():
+    """perfbench/metrics/graph_replay_share.train.py, loaded by path as the
+    benchmark's harness loads it."""
+    path = (Path(__file__).resolve().parent.parent / "perfbench" / "metrics"
+            / "graph_replay_share.train.py")
+    spec = importlib.util.spec_from_file_location("graph_replay_share", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("spans, calls, want", [
+    ([(10, 40), (50, 90)], 2, 100.0),   # one replay a call
+    ([(10, 40)], 2, 50.0),              # one call eager
+    ([(10, 40), (95, 120)], 2, 50.0),   # a replay past the window's end
+    ([], 2, None),                      # every step eager: nothing to read
+])
+def test_graph_replay_share_reads_the_replays_of_the_window(spans, calls,
+                                                            want):
+    reader = _graph_share_reader()
+    assert reader.SPAN == "train.graph" and reader.SPAN in timing.SPANS
+    host = [("perfbench.call", 0, 45, 1), ("perfbench.call", 45, 100, 1),
+            ("train.forward", 12, 20, 1)]
+    host += [("train.graph", s, e, 1) for s, e in spans]
+    trace = SimpleNamespace(window_ns=(0, 100), calls=calls, host=host)
+    assert reader.read(SimpleNamespace(trace=trace)) == want
+    assert reader.read(SimpleNamespace(trace=None)) is None
 
 
 def test_span_off_is_the_shared_null_context(monkeypatch):
@@ -179,8 +235,6 @@ def test_read_trace_leaves_the_spans_device_ranges_out():
     """On the card, each span also has a range on the device's timeline
     over the kernels it launched: neither reader counts it as a device op,
     nor as device time."""
-    from types import SimpleNamespace
-
     from torch.autograd import DeviceType
 
     cpu, cuda = DeviceType.CPU, DeviceType.CUDA
@@ -209,3 +263,35 @@ def test_read_trace_leaves_the_spans_device_ranges_out():
         assert n_ops == 2
     host = timing.read_trace(prof)[1]
     assert host == {"model.trunk": 7.0, "aten::mm": 2.0}
+
+
+def test_trace_kernel_counts_counts_the_device_kernels_by_name():
+    """perf/timing.py::trace_kernel_counts, which counts a graph replay's
+    training kernels on the card: device kernels whose names hold each
+    name, not the spans' device ranges and not host ops of the same
+    name."""
+    from torch.autograd import DeviceType
+
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    kineto = [  # (name, device, start ns, end ns, user annotation)
+        ("train.graph", cpu, 0, 9000, True),
+        ("train.graph", cuda, 100, 8000, True),
+        ("flash_fwd_sm90_wrapper", cpu, 100, 200, False),
+        ("void flash_fwd_sm90_kernel<Cfg<true>>", cuda, 200, 900, False),
+        ("void flash_fwd_sm90_simple_kernel<Cfg<true>>", cuda, 900, 1300,
+         False),
+        ("void flash_bwd_dkv_sm90_kernel<float>", cuda, 1300, 2000, False),
+        ("void flash_bwd_dq_sm90_kernel<float>", cuda, 2000, 2900, False),
+        ("gemm_kernel", cuda, 2900, 4000, False),
+    ]
+    events = [_KinetoEvent(*row) for row in kineto]
+    prof = SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: events)))
+    got = timing.trace_kernel_counts(
+        prof, ("flash_fwd_sm90", "flash_bwd_dkv_sm90", "flash_bwd_dq_sm90",
+               "train.graph"))
+    assert got == {"flash_fwd_sm90": 2, "flash_bwd_dkv_sm90": 1,
+                   "flash_bwd_dq_sm90": 1, "train.graph": 0}
+    with profile(activities=[ProfilerActivity.CPU]) as real:
+        torch.ones(3).sum()
+    assert timing.trace_kernel_counts(real, ("sum",)) == {"sum": 0}

@@ -14,8 +14,17 @@ jax.default_matmul_precision("highest"). Tolerances:
     the optimizers are compared on identical gradients);
   * (c) the group labels and the weight-decay mask equal JAX's leaf for
     leaf;
-  * (d) the losses of 3 whole steps within 1e-4 relative.
+  * (d) the losses of 3 whole steps within 1e-4 relative;
+  * (e) AdamW reading its per-step scalars from its device tensor against
+    the Python-float arithmetic: moments bitwise, parameters within one
+    unit in the last place a step, across warmup, cosine and a resume;
+  * (f) the rule that engages the step's CUDA graphs, on the step's
+    inputs, the CPU's steps all eager, and the device constants a graph
+    reads kept for the process (the graphs themselves:
+    tests/test_torch_train_cuda.py).
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import optax
@@ -255,3 +264,177 @@ def test_flop_counts_match_jax(res, views):
     assert PF.train_step_flops(res, views) == JF.train_step_flops(res, views)
     assert (PF.global_attention_tokens(res, views)
             == JF.global_attention_tokens(res, views))
+
+
+def _python_float_adamw(cfg, opt, params, mu, nu, grads, count):
+    """The inner step as AdamW once computed it, its learning rate and bias
+    corrections passed to the foreach ops as Python floats (count: the
+    steps taken before this one)."""
+    lr = PS.cosine_schedule(cfg)(count)
+    count += 1
+    norm = PS.global_norm(grads)
+    clip = torch.where(norm < cfg.grad_clip, 1.0, cfg.grad_clip / norm)
+    torch._foreach_mul_(grads, clip)
+    torch._foreach_mul_(mu, cfg.b1)
+    torch._foreach_add_(mu, grads, alpha=1 - cfg.b1)
+    torch._foreach_mul_(nu, cfg.b2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1 - cfg.b2)
+    denom = torch._foreach_div(nu, 1 - cfg.b2 ** count)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, 1e-8)
+    upd = torch._foreach_div(mu, 1 - cfg.b1 ** count)
+    torch._foreach_div_(upd, denom)
+    decayed = [i for i, d in enumerate(opt.decay) if d]
+    torch._foreach_add_([upd[i] for i in decayed],
+                        [params[i] for i in decayed], alpha=cfg.weight_decay)
+    for label, scale in (("encoder", cfg.encoder_lr_scale), ("rest", 1.0)):
+        idx = [i for i, g in enumerate(opt.labels) if g == label]
+        torch._foreach_add_([params[i] for i in idx], [upd[i] for i in idx],
+                            alpha=-(lr * scale))
+    return lr
+
+
+def test_adamw_device_scalars_match_python_floats(setup, tmp_path):
+    """AdamW reading its learning rates and bias corrections from the
+    device tensor `scalars` against the Python-float arithmetic, over 6
+    steps across the end of the warmup (2 steps) and into the cosine, with
+    a resume through train/checkpoints.py after the third. The moments
+    follow their own trajectory on both sides and match bitwise; each
+    step's parameters, from the same parameters before it, within one
+    unit in the last place of the larger of their values before and after
+    (the new update rounds lr * update before the addition that the old
+    one fused)."""
+    from mapanything_tpu_torch.train.checkpoints import (load_train_state,
+                                                         save_train_state)
+
+    _, params, _ = setup
+    cfg = PS.OptimConfig(warmup_steps=2, total_steps=8)
+    state = PS.create_train_state(_port_model(params), cfg)
+    opt = state.optimizer
+    mu = [torch.zeros_like(p) for p in opt.params]
+    nu = [torch.zeros_like(p) for p in opt.params]
+    rng = np.random.default_rng(5)
+    lrs = []
+    for step in range(6):
+        if step == 3:  # resume into a fresh model and optimizer
+            path = str(tmp_path / "ckpt")
+            save_train_state(path, state)
+            state = PS.create_train_state(_port_model(params), cfg)
+            state, _, _ = load_train_state(path, state)
+            opt = state.optimizer
+            assert opt.count == 3
+        # the norm far above the clip on even steps, far below on odd ones
+        scale = 1e-2 if step % 2 == 0 else 1e-5
+        grads = [torch.from_numpy(
+            (scale * rng.standard_normal(p.shape)).astype(np.float32))
+            for p in opt.params]
+        before = [p.detach().clone() for p in opt.params]
+        want = [b.clone() for b in before]
+        lrs.append(_python_float_adamw(cfg, opt, want, mu, nu,
+                                       [g.clone() for g in grads], step))
+        opt.step(grads)
+        enc, rest, bias1, bias2 = opt.scalars.tolist()
+        assert (enc, rest) == (np.float32(-lrs[-1] * cfg.encoder_lr_scale),
+                               np.float32(-lrs[-1]))
+        assert (bias1, bias2) == (np.float32(1 - cfg.b1 ** (step + 1)),
+                                  np.float32(1 - cfg.b2 ** (step + 1)))
+        for i, name in enumerate(opt.names):
+            assert torch.equal(opt.mu[i], mu[i]), f"step {step} mu {name}"
+            assert torch.equal(opt.nu[i], nu[i]), f"step {step} nu {name}"
+            ulp = np.spacing(np.maximum(np.abs(before[i].numpy()),
+                                        np.abs(want[i].numpy())))
+            gap = np.abs(opt.params[i].detach().numpy() - want[i].numpy())
+            assert (gap <= ulp).all(), f"step {step} {name}"
+    assert lrs[0] == 0.0 and lrs[2] == cfg.lr and lrs[5] < lrs[3]
+
+
+def test_graph_engagement_rule(setup):
+    """step_signature, next_path and graphable: the step's inputs alone
+    decide whether it replays, is captured or runs eagerly, and whether
+    the graphs kept are dropped (a new binding)."""
+    _, params, _ = setup
+    model = _port_model(params)
+    geom = images_only_config()
+    state = PS.create_train_state(model, PS.OptimConfig())
+    batch = make_synthetic_batch(1, 2, H, W, seed=0, device="cpu")
+    gen = torch.Generator()
+    sig = PS.step_signature(state, batch, gen, geom)
+    # the same signature: eager once, captured once, then replayed
+    other = make_synthetic_batch(1, 2, H, W, seed=1, device="cpu")
+    assert PS.step_signature(state, other, gen, geom) == sig
+    assert PS.next_path(sig, set(), {}) == "eager"
+    assert PS.next_path(sig, {sig}, {}) == "capture"
+    assert PS.next_path(sig, {sig}, {sig: None}) == "replay"
+    # a new shape or geometric config: eager first, under the same
+    # binding, so the graphs of the other shapes are kept
+    wider = make_synthetic_batch(1, 2, H, W + 14, seed=0, device="cpu")
+    for new in (PS.step_signature(state, wider, gen, geom),
+                PS.step_signature(state, batch, gen,
+                                  GeometricInputConfig())):
+        assert new != sig and new[0] == sig[0]
+        assert PS.next_path(new, {sig}, {sig: None}) == "eager"
+        assert PS.next_path(new, {sig, new}, {sig: None}) == "capture"
+    # a new generator or state: a new binding, which drops the graphs
+    fresh = PS.create_train_state(model, PS.OptimConfig())
+    for new in (PS.step_signature(state, batch, torch.Generator(), geom),
+                PS.step_signature(fresh, batch, gen, geom)):
+        assert new[0] != sig[0] and new[1] == sig[1]
+    # a moment replaced in place of the optimizer's
+    fresh.optimizer.mu = list(state.optimizer.mu)
+    fresh.optimizer.nu = list(state.optimizer.nu)
+    fresh.optimizer.scalars = state.optimizer.scalars
+    fresh.optimizer.mu[0] = torch.zeros_like(fresh.optimizer.mu[0])
+    assert PS.step_signature(fresh, batch, gen, geom)[0] != sig[0]
+    assert PS.next_path(None, {sig}, {sig: None}) == "eager"
+    # graphable: parameters and batch on the card, no mesh, no accumulation
+    card = torch.device("cuda", 0)
+
+    def fake(acc=None, batch_tensor=None):
+        opt = SimpleNamespace(params=[SimpleNamespace(device=card)], acc=acc)
+        views = {} if batch_tensor is None else {"img": batch_tensor}
+        return SimpleNamespace(optimizer=opt), {"views": views, "gt": {}}
+
+    assert PS.graphable(*fake())
+    assert not PS.graphable(*fake(), mesh=SimpleNamespace())
+    assert not PS.graphable(*fake(acc=[]))
+    assert not PS.graphable(*fake(batch_tensor=torch.zeros(1)))  # off it
+    assert not PS.graphable(state, batch)  # the CPU
+    acc_state = PS.create_train_state(model, PS.OptimConfig(accum_steps=2))
+    assert not PS.graphable(acc_state, batch)
+
+
+def test_cpu_steps_stay_eager(setup):
+    """Every step on the CPU runs eagerly, accumulation or not, and the
+    counter says so."""
+    _, params, _ = setup
+    batch = make_synthetic_batch(1, 2, H, W, seed=0, device="cpu")
+    batch = {"views": {"img": batch["views"]["img"]}, "gt": batch["gt"]}
+    for accum in (1, 2):
+        port = _port_model(params)
+        step = PS.make_train_step(port, images_only_config())
+        state = PS.create_train_state(port, PS.OptimConfig(accum_steps=accum))
+        for _ in range(3):
+            state, _ = step(state, batch)
+        assert step.counts == {"captures": 0, "replays": 0, "eager": 3}
+        assert state.step == 3 and state.optimizer.count == 3 // accum
+
+
+def test_device_constants_outlive_other_sizes():
+    """utils/device.py::device_constant keeps every size's tensors: a
+    captured step reads them by address, so other sizes made in between
+    (more than a bounded cache would hold) leave the first size's tensor
+    the same object."""
+    from mapanything_tpu_torch.utils.device import device_constant
+
+    made = []
+
+    @device_constant
+    def table(n, device):
+        made.append(n)
+        return torch.arange(n, dtype=torch.float32, device=device)
+
+    first = table(3, "cpu")
+    for n in range(4, 40):
+        table(n, "cpu")
+    assert table(3, "cpu") is first
+    assert made == list(range(3, 40))

@@ -266,6 +266,8 @@ def test_cli_trains_tensor_parallel_under_two_ranks(wai_root, tmp_path):
         assert int(res["split"]) > 0
     log = [json.loads(line) for line in (tmp_path / "log.txt").open()]
     assert len(log) == 1 and log[0]["steps"] == 2
+    # a mesh keeps every step eager; the log carries the step's counter
+    assert log[0]["train_step"] == {"captures": 0, "replays": 0, "eager": 2}
     assert math.isfinite(log[0]["train_loss_avg"])
     assert (tmp_path / "checkpoint-best").exists()
     fresh = PS.create_train_state(
